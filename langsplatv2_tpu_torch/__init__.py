@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of langsplatv2_tpu for one NVIDIA H100.
+
+The JAX package `langsplatv2_tpu/` is the reference; each module here names
+its counterpart there by file. This package imports torch and numpy only —
+never jax, and nothing of `langsplatv2_tpu` (whose own `__init__` imports
+jax).
+
+Slice in place: the serving path of the merged 3-level quick model —
+preprocess -> entry expansion (CUDA kernel K1) -> key sort -> tile blend
+(CUDA kernel K2) -> Gram relevancy query (CUDA kernel K3) -> relevancy
+tail. Kernels are built from `csrc/` with nvcc at first use
+(`ops/kernels.py`); on CPU tensors every kernel wrapper runs its plain
+PyTorch version instead.
+
+Entry points take `device=`; they run on "cuda" unless the caller passes
+`device="cpu"`, and raise when CUDA is asked for but absent.
+"""

@@ -1,0 +1,170 @@
+// K2: front-to-back blend of each 16x16 tile's depth-sorted entry segment,
+// RGB plus (quick mode) the top-k (weight, index) pairs expanded to channels.
+//
+// Replaces the TPU kernel langsplatv2_tpu/ops/pallas_blend.py::_blend_kernel
+// (pallas_call at :695 in _blend_call; wrapper blend_tiles_pallas) in its f32
+// "rgb" and "quick" modes. The Pallas kernel builds [P, chunk] alpha matrices,
+// scans the transmittance in log depth and accumulates with one MXU matmul per
+// chunk, from 128-aligned field-major rows that an XLA gather packed before.
+// None of that is needed here: one block of 256 threads takes one tile, one
+// thread per pixel, and walks the segment in batches of kBatch entries. Each
+// batch's per-Gaussian state (xy, conic, opacity, rgb, top-k weights and
+// indices) is gathered straight from the per-Gaussian arrays by g_sorted into
+// shared memory, so no packed entry rows are ever written. Each pixel then runs
+// the sequential CUDA-rasterizer loop:
+//   power > 0 or alpha < 1/255  -> skip (does not count);
+//   T * (1 - alpha) < 1e-4      -> the pixel ends, this entry not included;
+//   else acc += alpha * T * feature, T *= 1 - alpha.
+// The block leaves once every pixel has ended (__syncthreads_count).
+//
+// Bound on this card: bytes (the [T, 256, 3 + C + 1] f32 output write and the
+// gathered entry state) and, in quick mode, the f32 pair work (entries x 256
+// pixels of alpha tests, top-k accumulates per included pair). The 192 channel
+// accumulators per pixel live in shared memory ([C][257] f32, 197 KB at C=192,
+// padded so that both the per-pixel updates and the coalesced write-out are
+// free of bank conflicts); one block fits an SM, and the rest of the 227 KB
+// holds a batch of 128 entries. Making it faster (more blocks per SM, register
+// accumulators for a level's band) is later work.
+//
+// Numerics: compiled with -fmad=false; the plain PyTorch version (ops/blend.py)
+// runs the same sequence of f32 ops, so the two agree to the last bit on the
+// alpha and termination tests.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 16;
+constexpr int kPix = kBlock * kBlock;  // threads per block = pixels per tile
+constexpr int kPad = kPix + 1;         // accumulator row stride
+constexpr int kBatch = 128;            // entries staged per batch
+constexpr int kGeom = 9;               // x y ca cb cc op r g b
+constexpr float kAlphaMin = 0.003921569f;  // f32(1/255)
+constexpr float kAlphaMax = 0.99f;
+constexpr float kTEps = 1e-4f;
+
+__device__ __forceinline__ void add_stats(unsigned long long* stats,
+                                          unsigned long long n_eval,
+                                          unsigned long long n_inc) {
+  for (int off = 16; off > 0; off >>= 1) {
+    n_eval += __shfl_down_sync(0xffffffffu, n_eval, off);
+    n_inc += __shfl_down_sync(0xffffffffu, n_inc, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(stats, n_eval);
+    atomicAdd(stats + 1, n_inc);
+  }
+}
+
+__global__ void __launch_bounds__(kPix)
+    blend_kernel(const int* __restrict__ g_sorted,
+                 const int* __restrict__ tile_start,
+                 const int* __restrict__ tile_count,
+                 const float* __restrict__ geom, const float* __restrict__ qw,
+                 const int* __restrict__ qi, const float* __restrict__ bg,
+                 int grid_x, int topk, int channels,
+                 float* __restrict__ rgb_out, float* __restrict__ feat_out,
+                 float* __restrict__ t_out,
+                 unsigned long long* __restrict__ stats) {
+  extern __shared__ float smem[];
+  float* acc = smem;                               // [channels][kPad]
+  float* s_geom = acc + channels * kPad;           // [kGeom][kBatch]
+  float* s_w = s_geom + kGeom * kBatch;            // [topk][kBatch]
+  int* s_idx = reinterpret_cast<int*>(s_w + topk * kBatch);  // [topk][kBatch]
+
+  const int tile = blockIdx.x;
+  const int pix = threadIdx.x;
+  const int start = tile_start[tile];
+  const int count = tile_count[tile];
+  const float px = (float)((tile % grid_x) * kBlock + pix % kBlock);
+  const float py = (float)((tile / grid_x) * kBlock + pix / kBlock);
+
+  for (int c = 0; c < channels; ++c) acc[c * kPad + pix] = 0.0f;
+  float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
+  bool done = false;
+  unsigned long long n_eval = 0, n_inc = 0;
+
+  for (int b0 = 0; b0 < count; b0 += kBatch) {
+    const int nb = min(kBatch, count - b0);
+    __syncthreads();  // the previous batch is consumed
+    if (pix < nb) {
+      const int gi = g_sorted[start + b0 + pix];
+      const float* row = geom + (size_t)gi * kGeom;
+      for (int f = 0; f < kGeom; ++f) s_geom[f * kBatch + pix] = row[f];
+      for (int k = 0; k < topk; ++k) {
+        s_w[k * kBatch + pix] = qw[(size_t)gi * topk + k];
+        s_idx[k * kBatch + pix] = qi[(size_t)gi * topk + k];
+      }
+    }
+    __syncthreads();
+    for (int j = 0; j < nb && !done; ++j) {
+      const float dx = px - s_geom[0 * kBatch + j];
+      const float dy = py - s_geom[1 * kBatch + j];
+      const float ca = s_geom[2 * kBatch + j];
+      const float cb = s_geom[3 * kBatch + j];
+      const float cc = s_geom[4 * kBatch + j];
+      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+      ++n_eval;
+      if (power > 0.0f) continue;
+      const float alpha = fminf(kAlphaMax, s_geom[5 * kBatch + j] * expf(power));
+      if (alpha < kAlphaMin) continue;
+      const float test_t = T * (1.0f - alpha);
+      if (test_t < kTEps) {
+        done = true;
+        break;
+      }
+      const float w = alpha * T;
+      r += w * s_geom[6 * kBatch + j];
+      g += w * s_geom[7 * kBatch + j];
+      b += w * s_geom[8 * kBatch + j];
+      for (int k = 0; k < topk; ++k) {
+        const int c = s_idx[k * kBatch + j];
+        if ((unsigned)c < (unsigned)channels)
+          acc[c * kPad + pix] += w * s_w[k * kBatch + j];
+      }
+      T = test_t;
+      ++n_inc;
+    }
+    if (__syncthreads_count(done) == kPix) break;
+  }
+
+  const size_t p = (size_t)tile * kPix + pix;
+  rgb_out[3 * p + 0] = r + T * bg[0];
+  rgb_out[3 * p + 1] = g + T * bg[1];
+  rgb_out[3 * p + 2] = b + T * bg[2];
+  t_out[p] = T;
+  if (stats != nullptr) add_stats(stats, n_eval, n_inc);
+  if (channels > 0) {
+    __syncthreads();
+    // Coalesced write of the tile's [kPix, channels] block.
+    float* dst = feat_out + (size_t)tile * kPix * channels;
+    for (int i = pix; i < kPix * channels; i += kPix) {
+      const int q = i / channels;
+      const int c = i - q * channels;
+      dst[i] = acc[c * kPad + q];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
+                                const int* tile_count, const float* geom,
+                                const float* qw, const int* qi,
+                                const float* bg, int num_tiles, int grid_x,
+                                int topk, int channels, float* rgb_out,
+                                float* feat_out, float* t_out,
+                                unsigned long long* stats, void* stream) {
+  cudaGetLastError();  // drop a stale error so only this launch reports
+  const size_t smem = sizeof(float) * ((size_t)channels * kPad +
+                                       (size_t)kGeom * kBatch +
+                                       2 * (size_t)topk * kBatch);
+  cudaError_t err = cudaFuncSetAttribute(
+      blend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles > 0) {
+    blend_kernel<<<num_tiles, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
+        g_sorted, tile_start, tile_count, geom, qw, qi, bg, grid_x, topk,
+        channels, rgb_out, feat_out, t_out, stats);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

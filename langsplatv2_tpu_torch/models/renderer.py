@@ -1,0 +1,82 @@
+"""Render facade: camera + GaussianModel -> images and maps
+(port of langsplatv2_tpu/models/renderer.py).
+
+Two modes of this slice: `quick_render=True` (the merged model's 192-channel
+coefficient map) and RGB only, with SH colours. The training mode
+(`include_feature`) and the Python-side covariance belong to later slices
+and raise; override colours and Python-side SH are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..device import resolve_device
+from ..ops.rasterize import RasterizeSettings, rasterize
+from .gaussians import GaussianModel
+
+
+class RenderOutput(NamedTuple):
+    render: torch.Tensor                        # [3, H, W]
+    language_feature_weight_map: torch.Tensor | None  # [C, H, W] | [T, 256, C]
+    visibility_filter: torch.Tensor             # [N] bool
+    radii: torch.Tensor                         # [N] int32
+    final_transmittance: torch.Tensor           # [H, W]
+    max_tile_count: torch.Tensor                # []
+    total_entries: torch.Tensor                 # []
+    live_total: torch.Tensor | None = None      # []
+
+
+def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
+                  max_entries: int = 2 ** 21, impl: str = "auto",
+                  live_entries: int = 0, tile_budget: float = 0.0,
+                  cull_alpha: float = 1.0 / 255.0) -> RasterizeSettings:
+    """`camera` has image_height, image_width, tanfovx and tanfovy. The
+    JAX options tile_cap, tile_batch, tile_budget_cap and
+    tile_budget_subdiv belong to later slices and are left out."""
+    return RasterizeSettings(
+        image_height=int(camera.image_height),
+        image_width=int(camera.image_width),
+        tanfovx=float(camera.tanfovx), tanfovy=float(camera.tanfovy),
+        sh_degree=sh_degree, scale_modifier=scaling_modifier,
+        max_entries=max_entries, impl=impl, live_entries=live_entries,
+        tile_budget=tile_budget, cull_alpha=cull_alpha)
+
+
+def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
+           projmatrix, campos, bg_color, *, include_feature: bool = False,
+           quick_render: bool = False, compute_cov3d_python: bool = False,
+           device=None,
+           stage_events: list | None = None) -> RenderOutput:
+    if include_feature:
+        raise NotImplementedError(
+            "include_feature (training mode) belongs to a later slice of "
+            "the port: feature-phase training (ROADMAP.md, Queue 1 item 7)")
+    if compute_cov3d_python:
+        raise NotImplementedError(
+            "compute_cov3d_python belongs to a later slice of the port: the "
+            "differentiable reference rasterizer (ROADMAP.md, Queue 1 item 4)")
+    dev = resolve_device(device)
+    quick_weights = quick_indices = None
+    quick_channels = 0
+    if quick_render:
+        if model.quick_weights is None or model.quick_indices is None:
+            raise ValueError("quick_render needs a merged model's "
+                             "quick_weights and quick_indices")
+        quick_weights, quick_indices = model.quick_weights, model.quick_indices
+        quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
+
+    out = rasterize(
+        settings, model.xyz, model.get_opacity(), viewmatrix, projmatrix,
+        campos, bg_color, scales=model.get_scaling(),
+        rotations=model.get_rotation(), shs=model.get_features(),
+        quick_weights=quick_weights,
+        quick_indices=quick_indices, quick_channels=quick_channels,
+        device=dev, stage_events=stage_events)
+    return RenderOutput(
+        render=out.rgb, language_feature_weight_map=out.feature_map,
+        visibility_filter=out.radii > 0, radii=out.radii,
+        final_transmittance=out.final_transmittance,
+        max_tile_count=out.max_tile_count, total_entries=out.total_entries,
+        live_total=out.live_total)

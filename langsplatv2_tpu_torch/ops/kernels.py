@@ -1,0 +1,155 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+No JAX counterpart: Pallas kernels compile inside `pl.pallas_call`. Here
+each `csrc/*.cu` source has a plain C interface; all sources are compiled
+by nvcc for sm_90a at first use, each by its own nvcc process (started
+together), linked into `build/langsplatv2_tpu_torch/libkernels.so` and
+loaded with ctypes. The library is rebuilt when the hash of the sources or
+flags changes. Nothing here runs at import time: the CPU tests import
+every module on a host without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+# expand.cu and blend.cu round every f32 op on its own (no fused
+# multiply-add), as their plain PyTorch versions do: the entry sets of K1
+# and the alpha / termination tests of K2 then agree bit for bit.
+SOURCES = {
+    "expand.cu": ["-fmad=false"],
+    "blend.cu": ["-fmad=false"],
+    "query.cu": [],
+    "errors.cu": [],
+}
+
+# (name, argument types) of every C entry point; all return a cudaError_t.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    # xy depth conic opacity rect_min rect_max tiles offsets n grid_x
+    # max_entries sentinel exact_cull inv_cull_alpha tile depth gauss stream
+    "lsv2_expand_entries": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 4,
+    # g_sorted tile_start tile_count geom qw qi bg num_tiles grid_x topk
+    # channels rgb feat final_t stats stream
+    "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
+    # wm phi gram n_tiles levels pq raw nrm2 stream
+    "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
+}
+
+NULL = ctypes.c_void_p(None)   # an absent optional pointer argument
+_library = None
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.sha256(" ".join([nvcc, *ARCH, *COMMON]).encode())
+    for name, flags in sorted(SOURCES.items()):
+        h.update(name.encode() + " ".join(flags).encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()
+
+
+def build() -> tuple[Path, float]:
+    """Compile (if stale) and return (library path, seconds spent building)."""
+    nvcc = _nvcc()
+    digest = _digest(nvcc)
+    lib = BUILD_DIR / "libkernels.so"
+    stamp = BUILD_DIR / "libkernels.sha256"
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib, 0.0
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    jobs = []
+    for name, flags in SOURCES.items():
+        obj = BUILD_DIR / f"{Path(name).stem}.{tag}.o"
+        cmd = [nvcc, *ARCH, *COMMON, *flags, "-c", str(CSRC / name),
+               "-o", str(obj)]
+        jobs.append((name, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failures = []
+    for name, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"--- nvcc {name} (exit {proc.returncode})\n{out}")
+    if failures:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failures))
+    tmp = BUILD_DIR / f"libkernels.{tag}.so"
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp),
+         *[str(obj) for _n, obj, _p in jobs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for _n, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"kernel link failed\n{link.stdout}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib, time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lsv2_error_string.argtypes = [ctypes.c_int]
+        lib.lsv2_error_string.restype = ctypes.c_char_p
+        _library = lib
+    return _library
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name`; raise if it reports a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.lsv2_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless `t` has this dtype, shape (None = any extent), device
+    and a contiguous layout."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
