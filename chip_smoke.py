@@ -18,9 +18,23 @@ Phases (any failure exits non-zero, and no result line is printed):
 5. at both loads, each kernel on the main path's own inputs held against
    its plain version on the same inputs (tolerances as in phase 3) and
    timed beside it, with its bound for this run's data and (K3) the
-   einsum form.
-It prints the kernels line (max_abs_err: the largest of phases 3 and 5)
-and, last, {"ok": true, "device": {...}}.
+   einsum form;
+6. training kernels on a reduced scene (50k Gaussians, 272x480): K6a
+   (per-tile sums rtol 1e-5 / atol 1e-4), K6b (1e-4 of its largest
+   output) and K4 (1e-5 of its largest output) against their plain
+   versions on one step's inputs, the fused loss against the plain
+   autograd of trainer._gram_cos_core (value rtol 1e-5, gradients 1e-4),
+   and K6 at M = 192 on random inputs;
+7. the training slice at full width (scripts/profile_train.py's scene:
+   300k Gaussians, 544x960, L=1, K=64, top-4, a 512-row GT table, 4
+   cameras): train_features for 20 steps with the launch counters zeroed
+   just before and read just after; fails unless K1, K2, K4, K6a and K6b
+   all launched, the loss is finite and falls, and no budget saturates;
+   then K4/K6a/K6b on one step's own inputs against their plain versions
+   (as in phase 6) and timed beside their bounds, with the step's stages
+   timed alone.
+It prints the kernels line (max_abs_err: the largest of phases 3 and 5,
+or 6 and 7) and, last, {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -37,11 +51,15 @@ import numpy as np
 import torch
 
 from langsplatv2_tpu_torch.eval.openclip import OpenCLIPNetwork
-from langsplatv2_tpu_torch.models.gaussians import from_numpy_params
-from langsplatv2_tpu_torch.models.renderer import render
-from langsplatv2_tpu_torch.ops import blend, expand, kernels, projection, query
+from langsplatv2_tpu_torch.models.gaussians import (from_numpy_params,
+                                                    init_language_features)
+from langsplatv2_tpu_torch.models.renderer import make_settings, render
+from langsplatv2_tpu_torch.ops import (blend, expand, gram, kernels,
+                                       projection, query, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
     sorted_binning
+from langsplatv2_tpu_torch.scene.cameras import Camera
+from langsplatv2_tpu_torch.train import trainer
 from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
                                                      get_world_to_view)
 
@@ -69,9 +87,25 @@ KERNELS = {
            "langsplatv2_tpu/ops/pallas_blend.py:695"),
     "K3": ("query_map_tiles", "langsplatv2_tpu_torch/csrc/query.cu",
            "langsplatv2_tpu/ops/pallas_query.py:92"),
+    "K4": ("feature_grads", "langsplatv2_tpu_torch/csrc/feature_bwd.cu",
+           "langsplatv2_tpu/ops/pallas_train.py:241"),
+    "K6a": ("gram_tiles_fwd", "langsplatv2_tpu_torch/csrc/gram.cu",
+            "langsplatv2_tpu/ops/pallas_gram.py:175"),
+    "K6b": ("gram_tiles_bwd", "langsplatv2_tpu_torch/csrc/gram.cu",
+            "langsplatv2_tpu/ops/pallas_gram.py:205"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
+TRAIN_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                  "K4": train.feature_grads, "K6a": gram.gram_tiles_fwd,
+                  "K6b": gram.gram_tiles_bwd}
+# The training slice (scripts/profile_train.py's scene): 300k Gaussians at
+# 544x960, one level of 64 codes, top-4, a 512-row GT table.
+TRAIN_N, TRAIN_H, TRAIN_W, TRAIN_K, TRAIN_TOPK, TRAIN_S = (
+    300_000, 544, 960, 64, 4, 512)
+TRAIN_ITERS = 20
+TRAIN_YAW_DEG = (-6.0, -2.0, 2.0, 6.0)    # 4 cameras around the scene
+GT_DIR = os.path.join("build", "chip_smoke_gt")
 
 
 def log(*a):
@@ -393,6 +427,327 @@ def kernels_at_main_shapes(model, clip, consts, plans, dev) -> dict:
     return rows
 
 
+def train_scene(n: int, seed: int, dev):
+    """scripts/profile_train.py:38-48 (same draws in the same order) with
+    create_from_pcd's other fields (identity rotations, SH degree-3 slots
+    at active degree 0); logits and codebooks from a torch.Generator."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-4, 4, (n, 2)),
+                          rng.uniform(2.0, 12.0, (n, 1))], 1).astype(np.float32)
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(-1, 2, (n, 1)).astype(np.float32)
+    scaling = np.log(rng.uniform(0.004, 0.04, (n, 3))).astype(np.float32)
+    rot = np.zeros((n, 4), np.float32)
+    rot[:, 0] = 1.0
+    model = from_numpy_params(dict(
+        xyz=pts, features_dc=((cols - 0.5) / 0.28209479177387814)[:, None, :],
+        features_rest=np.zeros((n, 15, 3), np.float32), scaling=scaling,
+        rotation=rot, opacity=opacity), active_sh_degree=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return init_language_features(model, 1, TRAIN_K, generator=gen), rng
+
+
+def write_gt(rng, prefix: str, n_cams: int, h: int, w: int, cell: int = 48):
+    """A TRAIN_S x 512 segment table and, per camera, a segment map of
+    cell x cell blocks with ~5% of pixels at -1, as <name>_f.npy and
+    <name>_s.npy (all 4 SAM levels alike) under GT_DIR."""
+    os.makedirs(GT_DIR, exist_ok=True)
+    table = rng.normal(size=(TRAIN_S, 512)).astype(np.float32)
+    for i in range(n_cams):
+        ids = rng.integers(0, TRAIN_S, (-(-h // cell), -(-w // cell)))
+        seg = np.repeat(np.repeat(ids, cell, 0), cell, 1)[:h, :w]
+        seg = seg.astype(np.int32)
+        seg[rng.uniform(size=(h, w)) < 0.05] = -1
+        np.save(os.path.join(GT_DIR, f"{prefix}{i}_s.npy"),
+                np.broadcast_to(seg, (4, h, w)))
+        np.save(os.path.join(GT_DIR, f"{prefix}{i}_f.npy"), table)
+
+
+def train_cameras(prefix: str, yaws, h: int, w: int) -> list:
+    fovy = math.radians(60)
+    fovx = 2 * math.atan(math.tan(fovy / 2) * w / h)
+    cams = []
+    for i, deg in enumerate(yaws):
+        t = math.radians(deg)
+        R = np.array([[math.cos(t), 0, math.sin(t)], [0, 1, 0],
+                      [-math.sin(t), 0, math.cos(t)]])
+        cams.append(Camera(i, R, np.zeros(3), fovx, fovy, None,
+                           f"{prefix}{i}", i, w, h))
+    return cams
+
+
+def train_step_inputs(model, cam, max_entries: int, live: int, dev) -> dict:
+    """What the kernels of one training step get (the calls of
+    render(include_feature=True) and the fused loss), for holding them
+    against their plain versions and timing them alone."""
+    s = make_settings(cam, 0, 1.0, max_entries, live_entries=live)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    gx, gy = s.grid_x, s.grid_y
+    with torch.no_grad():
+        qw, qi = model.get_weights_and_indices(TRAIN_TOPK)
+        qw, qi = qw.contiguous(), qi.int().contiguous()
+        op = model.get_opacity()[:, 0].contiguous()
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(cam.world_view_transform),
+            T(cam.full_proj_transform), T(cam.camera_center), s.tanfovx,
+            s.tanfovy, s.image_width, s.image_height, 0, opacities=op)
+        g, start, count, total, live_total = sorted_binning(s, proj, op)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        _, wmap, _ = blend.blend_tiles(g, start, count, geom,
+                                       torch.zeros(3, device=dev), gx, gy, qw,
+                                       qi, TRAIN_K, stats=stats)
+        table, seg = cam.get_language_feature_compact(GT_DIR, 1)
+        table, seg = T(table), T(seg)
+        rhs, gfull = gram.prep(model.codebooks, table, 0)
+    n_cov = int(count.sum())
+    return dict(settings=s, g=g, start=start, count=count, geom=geom, qw=qw,
+                qi=qi, wmap=wmap, table=table, seg=seg,
+                seg_t=gram.seg_to_tiles(seg, gx, gy), rhs=rhs, gfull=gfull,
+                total=int(total), live_total=int(live_total), covered=n_cov,
+                n_eval=int(stats[0]), n_inc=int(stats[1]),
+                distinct=int(torch.unique(g[:n_cov]).numel()),
+                codebooks=model.codebooks.detach())
+
+
+def normalized_err(a, b) -> tuple[float, float]:
+    """(max |a - b|, the same over max |b|)."""
+    err = float((a - b).abs().max())
+    return err, err / max(float(b.abs().max()), 1e-30)
+
+
+def check_train_kernels(x: dict, dev, timed: bool) -> dict:
+    """K6a, K6b and K4 on one step's inputs against their plain versions
+    (K6a per-tile sums rtol 1e-5 / atol 1e-4; K6b and K4 within 1e-4 and
+    1e-5 of their largest output entry: atomics and sums of 256 terms in
+    other orders), and the fused loss against the plain autograd of
+    trainer._gram_cos_core (value rtol 1e-5, gradients 1e-4 of their
+    largest entry). With `timed`, each kernel's time, its plain version's
+    and its bound for this data."""
+    s = x["settings"]
+    gx, gy = s.grid_x, s.grid_y
+    hw = s.image_height * s.image_width
+    K, C = TRAIN_K, x["wmap"].shape[2]
+    M = x["gfull"].shape[0]
+    seg_t, wmap, rhs, gfull = x["seg_t"], x["wmap"], x["rhs"], x["gfull"]
+    up = torch.ones((), device=dev)
+    r = {}
+
+    k6a = lambda: gram.gram_tiles_fwd(seg_t, wmap, rhs, gfull)  # noqa: E731
+    k6a_plain = lambda: gram.gram_tiles_fwd_plain(  # noqa: E731
+        seg_t, wmap, rhs, gfull, 1e-8)
+    out, ref = k6a(), k6a_plain()
+    err = normalized_err(out, ref)
+    r["K6a"] = dict(max_abs_err=err[0], rel_err=err[1])
+    if not torch.allclose(out, ref, rtol=1e-5, atol=1e-4):
+        fail(f"K6a differs from its plain version by {err[0]}")
+
+    k6b = lambda: gram.gram_tiles_bwd(  # noqa: E731
+        seg_t, wmap, rhs, gfull, 0, K, 1e-8, 1.0 / hw, up)
+    k6b_plain = lambda: gram.gram_tiles_bwd_plain(  # noqa: E731
+        seg_t, wmap, rhs, gfull, 0, K, 1e-8, 1.0 / hw, up)
+    out, ref = k6b(), k6b_plain()
+    errs = [normalized_err(a, b) for a, b in zip(out, ref)]
+    r["K6b"] = dict(max_abs_err=max(e[0] for e in errs),
+                    rel_err=max(e[1] for e in errs))
+    if not r["K6b"]["rel_err"] <= 1e-4:
+        fail(f"K6b differs from its plain version: {errs}")
+    cot = out[0]
+    del out, ref
+
+    args = (x["g"], x["start"], x["count"], x["geom"], cot)
+    k4 = lambda: train.feature_grads(*args, gx, gy)  # noqa: E731
+    k4_plain = lambda: train.feature_grads_plain(*args, gx)  # noqa: E731
+    out, ref = k4(), k4_plain()
+    err = normalized_err(out, ref)
+    r["K4"] = dict(max_abs_err=err[0], rel_err=err[1])
+    if not err[1] <= 1e-5:
+        fail(f"K4 differs from its plain version by {err} (abs, relative)")
+    del out, ref
+
+    vals, grads = [], []
+    for fn in (gram.gram_loss_fused, trainer.gram_cos_loss_tiles):
+        cb = x["codebooks"].clone().requires_grad_(True)
+        wm = wmap.clone().requires_grad_(True)
+        loss = fn(cb, wm, x["table"], x["seg"], 0)
+        loss.backward()
+        vals.append(float(loss))
+        grads.append((cb.grad, wm.grad))
+    g_err = [normalized_err(a, b)[1] for a, b in zip(*grads)]
+    r["loss_vs_xla_core"] = dict(fused=vals[0], xla=vals[1], grad_rel=g_err)
+    if not (math.isclose(vals[0], vals[1], rel_tol=1e-5)
+            and max(g_err) <= 1e-4):
+        fail(f"the fused loss differs from the XLA formulation: "
+             f"{r['loss_vs_xla_core']}")
+    del grads
+    if not timed:
+        return r
+
+    # Per pixel, the forward forms G w (2M^2), n2, num and the chain; the
+    # backward reuses G w and adds d_w (4K), d_phi (2K) and d_G (2MK + K).
+    # K4 needs only the entries the tiles cover: its g read and dF write
+    # count x["covered"] rows, not the live budget's padding.
+    q = x["seg_t"].numel()
+    fwd_ops = q * (2 * M * M + 4 * M + 10)
+    base_bytes = q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
+    for name, fn, plain, reps, nbytes, ops in (
+            ("K6a", k6a, k6a_plain, 20, base_bytes + gx * gy * 4, fwd_ops),
+            ("K6b", k6b, k6b_plain, 10,
+             base_bytes + q * C * 4 + (rhs.shape[0] + M) * K * 4,
+             fwd_ops + q * (7 * K + 2 * M * K)),
+            ("K4", k4, k4_plain, 10,
+             x["covered"] * 4 + gx * gy * 8 + x["distinct"] * 24
+             + cot.numel() * 4 + x["covered"] * C * 4,
+             x["n_eval"] * BLEND_ALPHA_FLOPS + x["n_inc"] * (3 + 2 * C))):
+        r[name]["ms"] = cuda_ms(fn, reps)[0]
+        r[name]["plain_ms"] = cuda_ms(plain, 1)[0]
+        r[name]["library_ms"] = None
+        r[name]["bound_ms"], r[name]["bound_by"] = bound(nbytes, ops,
+                                                         F32_TENSOR_FLOPS)
+    return r
+
+
+def check_gram_wide(dev) -> dict:
+    """K6a/K6b at the L=3 curriculum's last layer (M = 192, G read from
+    device memory) on random inputs, against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gx, gy, h, w, S = 30, 17, 272, 480, 256
+    wm = torch.randn(gx * gy, 256, 3 * TRAIN_K, device=dev, generator=gen)
+    seg = torch.randint(0, S, (h, w), device=dev, generator=gen,
+                        dtype=torch.int32)
+    seg[torch.rand(h, w, device=dev, generator=gen) < 0.05] = -1
+    books = torch.randn(3, TRAIN_K, 512, device=dev, generator=gen)
+    rhs, gfull = gram.prep(books, torch.randn(S, 512, device=dev,
+                                              generator=gen), 2)
+    seg_t = gram.seg_to_tiles(seg, gx, gy)
+    a = gram.gram_tiles_fwd(seg_t, wm, rhs, gfull)
+    b = gram.gram_tiles_fwd_plain(seg_t, wm, rhs, gfull, 1e-8)
+    up = torch.ones((), device=dev)
+    errs = [normalized_err(a, b)] + [
+        normalized_err(u, v) for u, v in zip(
+            gram.gram_tiles_bwd(seg_t, wm, rhs, gfull, 2, TRAIN_K, 1e-8,
+                                1.0 / (h * w), up),
+            gram.gram_tiles_bwd_plain(seg_t, wm, rhs, gfull, 2, TRAIN_K,
+                                      1e-8, 1.0 / (h * w), up))]
+    if not (torch.allclose(a, b, rtol=1e-5, atol=1e-4)
+            and max(e[1] for e in errs[1:]) <= 1e-4):
+        fail(f"K6 at M=192 differs from its plain version: {errs}")
+    return dict(K6a=errs[0][0], K6b=max(e[0] for e in errs[1:]),
+                rel=[e[1] for e in errs])
+
+
+def train_checks_reduced(dev) -> dict:
+    """Phase 6: the training kernels on a reduced scene (50k Gaussians,
+    272x480, one camera) and K6 at M = 192."""
+    model, rng = train_scene(50_000, 1, dev)
+    write_gt(rng, "small", 1, 272, 480)
+    cam = train_cameras("small", (0.0,), 272, 480)[0]
+    x = train_step_inputs(model, cam, 1 << 20, 0, dev)
+    r = check_train_kernels(x, dev, timed=False)
+    r["wide"] = check_gram_wide(dev)
+    for k in ("K4", "K6a", "K6b"):
+        log(f"reduced {k}: max |kernel - plain| {r[k]['max_abs_err']!r} "
+            f"({r[k]['rel_err']!r} of the largest)")
+    log(f"reduced: fused loss vs XLA core {r['loss_vs_xla_core']}; "
+        f"M=192 {r['wide']}")
+    torch.cuda.synchronize()
+    return r
+
+
+def train_path(dev) -> dict:
+    """Phase 7: train_features at full width, the launch counts of the
+    run, then the kernels on one step's own inputs."""
+    t0 = time.perf_counter()
+    model, rng = train_scene(TRAIN_N, 0, dev)
+    write_gt(rng, "cam", len(TRAIN_YAW_DEG), TRAIN_H, TRAIN_W)
+    cams = train_cameras("cam", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W)
+    log(f"training scene: {TRAIN_N} Gaussians, {TRAIN_H}x{TRAIN_W}, L=1 "
+        f"K={TRAIN_K} top-{TRAIN_TOPK}, {len(cams)} cameras, GT table "
+        f"{TRAIN_S}x512 ({time.perf_counter() - t0:.1f} s)")
+    opt = type("Opt", (), {"language_feature_lr": 0.0025})()
+    max_entries = 2 ** 21
+    step_ms, metrics_log = [], []
+    clock = [None]
+
+    def on_iteration(_it, _model, _opt, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        metrics_log.append({k: float(v) for k, v in metrics.items()})
+
+    torch.cuda.synchronize()
+    for fn in TRAIN_WRAPPERS.values():
+        fn.launches = 0
+    clock[0] = time.perf_counter()
+    model, optimizer, logs = trainer.train_features(
+        model, cams, opt, GT_DIR, 1, iterations=TRAIN_ITERS, seed=0,
+        max_entries=max_entries, feature_cache={}, on_iteration=on_iteration,
+        device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in TRAIN_WRAPPERS.items()}
+    losses = logs.losses
+    budget = list(logs.live_budget.values())
+    live = [int(m["live_total"]) for m in metrics_log]
+    tot = [int(m["total_entries"]) for m in metrics_log]
+    per_step = {k: v / TRAIN_ITERS for k, v in launches.items()}
+    log(f"training: {TRAIN_ITERS} steps, median {statistics.median(step_ms):.3f}"
+        f" ms a step (host clock + synchronize); loss first {losses[0]!r} "
+        f"last {losses[-1]!r}; live_total {min(live)}..{max(live)} against "
+        f"the live budget {budget}; total_entries {max(tot)} against "
+        f"max_entries {max_entries}")
+    log(f"launches on the training path ({TRAIN_ITERS} steps): {launches}; "
+        f"per step {per_step}")
+    if not all(v > 0 for v in launches.values()):
+        fail(f"a kernel of the training path was not launched: {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite training loss: {losses}")
+    if not statistics.mean(losses[-4:]) < statistics.mean(losses[:4]):
+        fail(f"the training loss did not fall: {losses}")
+    if max(tot) >= max_entries or max(live) > max(budget):
+        fail("the training run saturated its entry budgets")
+
+    x = train_step_inputs(model, cams[0], max_entries, budget[0], dev)
+    rows = check_train_kernels(x, dev, timed=True)
+    # Stages of one step, each timed alone on the same inputs.
+    s = x["settings"]._replace(assemble=False)
+    c = cams[0]
+    view, proj, campos = (c.world_view_transform, c.full_proj_transform,
+                          c.camera_center)
+    zero3 = np.zeros(3, np.float32)
+    with torch.no_grad():
+        fwd = lambda: render(s, model, view, proj, campos, zero3,  # noqa: E731
+                             include_feature=True, topk=TRAIN_TOPK, device=dev)
+        codes = lambda: model.get_weights_and_indices(TRAIN_TOPK)  # noqa: E731
+        dfeat = train.feature_grads(x["g"], x["start"], x["count"], x["geom"],
+                                    x["wmap"], s.grid_x, s.grid_y)
+        red = lambda: train.reduce_to_gaussians(  # noqa: E731
+            dfeat, x["g"], x["qi"])
+        stages = {"render forward (preprocess, K1, sort, K2, top-k)":
+                  cuda_ms(fwd, 5)[0],
+                  "top-k codes (inside the forward)": cuda_ms(codes, 5)[0],
+                  "K6a gram forward": rows["K6a"]["ms"],
+                  "K6b gram backward": rows["K6b"]["ms"],
+                  "K4 feature backward": rows["K4"]["ms"],
+                  "projection + index_add_": cuda_ms(red, 5)[0],
+                  "Adam step": cuda_ms(optimizer.step, 5)[0]}
+    del dfeat
+    for k, v in rows.items():
+        log(f"training {k}: " + ", ".join(f"{a} {b!r}" for a, b in v.items()))
+    log("training stages (ms, each alone): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(step_ms_median=statistics.median(step_ms), step_ms=step_ms,
+                losses=losses, live_budget=budget, live_total=live,
+                total_entries=tot, max_entries=max_entries,
+                launches=launches, launches_per_step=per_step,
+                kernels=rows, stage_ms=stages,
+                step_entries=dict(total=x["total"], live=x["live_total"],
+                                  pairs_evaluated=x["n_eval"],
+                                  pairs_included=x["n_inc"],
+                                  distinct_gaussians=x["distinct"]))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -427,14 +782,27 @@ def main() -> None:
     path = main_path(model, clip, consts, dev)
     timing = kernels_at_main_shapes(model, clip, consts, path.pop("plans"),
                                     dev)
+    del model, clip, consts
+    torch.cuda.empty_cache()
+
+    train_errs = train_checks_reduced(dev)
+    tpath = train_path(dev)
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
-        r = timing["1080p"][k]
-        err = max([errs[k]] + [t[k]["max_abs_err"] for t in timing.values()])
+        if k in ("K1", "K2", "K3"):
+            r = timing["1080p"][k]
+            launches = path["launches"][k]
+            err = max([errs[k]] + [t[k]["max_abs_err"]
+                                   for t in timing.values()])
+        else:
+            r = tpath["kernels"][k]
+            launches = tpath["launches"][k]
+            err = max(r["max_abs_err"], train_errs[k]["max_abs_err"],
+                      train_errs["wide"].get(k, 0.0))
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path["launches"][k], max_abs_err=err, ms=r["ms"],
+            launches=launches, max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     elapsed = time.perf_counter() - t_start
@@ -443,7 +811,9 @@ def main() -> None:
         json.dump(dict(gpu=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, build_s=build_s,
                        elapsed_s=elapsed, max_abs_err_reduced=errs,
-                       main_path=path, kernel_timing=timing), f, indent=1)
+                       main_path=path, kernel_timing=timing,
+                       train_reduced=train_errs, train_path=tpath), f,
+                  indent=1)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))

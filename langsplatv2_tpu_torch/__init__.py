@@ -5,10 +5,12 @@ its counterpart there by file. This package imports torch and numpy only —
 never jax, and nothing of `langsplatv2_tpu` (whose own `__init__` imports
 jax).
 
-Slice in place: the serving path of the merged 3-level quick model —
+Slices in place: the serving path of the merged 3-level quick model —
 preprocess -> entry expansion (CUDA kernel K1) -> key sort -> tile blend
 (CUDA kernel K2) -> Gram relevancy query (CUDA kernel K3) -> relevancy
-tail. Kernels are built from `csrc/` with nvcc at first use
+tail; and the exact feature-phase training step (`train/trainer.py`) —
+the same K1/K2 forward, the fused Gram-space loss (K6a forward, K6b
+backward), the W-replay feature backward (K4) and Adam. Kernels are built from `csrc/` with nvcc at first use
 (`ops/kernels.py`); on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 

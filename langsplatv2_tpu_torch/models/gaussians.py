@@ -1,11 +1,14 @@
 """The Gaussian scene model as an nn.Module
-(port of langsplatv2_tpu/models/gaussians.py:50-158).
+(port of langsplatv2_tpu/models/gaussians.py:50-158, 210-224).
 
 Same raw fields as the JAX pytree (xyz, SH features, log-scale, quaternion,
 logit opacity, `live` mask, language logits, codebooks, quick weights and
 indices) and the same activations. Quick indices are integers here; the
-JAX model carries them as float32. Densify/prune belong to the geometry
-training slice; until then the raw fields are frozen parameters.
+JAX model carries them as float32. Every raw field is an nn.Parameter
+created with requires_grad=False, so serving builds no autograd graph; the
+feature phase switches the language logits and codebooks on
+(`train/trainer.py::feature_params`). Densify/prune belong to the geometry
+training slice.
 """
 from __future__ import annotations
 
@@ -92,6 +95,23 @@ class GaussianModel(nn.Module):
             idxs.append(idx + i * K)
         return torch.cat(ws, dim=-1), torch.cat(idxs, dim=-1)
 
+    def compute_layer_feature_map(self, weight_map: torch.Tensor,
+                                  layer_idx: int):
+        """Residual decode up to `layer_idx` of a [L*K, H, W] map ->
+        [512, H, W]; earlier layers enter detached (the training
+        curriculum)."""
+        L, K, D = self.codebooks.shape
+        _, H, W = weight_map.shape
+        flat = weight_map.reshape(L * K, H * W)
+        feat = None
+        for i in range(int(layer_idx) + 1):
+            layer = torch.einsum("kd,kp->dp", self.codebooks[i],
+                                 flat[i * K:(i + 1) * K])
+            if feat is not None:
+                layer = layer + feat.detach()
+            feat = layer
+        return feat.reshape(D, H, W)
+
     def compute_final_feature_map(self, weight_map: torch.Tensor):
         """[L*K, H, W] coefficient map -> [512, H, W] decoded feature map."""
         L, K, D = self.codebooks.shape
@@ -99,6 +119,37 @@ class GaussianModel(nn.Module):
         flat = weight_map.reshape(L * K, H * W)
         return torch.einsum("kd,kp->dp", self.codebooks.reshape(L * K, D),
                             flat).reshape(D, H, W)
+
+
+def init_language_features(model: GaussianModel, vq_layer_num: int,
+                           codebook_size: int, clip_dim: int = 512, *,
+                           generator: torch.Generator | None = None,
+                           logits=None, codebooks=None) -> GaussianModel:
+    """Attach language logits [N, L*K] and codebooks [L, K, clip_dim]:
+    standard normal draws from `generator` (on its device, then moved to
+    the model's), or the given arrays (so that a test can hand both
+    packages the same values; the JAX version draws from a jax key)."""
+    dev = model.xyz.device
+    shapes = {"logits": (model.capacity, vq_layer_num * codebook_size),
+              "codebooks": (vq_layer_num, codebook_size, clip_dim)}
+    given = {"logits": logits, "codebooks": codebooks}
+    out = {}
+    for name, shape in shapes.items():
+        v = given[name]
+        if v is None:
+            if generator is None:
+                raise ValueError(f"init_language_features: no {name} and no "
+                                 "generator to draw them from")
+            v = torch.randn(shape, generator=generator,
+                            device=generator.device)
+        v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                            dtype=torch.float32)
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(v.shape)}, expected "
+                             f"{shape}")
+        out[name] = v.to(dev)
+    return model.replace(language_logits=out["logits"],
+                         codebooks=out["codebooks"])
 
 
 def _exact_indices(a: np.ndarray) -> np.ndarray:

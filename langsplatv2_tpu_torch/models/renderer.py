@@ -1,10 +1,12 @@
 """Render facade: camera + GaussianModel -> images and maps
 (port of langsplatv2_tpu/models/renderer.py).
 
-Two modes of this slice: `quick_render=True` (the merged model's 192-channel
-coefficient map) and RGB only, with SH colours. The training mode
-(`include_feature`) and the Python-side covariance belong to later slices
-and raise; override colours and Python-side SH are not ported yet.
+Three modes: `quick_render=True` (the merged model's 192-channel
+coefficient map), `include_feature=True` (feature-phase training: the
+model's top-k (weight, index) pairs from its logits, blended to an
+L*K-channel map that is differentiable in the weights), and RGB only, with
+SH colours. The Python-side covariance belongs to a later
+slice and raises; override colours and Python-side SH are not ported yet.
 """
 from __future__ import annotations
 
@@ -46,13 +48,9 @@ def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
 
 def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
            projmatrix, campos, bg_color, *, include_feature: bool = False,
-           quick_render: bool = False, compute_cov3d_python: bool = False,
-           device=None,
+           quick_render: bool = False, topk: int = 4,
+           compute_cov3d_python: bool = False, device=None,
            stage_events: list | None = None) -> RenderOutput:
-    if include_feature:
-        raise NotImplementedError(
-            "include_feature (training mode) belongs to a later slice of "
-            "the port: feature-phase training (ROADMAP.md, Queue 1 item 7)")
     if compute_cov3d_python:
         raise NotImplementedError(
             "compute_cov3d_python belongs to a later slice of the port: the "
@@ -60,12 +58,17 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
     dev = resolve_device(device)
     quick_weights = quick_indices = None
     quick_channels = 0
+    quick_train = False
     if quick_render:
         if model.quick_weights is None or model.quick_indices is None:
             raise ValueError("quick_render needs a merged model's "
                              "quick_weights and quick_indices")
         quick_weights, quick_indices = model.quick_weights, model.quick_indices
         quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
+    elif include_feature:
+        quick_weights, quick_indices = model.get_weights_and_indices(topk)
+        quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
+        quick_train = True
 
     out = rasterize(
         settings, model.xyz, model.get_opacity(), viewmatrix, projmatrix,
@@ -73,7 +76,7 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
         rotations=model.get_rotation(), shs=model.get_features(),
         quick_weights=quick_weights,
         quick_indices=quick_indices, quick_channels=quick_channels,
-        device=dev, stage_events=stage_events)
+        quick_train=quick_train, device=dev, stage_events=stage_events)
     return RenderOutput(
         render=out.rgb, language_feature_weight_map=out.feature_map,
         visibility_filter=out.radii > 0, radii=out.radii,

@@ -32,8 +32,13 @@ def pack_gaussian_state(xy, conic, opacities, colors) -> torch.Tensor:
     return torch.cat([xy, conic, opacities[:, None], rgb], dim=1).contiguous()
 
 
-def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
-                      quick_weights=None, quick_indices=None, channels=0):
+def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x):
+    """The blend's per-position loop, vectorized over tiles and pixels: for
+    each depth position j of the tiles' segments yields (j, live [T] bool,
+    g [T] Gaussian ids, row [T, 9] state, w [T, 256] blend weights, T
+    [T, 256] transmittance after position j), with K2's exact f32 op
+    sequence. Stops once every pixel has ended (checked every 32
+    positions); later weights would all be 0."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
     tid = torch.arange(n_tiles, device=dev)
@@ -42,10 +47,6 @@ def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
     py = ((tid // grid_x)[:, None] * BLOCK + pix // BLOCK).float()
     T = torch.ones((n_tiles, P), device=dev)
     done = torch.zeros((n_tiles, P), dtype=torch.bool, device=dev)
-    acc = torch.zeros((n_tiles, P, 3), device=dev)
-    feat = (torch.zeros((n_tiles, P, channels), device=dev)
-            if channels else None)
-    topk = quick_weights.shape[1] if channels else 0
     n_max = int(tile_count.max()) if n_tiles else 0
     for j in range(n_max):
         if j % 32 == 0 and bool(done.all()):
@@ -65,12 +66,26 @@ def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
         done |= ends
         inc = valid & ~ends
         w = torch.where(inc, alpha * T, 0.0)
+        T = torch.where(inc, test_t, T)
+        yield j, live, g, row, w, T
+
+
+def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
+                      quick_weights=None, quick_indices=None, channels=0):
+    dev = geom.device
+    n_tiles = tile_start.shape[0]
+    T = torch.ones((n_tiles, P), device=dev)
+    acc = torch.zeros((n_tiles, P, 3), device=dev)
+    feat = (torch.zeros((n_tiles, P, channels), device=dev)
+            if channels else None)
+    topk = quick_weights.shape[1] if channels else 0
+    for _j, _live, g, row, w, T in replay_positions(
+            g_sorted, tile_start, tile_count, geom, grid_x):
         acc += w[..., None] * row[:, None, 6:9]
         for k in range(topk):
             src = w * quick_weights[g, k][:, None]
             idx = quick_indices[g, k].long()[:, None, None].expand(-1, P, 1)
             feat.scatter_add_(2, idx, src[..., None])
-        T = torch.where(inc, test_t, T)
     rgb = acc + T[..., None] * bg
     return rgb, feat, T
 

@@ -24,18 +24,22 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# expand.cu and blend.cu round every f32 op on its own (no fused
-# multiply-add), as their plain PyTorch versions do: the entry sets of K1
-# and the alpha / termination tests of K2 then agree bit for bit.
+# expand.cu, blend.cu and feature_bwd.cu round every f32 op on its own (no
+# fused multiply-add), as their plain PyTorch versions do: the entry sets of
+# K1 and the alpha / termination tests of K2 then agree bit for bit, and K4
+# replays K2's blend weights exactly.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false"],
     "query.cu": [],
+    "feature_bwd.cu": ["-fmad=false"],
+    "gram.cu": [],
     "errors.cu": [],
 }
 
 # (name, argument types) of every C entry point; all return a cudaError_t.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 ENTRY_POINTS = {
     # xy depth conic opacity rect_min rect_max tiles offsets n grid_x
     # max_entries sentinel exact_cull inv_cull_alpha tile depth gauss stream
@@ -45,6 +49,14 @@ ENTRY_POINTS = {
     "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
+    # num_entries dfeat stream
+    "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
+    # seg w rhs gfull num_tiles C M eps partial stream
+    "lsv2_gram_fwd": [_P] * 4 + [_I] * 3 + [_F] + [_P] * 2,
+    # seg w rhs gfull num_tiles C M K lay eps inv_hw upstream dw dphi dg
+    # stream
+    "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument

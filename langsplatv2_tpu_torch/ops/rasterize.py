@@ -5,6 +5,10 @@ sort branch, with `_sorted_quick_binning` and `_assemble`).
     preprocess -> expand (K1) -> key sort -> tile ranges
       [-> live_entries prefix clamp] -> blend (K2, "rgb" | "quick") -> assemble
 
+`quick_train=True` (feature-phase training, :213-231) takes the same path
+with the quick blend wrapped in `ops/train.py::QuickTrainBlend`, whose
+backward (K4) gives d(quick_weights).
+
 Options that belong to later slices of the port raise NotImplementedError
 naming the slice; none of them falls back to another path.
 """
@@ -15,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import blend, expand, projection, rasterize_tiles
+from . import blend, expand, projection, rasterize_tiles, train
 from .projection import BLOCK
 
 
@@ -86,10 +90,10 @@ _UNREAD_FIELDS = ("prefiltered", "debug")
 
 
 def check_slice(settings: RasterizeSettings, *, cov3d_precomp=None,
-                features=None, quick_train: bool = False) -> None:
-    """Raise for every option outside this slice (the serving sort path,
-    f32 rows, rgb and quick modes), and for a non-default value of a field
-    this path would otherwise ignore."""
+                features=None) -> None:
+    """Raise for every option outside the ported slices (the sort path,
+    f32 rows, rgb and quick modes, quick training), and for a non-default
+    value of a field this path would otherwise ignore."""
     defaults = RasterizeSettings._field_defaults
     for name, slice_name in _LATER_FIELDS.items():
         if getattr(settings, name) != defaults[name]:
@@ -114,9 +118,8 @@ def check_slice(settings: RasterizeSettings, *, cov3d_precomp=None,
         raise _later('impl="xla"',
                      "the differentiable reference rasterizer (item 4)")
     if features is not None:
-        raise _later("dense features", "feature-phase training (item 7)")
-    if quick_train:
-        raise _later("quick_train", "feature-phase training (item 7)")
+        raise _later("dense features",
+                     "the dense training blend (Queue 2, K2 dense mode)")
     if cov3d_precomp is not None:
         raise _later("cov3d_precomp",
                      "the differentiable reference rasterizer (item 4)")
@@ -158,13 +161,13 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               device=None, stage_events: list | None = None
               ) -> RasterizeOutput:
     """Quick mode when quick_weights/quick_indices [N, S] are given (the
-    merged-model serving path), RGB only otherwise.
+    merged-model serving path), RGB only otherwise. With quick_train the
+    feature map is differentiable in quick_weights (and in nothing else).
 
     `stage_events` (CUDA only): a list that gets (stage name, recorded
     torch.cuda.Event) after "start", "preprocess", "expand", "sort",
     "blend" and "assemble"; consecutive events time each stage."""
-    check_slice(settings, cov3d_precomp=cov3d_precomp, features=features,
-                quick_train=quick_train)
+    check_slice(settings, cov3d_precomp=cov3d_precomp, features=features)
     if scales is None or rotations is None:
         raise ValueError("rasterize needs scales and rotations")
     dev = resolve_device(device)
@@ -191,12 +194,17 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     geom = blend.pack_gaussian_state(proj.xy, proj.conic, opacities[:, 0],
                                      proj.rgb)
     if quick_weights is not None:
-        rgb_t, feat_t, t_t = blend.blend_tiles(
-            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
-            f32(quick_weights).contiguous(),
-            torch.as_tensor(quick_indices, device=dev).to(
-                torch.int32).contiguous(),
-            quick_channels)
+        qw = f32(quick_weights).contiguous()
+        qi = torch.as_tensor(quick_indices, device=dev).to(
+            torch.int32).contiguous()
+        if quick_train:
+            rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
+                qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
+                grid_y, quick_channels)
+        else:
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
+                qw, qi, quick_channels)
     else:
         rgb_t, feat_t, t_t = blend.blend_tiles(
             g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y)

@@ -2,7 +2,10 @@
 (port of langsplatv2_tpu/utils/sparse_codes.py:17-99).
 
 Top-k keeps `_topk_onehots`' order: value descending, lowest index first on
-ties. The residual k-means codebook init belongs to the training slice.
+ties. The selection carries no gradient; `get_weights_and_indices`'
+weights are a softmax over the gathered selected logits, so autograd gives
+logits that were not selected exactly zero gradient (the JAX docstring's
+contract, :63-72). The residual k-means codebook init is later work.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ def _topk_columns(y: torch.Tensor, k: int) -> list[torch.Tensor]:
     iterative masked max with the lowest index winning a tie."""
     K = y.shape[1]
     iota = torch.arange(K, device=y.device)
-    ym = y.clone()
+    ym = y.detach().clone()
     cols = []
     for _ in range(k):
         is_max = ym == ym.max(dim=1, keepdim=True).values

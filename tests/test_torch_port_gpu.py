@@ -78,3 +78,52 @@ def test_blend_and_query_kernels_match_plain(cuda):
     raw_p, nrm2_p = query.query_map_tiles_plain(out[1], phi, gram)
     torch.testing.assert_close(raw, raw_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(nrm2, nrm2_p, rtol=1e-5, atol=1e-5)
+
+
+def test_feature_bwd_kernel_matches_plain(cuda):
+    """K4 against its plain version (dF rows, atol 1e-5: sums of 256 terms
+    in another order), and the rows no tile blends are 0."""
+    from langsplatv2_tpu_torch.ops import train
+
+    proj, ops, gx, gy = _case(cuda)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for c in (64, 192):
+        cot = torch.randn(gx * gy, 256, c, device=cuda, generator=gen)
+        out = train.feature_grads(g, start, count, geom, cot, gx, gy)
+        ref = train.feature_grads_plain(g, start, count, geom, cot, gx)
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+        assert float(out[int(count.sum()):].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("L,lay", [(1, 0), (2, 1), (3, 2)])
+def test_gram_kernels_match_plain(cuda, L, lay):
+    """K6a/K6b against their plain versions: per-tile sims rtol 1e-5; d_w
+    scale-normalized atol 1e-5; d_phi and d_G (atomics, order varies from
+    run to run) rtol 1e-4 of their largest entry."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    K, gx, gy, S = 64, 5, 3, 96
+    gen = torch.Generator(device=cuda).manual_seed(L * 10 + lay)
+    wm = torch.randn(gx * gy, 256, L * K, device=cuda, generator=gen)
+    wm[torch.rand(gx * gy, 256, device=cuda, generator=gen) < 0.1] = 0.0
+    seg = torch.randint(0, S, (41, 77), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    seg[torch.rand(41, 77, device=cuda, generator=gen) < 0.05] = -1
+    table = torch.randn(S, 512, device=cuda, generator=gen)
+    books = torch.randn(L, K, 512, device=cuda, generator=gen)
+    seg_t = gram.seg_to_tiles(seg, gx, gy)
+    rhs, gfull = gram.prep(books, table, lay)
+    out = gram.gram_tiles_fwd(seg_t, wm, rhs, gfull)
+    ref = gram.gram_tiles_fwd_plain(seg_t, wm, rhs, gfull, 1e-8)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+    up = torch.tensor(2.5, device=cuda)
+    got = gram.gram_tiles_bwd(seg_t, wm, rhs, gfull, lay, K, 1e-8,
+                              1 / (41 * 77), up)
+    want = gram.gram_tiles_bwd_plain(seg_t, wm, rhs, gfull, lay, K, 1e-8,
+                                     1 / (41 * 77), up)
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)

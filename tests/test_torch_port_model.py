@@ -2,6 +2,7 @@
 package, and the port's guards (no JAX import, no silent CPU fallback,
 later-slice options raise)."""
 import ast
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -227,7 +228,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     (dict(precision="bf16"), {}),
     (dict(impl="xla"), {}),
     ({}, dict(features=np.zeros((4, 64), np.float32))),
-    ({}, dict(quick_train=True)),
+    ({}, dict(features=np.zeros((4, 64), np.float32), quick_train=True)),
     ({}, dict(cov3d_precomp=np.zeros((4, 6), np.float32))),
     (dict(tile_cap=512), {}),
     (dict(tile_batch=8), {}),
@@ -246,6 +247,90 @@ def test_later_slice_options_raise(change, kwargs):
                   np.zeros(3, np.float32), np.zeros(3, np.float32),
                   scales=z, rotations=np.ones((4, 4), np.float32),
                   device="cpu", **kwargs)
+
+
+def _train_call(**kw):
+    from langsplatv2_tpu_torch.train.trainer import train_features
+
+    f = model_fields(20, levels=1)
+    f["language_logits"] = np.zeros((20, 64), np.float32)
+    model = from_numpy_params(f, device="cpu")
+    opt = types.SimpleNamespace(language_feature_lr=0.0025)
+    train_features(model, [], opt, "unused", 1, iterations=0, device="cpu",
+                   **kw)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(tile_budget=1e-6), dict(cam_batch=2), dict(accum_iter=2),
+    dict(use_l1_loss=True), dict(normalize=True),
+    dict(use_cos_loss=False, use_l1_loss=True),
+    dict(gui_source_path="scene")],
+    ids=["tile_budget", "cam_batch", "accum_iter", "l1", "normalize",
+         "l1-only", "gui"])
+def test_later_training_options_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _train_call(**kwargs)
+
+
+def test_feature_step_redo_leaves_model_untouched():
+    """A step whose forward `accept` refuses (the live-budget redo) forms no
+    gradient and moves no parameter; an accepted step moves live rows and
+    codebooks and leaves dead rows in place."""
+    from langsplatv2_tpu_torch.train.trainer import (
+        make_feature_optimizer, make_feature_train_step)
+
+    f = model_fields(50, levels=1)
+    f["language_logits"] = np.random.default_rng(0).normal(
+        size=(50, 64)).astype(np.float32)
+    f["live"][-5:] = False
+    model = from_numpy_params(f, device="cpu")
+    opt = make_feature_optimizer(
+        types.SimpleNamespace(language_feature_lr=0.0025), model)
+    view, pm, tfx, tfy = camera(32, 32)
+    s = RasterizeSettings(32, 32, tfx, tfy, 0, max_entries=2 ** 12)
+    step = make_feature_train_step(s, opt, 4)
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.normal(size=(8, 512)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(-1, 8, (32, 32)).astype(np.int32))
+    before = {k: getattr(model, k).detach().clone()
+              for k in ("language_logits", "codebooks")}
+    args = (model, view, pm, np.zeros(3, np.float32),
+            np.zeros(3, np.float32), table, seg)
+    metrics, applied = step(*args, accept=lambda m: False, device="cpu")
+    assert not applied and 0.0 < float(metrics["loss"]) < 2.0
+    assert int(metrics["live_total"]) > 0
+    for k, v in before.items():
+        assert getattr(model, k).grad is None, k
+        assert torch.equal(getattr(model, k).detach(), v), k
+    _, applied = step(*args, device="cpu")
+    assert applied
+    moved = model.language_logits.detach() != before["language_logits"]
+    assert moved[:-5].any() and not moved[-5:].any()
+    assert not torch.equal(model.codebooks.detach(), before["codebooks"])
+
+
+def test_render_include_feature_runs_dense_features_raise():
+    """Training mode renders (quick pairs from the logits); dense
+    `features=` into the training blend still raise."""
+    f = model_fields(50, levels=1)
+    f["language_logits"] = np.random.default_rng(0).normal(
+        size=(50, 64)).astype(np.float32)
+    model = from_numpy_params(f, device="cpu")
+    view, pm, tfx, tfy = camera(32, 32)
+    s = RasterizeSettings(32, 32, tfx, tfy, 0, max_entries=2 ** 12)
+    out = render(s, model, view, pm, np.zeros(3, np.float32),
+                 np.zeros(3, np.float32), include_feature=True, topk=4,
+                 device="cpu")
+    assert out.language_feature_weight_map.shape == (64, 32, 32)
+    z = np.zeros((4, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        rasterize(s, z, np.ones((4, 1), np.float32), view, pm,
+                  np.zeros(3, np.float32), np.zeros(3, np.float32),
+                  scales=z, rotations=np.ones((4, 4), np.float32),
+                  features=np.zeros((4, 64), np.float32),
+                  quick_weights=np.ones((4, 4), np.float32),
+                  quick_indices=np.zeros((4, 4), np.int32),
+                  quick_channels=64, quick_train=True, device="cpu")
 
 
 @pytest.mark.parametrize("change", [dict(prefiltered=True),
