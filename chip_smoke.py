@@ -32,13 +32,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    all launched, the loss is finite and falls, and no budget saturates;
    then K4/K6a/K6b on one step's own inputs against their plain versions
    (as in phase 6) and timed beside their bounds, with the step's stages
-   timed alone.
-It prints the kernels line (max_abs_err: the largest of phases 3 and 5,
-or 6 and 7) and, last, {"ok": true, "device": {...}}.
+   timed alone;
+8. the geometry step's kernels on a reduced scene (50k Gaussians,
+   272x480, SH degree 3), on one step's inputs (the loss's own
+   cotangents): K1 exact, K2 rgb-only with bg = 0 (colour and final T,
+   atol 3e-5) and K7 (1e-5 of its largest output) against their plain
+   versions, and RGBTrainBlend's gradients (K2, K7, index_add_) against
+   the chain of plain versions (1e-4 of the largest: atomics);
+9. the geometry slice at full width (scripts/profile_rgb_train.py's scene:
+   300k Gaussians from create_from_pcd, SH degree 3, 544x960, phase 7's 4
+   cameras with seeded images): train_rgb for 24 steps with densification
+   at steps 8, 16 and 24 (the first overflows the capacity and grows it),
+   the launch counters zeroed just before and read just after; fails
+   unless K1, K2 and K7 launched on every step, the loss is finite and
+   falls, no entry budget saturates and a densify event grew the live
+   count; then, on one step's own inputs of the trained model, the checks
+   of phase 8 (K1, K2, K7, the RGBTrainBlend chain), K7 timed beside its
+   plain version and its bound, the step's stages timed alone, and the
+   opacity reset once on the grown model.
+It prints the kernels line (max_abs_err: for K1 and K2 the largest of
+phases 3, 5, 8 and 9; for K4 and K6 of phases 6 and 7; for K7 of phases 8
+and 9) and, last, {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -51,15 +70,19 @@ import numpy as np
 import torch
 
 from langsplatv2_tpu_torch.eval.openclip import OpenCLIPNetwork
-from langsplatv2_tpu_torch.models.gaussians import (from_numpy_params,
+from langsplatv2_tpu_torch.models.gaussians import (create_from_pcd,
+                                                    from_numpy_params,
                                                     init_language_features)
 from langsplatv2_tpu_torch.models.renderer import make_settings, render
 from langsplatv2_tpu_torch.ops import (blend, expand, gram, kernels,
-                                       projection, query, train)
+                                       projection, query, rasterize_tiles,
+                                       rgb_train, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
     sorted_binning
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
+from langsplatv2_tpu_torch.train.config import OptimizationParams
+from langsplatv2_tpu_torch.utils import losses
 from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
                                                      get_world_to_view)
 
@@ -93,6 +116,8 @@ KERNELS = {
             "langsplatv2_tpu/ops/pallas_gram.py:175"),
     "K6b": ("gram_tiles_bwd", "langsplatv2_tpu_torch/csrc/gram.cu",
             "langsplatv2_tpu/ops/pallas_gram.py:205"),
+    "K7": ("rgb_grads", "langsplatv2_tpu_torch/csrc/rgb_bwd.cu",
+           "langsplatv2_tpu/ops/pallas_rgb_train.py:290"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -106,6 +131,18 @@ TRAIN_N, TRAIN_H, TRAIN_W, TRAIN_K, TRAIN_TOPK, TRAIN_S = (
 TRAIN_ITERS = 20
 TRAIN_YAW_DEG = (-6.0, -2.0, 2.0, 6.0)    # 4 cameras around the scene
 GT_DIR = os.path.join("build", "chip_smoke_gt")
+# The geometry slice (scripts/profile_rgb_train.py's scene): 24 steps with
+# densification at steps 8, 16 and 24.
+RGB_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                "K7": rgb_train.rgb_grads}
+RGB_N, RGB_ITERS, RGB_EXTENT = 300_000, 24, 5.0
+RGB_DENSIFY = dict(densify_from_iter=4, densification_interval=8,
+                   densify_until_iter=25)
+# f32 operations of K7 for an included (entry, pixel) pair beyond the
+# alpha test: c.g (5), w and the prefix (3), 1 / (1 - alpha) (2), d_alpha
+# (5), the chain to d(x, y, conic, op) (15), d(rgb) (3), and the 9 adds
+# that sum the pair into its entry's row.
+RGB_BWD_INCLUDE_FLOPS = 42
 
 
 def log(*a):
@@ -463,7 +500,7 @@ def write_gt(rng, prefix: str, n_cams: int, h: int, w: int, cell: int = 48):
         np.save(os.path.join(GT_DIR, f"{prefix}{i}_f.npy"), table)
 
 
-def train_cameras(prefix: str, yaws, h: int, w: int) -> list:
+def train_cameras(prefix: str, yaws, h: int, w: int, images=None) -> list:
     fovy = math.radians(60)
     fovx = 2 * math.atan(math.tan(fovy / 2) * w / h)
     cams = []
@@ -471,7 +508,8 @@ def train_cameras(prefix: str, yaws, h: int, w: int) -> list:
         t = math.radians(deg)
         R = np.array([[math.cos(t), 0, math.sin(t)], [0, 1, 0],
                       [-math.sin(t), 0, math.cos(t)]])
-        cams.append(Camera(i, R, np.zeros(3), fovx, fovy, None,
+        cams.append(Camera(i, R, np.zeros(3), fovx, fovy,
+                           None if images is None else images[i],
                            f"{prefix}{i}", i, w, h))
     return cams
 
@@ -572,7 +610,7 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
         wm = wmap.clone().requires_grad_(True)
         loss = fn(cb, wm, x["table"], x["seg"], 0)
         loss.backward()
-        vals.append(float(loss))
+        vals.append(float(loss.detach()))
         grads.append((cb.grad, wm.grad))
     g_err = [normalized_err(a, b)[1] for a, b in zip(*grads)]
     r["loss_vs_xla_core"] = dict(fused=vals[0], xla=vals[1], grad_rel=g_err)
@@ -748,6 +786,329 @@ def train_path(dev) -> dict:
                                   distinct_gaussians=x["distinct"]))
 
 
+def rgb_scene(n: int, h: int, w: int, n_cams: int, seed: int, dev):
+    """scripts/profile_rgb_train.py:29-48 (same draws in the same order):
+    create_from_pcd on seeded points (scales from the 3-NN, then replaced),
+    logit opacity U(-1, 2), scales U(0.004, 0.04), all 16 SH coefficients
+    active, and one U(0, 1) image per camera."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-4, 4, (n, 2)),
+                          rng.uniform(2.0, 12.0, (n, 1))], 1).astype(np.float32)
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    model = create_from_pcd(pts, cols, 1.0, device=dev)
+    T = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    model = model.replace(
+        opacity=T(rng.uniform(-1, 2, (n, 1))),
+        scaling=torch.log(T(rng.uniform(0.004, 0.04, (n, 3)))),
+        active_sh_degree=3)
+    images = [rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+              for _ in range(n_cams)]
+    return model, images
+
+
+def rgb_step_inputs(model, cam, max_entries: int, dev) -> dict:
+    """What K1, K2 and K7 get in one geometry step on `cam` (the calls of
+    render's RGB mode: preprocess, K1 + sort, K2 with bg = 0), with K1's
+    and K2's outputs and the loss's own cotangents of the tile colour and
+    final transmittance packed for K7."""
+    s = make_settings(cam, model.active_sh_degree, 1.0, max_entries)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    gx, gy = s.grid_x, s.grid_y
+    zero3 = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        op = model.get_opacity()[:, 0].contiguous()
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(cam.world_view_transform),
+            T(cam.full_proj_transform), T(cam.camera_center), s.tanfovx,
+            s.tanfovy, s.image_width, s.image_height, s.sh_degree,
+            opacities=op)
+        k1 = expand.expand_entries(proj, op, gx, gy, s.max_entries,
+                                   cull_alpha=s.cull_alpha)
+        g, start, count = expand.sort_entries(*k1[:3], gx * gy)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        rgb_t, _, t_t = blend.blend_tiles(g, start, count, geom, zero3, gx,
+                                          gy, stats=stats)
+    rgb_l = rgb_t.clone().requires_grad_(True)
+    img = rasterize_tiles.tiles_to_image(rgb_l, gx, gy, s.image_height,
+                                         s.image_width)
+    gt = T(cam.image)
+    loss = 0.8 * losses.l1_loss(img, gt) + 0.2 * (1.0 - losses.ssim(img, gt))
+    loss.backward()
+    g_t = torch.zeros_like(t_t)     # bg = 0: the final T gets no gradient
+    n_cov = int(count.sum())
+    return dict(settings=s, proj=proj, op=op, k1=k1[:3], g=g, start=start,
+                count=count, geom=geom, rgb_t=rgb_t, t_t=t_t,
+                g_rgb=rgb_l.grad, g_t=g_t,
+                pack=rgb_train.make_pack(rgb_t, t_t, rgb_l.grad, g_t),
+                total=int(k1[3]), covered=n_cov, n_eval=int(stats[0]),
+                n_inc=int(stats[1]),
+                distinct=int(torch.unique(g[:n_cov]).numel()))
+
+
+def check_rgb_kernels(x: dict, dev, timed: bool) -> dict:
+    """Each kernel of the geometry step on that step's inputs against its
+    plain version: K1's entries exact; K2's rgb-only colour and final T
+    (bg = 0) atol 3e-5; K7 within 1e-5 of its largest output (sums over
+    256 pixels in another order); and RGBTrainBlend's gradients against
+    the chain of plain versions (blend_tiles_plain, rgb_grads_plain,
+    index_add_; 1e-4 of the largest, since index_add_ adds with atomics).
+    With `timed`, K7's time, its plain version's and its bound for this
+    data."""
+    s = x["settings"]
+    gx, gy = s.grid_x, s.grid_y
+    proj, op = x["proj"], x["op"]
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    ref = expand.expand_entries_plain(
+        proj, op, offsets, gx, gy, s.max_entries, True,
+        float(np.float32(1.0 / s.cull_alpha)))
+    pairs = list(zip(x["k1"], ref))
+    mismatch = sum(int((a != b).sum()) for a, b in pairs)
+    r = {"K1": dict(max_abs_err=max_diff(pairs), mismatches=mismatch)}
+    if mismatch:
+        fail(f"K1 differs from its plain version in {mismatch} outputs")
+    del ref, pairs
+
+    rgb_p, _, t_p = blend.blend_tiles_plain(
+        x["g"], x["start"], x["count"], x["geom"],
+        torch.zeros(3, device=dev), gx)
+    r["K2"] = dict(max_abs_err=max(float((x["rgb_t"] - rgb_p).abs().max()),
+                                   float((x["t_t"] - t_p).abs().max())))
+    if not r["K2"]["max_abs_err"] <= 3e-5:
+        fail(f"K2 rgb (bg = 0) differs from its plain version by "
+             f"{r['K2']['max_abs_err']} (atol 3e-5)")
+
+    args = (x["g"], x["start"], x["count"], x["geom"], x["pack"])
+    k7 = lambda: rgb_train.rgb_grads(*args, gx, gy)  # noqa: E731
+    k7_plain = lambda: rgb_train.rgb_grads_plain(*args, gx)  # noqa: E731
+    out, ref = k7(), k7_plain()
+    err = normalized_err(out, ref)
+    r["K7"] = dict(max_abs_err=err[0], rel_err=err[1])
+    if not err[1] <= 1e-5:
+        fail(f"K7 differs from its plain version by {err} (abs, relative)")
+    del out, ref
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (proj.xy, proj.conic, op, proj.rgb)]
+    rgb_k, t_k = rgb_train.RGBTrainBlend.apply(
+        *leaves, x["g"], x["start"], x["count"], gx, gy)
+    torch.autograd.backward([rgb_k, t_k], [x["g_rgb"], x["g_t"]])
+    pack_p = rgb_train.make_pack(rgb_p, t_p, x["g_rgb"], x["g_t"])
+    rows = rgb_train.rgb_grads_plain(x["g"], x["start"], x["count"],
+                                     x["geom"], pack_p, gx)
+    per = rgb_train.reduce_to_gaussians(rows, x["g"], op.shape[0])
+    want = (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, 6:9])
+    errs = [normalized_err(a.grad, b) for a, b in zip(leaves, want)]
+    fwd_err = max(float((rgb_k.detach() - rgb_p).abs().max()),
+                  float((t_k.detach() - t_p).abs().max()))
+    r["chain"] = dict(grad_rel=[e[1] for e in errs], forward_err=fwd_err)
+    if not (max(e[1] for e in errs) <= 1e-4 and fwd_err <= 3e-5):
+        fail(f"RGBTrainBlend differs from the plain chain: {r['chain']}")
+    del leaves, rgb_k, t_k, rows, per, want
+    if timed:
+        r["K7"]["ms"] = cuda_ms(k7, 10)[0]
+        r["K7"]["plain_ms"] = cuda_ms(k7_plain, 1)[0]
+        r["K7"]["library_ms"] = None
+        # Reads the pack once, g_sorted over the covered entries, the tile
+        # ranges and 36 B of each distinct Gaussian; writes [covered, 9].
+        r["K7"]["bound_ms"], r["K7"]["bound_by"] = bound(
+            x["pack"].numel() * 4 + x["covered"] * 4 + gx * gy * 8
+            + x["distinct"] * 36 + x["covered"] * 9 * 4,
+            x["n_eval"] * BLEND_ALPHA_FLOPS
+            + x["n_inc"] * RGB_BWD_INCLUDE_FLOPS)
+    return r
+
+
+def rgb_checks_reduced(dev) -> dict:
+    """Phase 8: K7 and RGBTrainBlend on a reduced scene (50k Gaussians,
+    272x480, SH degree 3, one camera)."""
+    model, images = rgb_scene(50_000, 272, 480, 1, 1, dev)
+    cam = train_cameras("rgbsmall", (0.0,), 272, 480, images)[0]
+    x = rgb_step_inputs(model, cam, 1 << 20, dev)
+    r = check_rgb_kernels(x, dev, timed=False)
+    log(f"reduced geometry step: K1 {r['K1']['mismatches']} entries differ "
+        f"from the plain version; K2 rgb max |kernel - plain| "
+        f"{r['K2']['max_abs_err']!r}; K7 {r['K7']['max_abs_err']!r} "
+        f"({r['K7']['rel_err']!r} of the largest); RGBTrainBlend vs the "
+        f"plain chain {r['chain']}")
+    torch.cuda.synchronize()
+    return r
+
+
+def rgb_path(dev) -> dict:
+    """Phase 9: train_rgb at full width with densification and the launch
+    counts of the run; then, on one step's own inputs, K1, K2, K7 and the
+    RGBTrainBlend chain against their plain versions, K7 timed, the step's
+    stages, and the opacity reset."""
+    t0 = time.perf_counter()
+    model, images = rgb_scene(RGB_N, TRAIN_H, TRAIN_W, len(TRAIN_YAW_DEG), 0,
+                              dev)
+    cams = train_cameras("rgb", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W, images)
+    n0 = int(model.num_live)
+    log(f"geometry scene: {RGB_N} Gaussians (create_from_pcd), SH degree "
+        f"3, {TRAIN_H}x{TRAIN_W}, {len(cams)} cameras "
+        f"({time.perf_counter() - t0:.1f} s)")
+    opt = OptimizationParams(argparse.ArgumentParser())
+    for k, v in RGB_DENSIFY.items():
+        setattr(opt, k, v)
+    max_entries = 2 ** 21
+    step_ms, metrics_log, densify_ms = [], [], []
+    clock = [None]
+    run_densify = trainer.run_densify
+
+    def timed_densify(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_densify(*a, **kw)
+        torch.cuda.synchronize()
+        densify_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def on_iteration(it, m, _opt, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        metrics_log.append(dict(
+            iteration=it, loss=float(metrics["loss"]),
+            total_entries=int(metrics["total_entries"]),
+            num_visible=int(metrics["num_visible"]),
+            num_live=int(m.num_live), capacity=m.capacity))
+
+    trainer.run_densify = timed_densify
+    try:
+        torch.cuda.synchronize()
+        for fn in RGB_WRAPPERS.values():
+            fn.launches = 0
+        clock[0] = time.perf_counter()
+        model, optimizer, logs = trainer.train_rgb(
+            model, cams, opt, RGB_EXTENT, iterations=RGB_ITERS, seed=0,
+            max_entries=max_entries, on_iteration=on_iteration, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        trainer.run_densify = run_densify
+    launches = {k: fn.launches for k, fn in RGB_WRAPPERS.items()}
+    losses_ = logs.losses
+    tot = [m["total_entries"] for m in metrics_log]
+    dens_it = {e[0] for e in logs.events if e[1] == "densify"}
+    plain_steps = [t for m, t in zip(metrics_log, step_ms)
+                   if m["iteration"] not in dens_it]
+    log(f"geometry training: {RGB_ITERS} steps, median "
+        f"{statistics.median(plain_steps):.3f} ms a step without a densify "
+        f"event (host clock + synchronize); loss first {losses_[0]!r} last "
+        f"{losses_[-1]!r}; events {logs.events}; densify rounds "
+        f"{densify_ms} ms; capacity {n0} -> {model.capacity}; "
+        f"total_entries {max(tot)} against max_entries {max_entries}")
+    log(f"launches on the geometry path ({RGB_ITERS} steps): {launches}")
+    if not all(v == RGB_ITERS for v in launches.values()):
+        fail(f"a kernel of the geometry path missed a step: {launches}")
+    if not all(math.isfinite(v) for v in losses_):
+        fail(f"non-finite geometry loss: {losses_}")
+    if not statistics.mean(losses_[-4:]) < statistics.mean(losses_[:4]):
+        fail(f"the geometry loss did not fall: {losses_}")
+    if max(tot) >= max_entries:
+        fail("the geometry run saturated its entry budget")
+    if not (len(dens_it) == 3 and max(e[2] for e in logs.events) > n0
+            and model.capacity > n0):
+        fail(f"no densify event grew the model: {logs.events}, capacity "
+             f"{model.capacity}")
+
+    x = rgb_step_inputs(model, cams[0], max_entries, dev)
+    rows = check_rgb_kernels(x, dev, timed=True)
+    stages = rgb_stages(model, optimizer, cams[0], x, dev)
+
+    # The opacity reset, once, on the grown model (after the timing: it
+    # empties most entries).
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model = trainer.apply_opacity_reset(model, optimizer)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t) * 1e3
+    top = float(model.get_opacity().detach().max())
+    state = optimizer.state[model.opacity]
+    if not (top <= 0.01 + 1e-6 and not state["exp_avg"].any()
+            and not state["exp_avg_sq"].any()):
+        fail(f"opacity reset: max opacity {top}, moments not zeroed")
+    log(f"opacity reset: {reset_ms:.3f} ms, max opacity after {top!r}")
+    for k, v in rows.items():
+        log(f"geometry {k}: " + ", ".join(f"{a} {b!r}" for a, b in v.items()))
+    log("geometry stages (ms, each alone): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(step_ms_median=statistics.median(plain_steps),
+                step_ms=step_ms, densify_ms=densify_ms,
+                opacity_reset_ms=reset_ms, losses=losses_,
+                events=logs.events, metrics=metrics_log,
+                capacity=[n0, model.capacity], max_entries=max_entries,
+                launches=launches, kernels=rows, stage_ms=stages,
+                step_entries=dict(total=x["total"], covered=x["covered"],
+                                  pairs_evaluated=x["n_eval"],
+                                  pairs_included=x["n_inc"],
+                                  distinct_gaussians=x["distinct"]))
+
+
+def rgb_stages(model, optimizer, cam, x, dev) -> dict:
+    """The geometry step's stages, each timed alone on one step's inputs."""
+    s = x["settings"]
+    gx, gy = s.grid_x, s.grid_y
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    view, projm, campos = (T(cam.world_view_transform),
+                           T(cam.full_proj_transform), T(cam.camera_center))
+    params = trainer.rgb_params(model)
+
+    def pre():
+        return projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, view, projm, campos, s.tanfovx,
+            s.tanfovy, s.image_width, s.image_height, s.sh_degree,
+            opacities=x["op"])
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = model.capacity
+    g_xy, g_conic, g_rgb = (torch.randn(shape, device=dev, generator=gen)
+                            for shape in ((n, 2), (n, 3), (n, 3)))
+
+    def pre_fwd_bwd():
+        p = pre()
+        torch.autograd.backward([p.xy, p.conic, p.rgb], [g_xy, g_conic, g_rgb])
+
+    proj_d = projection.detach(pre())
+    zero3 = torch.zeros(3, device=dev)
+    img = rasterize_tiles.tiles_to_image(x["rgb_t"], gx, gy, s.image_height,
+                                         s.image_width)
+    gt = T(cam.image)
+
+    def loss_fwd_bwd():
+        leaf = img.detach().requires_grad_(True)
+        loss = 0.8 * losses.l1_loss(leaf, gt) + 0.2 * (
+            1.0 - losses.ssim(leaf, gt))
+        loss.backward()
+
+    dgrad = rgb_train.rgb_grads(x["g"], x["start"], x["count"], x["geom"],
+                                x["pack"], gx, gy)
+    for p in params.values():
+        p.grad = torch.randn(p.shape, device=dev, generator=gen)
+    stages = {
+        "preprocess forward (SH 3, EWA)": cuda_ms(pre, 5)[0],
+        "K1 + sort": cuda_ms(lambda: sorted_binning(s, proj_d, x["op"]),
+                             5)[0],
+        "K2 rgb": cuda_ms(lambda: blend.blend_tiles(
+            x["g"], x["start"], x["count"], x["geom"], zero3, gx, gy), 5)[0],
+        "loss (L1 + SSIM, forward and backward)": cuda_ms(loss_fwd_bwd,
+                                                          5)[0],
+        "K7 geometry backward": cuda_ms(lambda: rgb_train.rgb_grads(
+            x["g"], x["start"], x["count"], x["geom"], x["pack"], gx, gy),
+            5)[0],
+        "index_add_ to Gaussians": cuda_ms(
+            lambda: rgb_train.reduce_to_gaussians(dgrad, x["g"], n), 5)[0],
+        "preprocess backward": cuda_ms(pre_fwd_bwd, 5)[0]
+        - cuda_ms(pre, 5)[0],
+        "Adam (six groups)": cuda_ms(optimizer.step, 5)[0],
+    }
+    return stages
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -787,6 +1148,9 @@ def main() -> None:
 
     train_errs = train_checks_reduced(dev)
     tpath = train_path(dev)
+    torch.cuda.empty_cache()
+    rgb_errs = rgb_checks_reduced(dev)
+    rpath = rgb_path(dev)
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -794,7 +1158,13 @@ def main() -> None:
             r = timing["1080p"][k]
             launches = path["launches"][k]
             err = max([errs[k]] + [t[k]["max_abs_err"]
-                                   for t in timing.values()])
+                                   for t in timing.values()]
+                      + [d[k]["max_abs_err"]
+                         for d in (rgb_errs, rpath["kernels"]) if k in d])
+        elif k == "K7":
+            r = rpath["kernels"][k]
+            launches = rpath["launches"][k]
+            err = max(r["max_abs_err"], rgb_errs[k]["max_abs_err"])
         else:
             r = tpath["kernels"][k]
             launches = tpath["launches"][k]
@@ -812,8 +1182,8 @@ def main() -> None:
                        cuda=torch.version.cuda, build_s=build_s,
                        elapsed_s=elapsed, max_abs_err_reduced=errs,
                        main_path=path, kernel_timing=timing,
-                       train_reduced=train_errs, train_path=tpath), f,
-                  indent=1)
+                       train_reduced=train_errs, train_path=tpath,
+                       rgb_reduced=rgb_errs, rgb_path=rpath), f, indent=1)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))

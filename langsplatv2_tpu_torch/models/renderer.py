@@ -5,8 +5,11 @@ Three modes: `quick_render=True` (the merged model's 192-channel
 coefficient map), `include_feature=True` (feature-phase training: the
 model's top-k (weight, index) pairs from its logits, blended to an
 L*K-channel map that is differentiable in the weights), and RGB only, with
-SH colours. The Python-side covariance belongs to a later
-slice and raises; override colours and Python-side SH are not ported yet.
+SH colours: the geometry phase's mode, differentiable in the model's six
+RGB fields and in the `means2d_dummy` carrier (the JAX package's stand-in
+for torch's retain_grad on the screen-space means). The Python-side
+covariance belongs to a later slice and raises; override colours and
+Python-side SH are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
 def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
            projmatrix, campos, bg_color, *, include_feature: bool = False,
            quick_render: bool = False, topk: int = 4,
-           compute_cov3d_python: bool = False, device=None,
-           stage_events: list | None = None) -> RenderOutput:
+           compute_cov3d_python: bool = False, means2d_dummy=None,
+           device=None, stage_events: list | None = None) -> RenderOutput:
     if compute_cov3d_python:
         raise NotImplementedError(
             "compute_cov3d_python belongs to a later slice of the port: the "
@@ -76,7 +79,8 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
         rotations=model.get_rotation(), shs=model.get_features(),
         quick_weights=quick_weights,
         quick_indices=quick_indices, quick_channels=quick_channels,
-        quick_train=quick_train, device=dev, stage_events=stage_events)
+        quick_train=quick_train, means2d_dummy=means2d_dummy, device=dev,
+        stage_events=stage_events)
     return RenderOutput(
         render=out.rgb, language_feature_weight_map=out.feature_map,
         visibility_filter=out.radii > 0, radii=out.radii,

@@ -32,6 +32,15 @@ def pack_gaussian_state(xy, conic, opacities, colors) -> torch.Tensor:
     return torch.cat([xy, conic, opacities[:, None], rgb], dim=1).contiguous()
 
 
+def pixel_coords(n_tiles: int, grid_x: int, device):
+    """(px, py) [T, 256] f32: each tile pixel's coordinates, row-major."""
+    tid = torch.arange(n_tiles, device=device)
+    pix = torch.arange(P, device=device)
+    px = ((tid % grid_x)[:, None] * BLOCK + pix % BLOCK).float()
+    py = ((tid // grid_x)[:, None] * BLOCK + pix // BLOCK).float()
+    return px, py
+
+
 def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x):
     """The blend's per-position loop, vectorized over tiles and pixels: for
     each depth position j of the tiles' segments yields (j, live [T] bool,
@@ -41,10 +50,7 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x):
     positions); later weights would all be 0."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
-    tid = torch.arange(n_tiles, device=dev)
-    pix = torch.arange(P, device=dev)
-    px = ((tid % grid_x)[:, None] * BLOCK + pix % BLOCK).float()
-    py = ((tid // grid_x)[:, None] * BLOCK + pix // BLOCK).float()
+    px, py = pixel_coords(n_tiles, grid_x, dev)
     T = torch.ones((n_tiles, P), device=dev)
     done = torch.zeros((n_tiles, P), dtype=torch.bool, device=dev)
     n_max = int(tile_count.max()) if n_tiles else 0

@@ -24,16 +24,17 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# expand.cu, blend.cu and feature_bwd.cu round every f32 op on its own (no
-# fused multiply-add), as their plain PyTorch versions do: the entry sets of
-# K1 and the alpha / termination tests of K2 then agree bit for bit, and K4
-# replays K2's blend weights exactly.
+# expand.cu, blend.cu, feature_bwd.cu and rgb_bwd.cu round every f32 op on
+# its own (no fused multiply-add), as their plain PyTorch versions do: the
+# entry sets of K1 and the alpha / termination tests of K2 then agree bit for
+# bit, and K4 and K7 replay K2's blend weights exactly.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false"],
     "query.cu": [],
     "feature_bwd.cu": ["-fmad=false"],
     "gram.cu": [],
+    "rgb_bwd.cu": ["-fmad=false"],
     "errors.cu": [],
 }
 
@@ -57,6 +58,8 @@ ENTRY_POINTS = {
     # seg w rhs gfull num_tiles C M K lay eps inv_hw upstream dw dphi dg
     # stream
     "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
+    # g_sorted tile_start tile_count geom pack num_tiles grid_x dgrad stream
+    "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument

@@ -28,6 +28,12 @@ class ProjectedGaussians(NamedTuple):
     tiles_touched: torch.Tensor  # [N] int32
 
 
+def detach(proj: ProjectedGaussians) -> ProjectedGaussians:
+    """The same fields outside autograd (binning reads them)."""
+    return ProjectedGaussians(*(None if t is None else t.detach()
+                                for t in proj))
+
+
 def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
                       tanfovx: float, tanfovy: float, image_width: int,
                       image_height: int, scale_modifier: float = 1.0,

@@ -7,7 +7,11 @@ sort branch, with `_sorted_quick_binning` and `_assemble`).
 
 `quick_train=True` (feature-phase training, :213-231) takes the same path
 with the quick blend wrapped in `ops/train.py::QuickTrainBlend`, whose
-backward (K4) gives d(quick_weights).
+backward (K4) gives d(quick_weights). RGB mode (:258-271) goes through
+`ops/rgb_train.py::rasterize_rgb_vjp`: the blend with bg = 0 wrapped in
+`RGBTrainBlend`, whose backward (K7) gives d(xy, conic, opacity, colour),
+and the background composited outside it; the output equals the plain
+blend's with the background inside, so serving and training share it.
 
 Options that belong to later slices of the port raise NotImplementedError
 naming the slice; none of them falls back to another path.
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import blend, expand, projection, rasterize_tiles, train
+from . import blend, expand, projection, rasterize_tiles, rgb_train, train
 from .projection import BLOCK
 
 
@@ -157,12 +161,15 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               projmatrix, campos, bg, scales=None, rotations=None,
               cov3d_precomp=None, shs=None, colors_precomp=None,
               features=None, quick_weights=None, quick_indices=None,
-              quick_channels: int = 192, quick_train: bool = False, *,
-              device=None, stage_events: list | None = None
-              ) -> RasterizeOutput:
+              quick_channels: int = 192, quick_train: bool = False,
+              means2d_dummy=None, *, device=None,
+              stage_events: list | None = None) -> RasterizeOutput:
     """Quick mode when quick_weights/quick_indices [N, S] are given (the
     merged-model serving path), RGB only otherwise. With quick_train the
     feature map is differentiable in quick_weights (and in nothing else).
+    In RGB mode the image and final transmittance are differentiable in
+    means3d, scales, rotations, opacities, shs / colors_precomp and
+    `means2d_dummy` [N, 2] (the densification statistics' carrier).
 
     `stage_events` (CUDA only): a list that gets (stage name, recorded
     torch.cuda.Event) after "start", "preprocess", "expand", "sort",
@@ -185,32 +192,42 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
         f32(means3d), f32(scales), f32(rotations), f32(shs),
         f32(colors_precomp), f32(viewmatrix), f32(projmatrix), f32(campos),
         settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
-        settings.scale_modifier, opacities=opacities[:, 0],
+        settings.scale_modifier, opacities=opacities[:, 0].detach(),
         cull_alpha=settings.cull_alpha)
     mark_stage(stage_events, "preprocess")
-    g_sorted, tile_start, tile_count, total, live_total = sorted_binning(
-        settings, proj, opacities[:, 0], stage_events)
+    with torch.no_grad():   # binning is not differentiable
+        g_sorted, tile_start, tile_count, total, live_total = sorted_binning(
+            settings, projection.detach(proj), opacities[:, 0].detach(),
+            stage_events)
     mark_stage(stage_events, "sort")
+    if quick_weights is None:
+        rgb, final_t = rgb_train.rasterize_rgb_vjp(
+            settings, proj, opacities[:, 0], (g_sorted, tile_start,
+                                              tile_count), bg,
+            None if means2d_dummy is None else f32(means2d_dummy))
+        mark_stage(stage_events, "blend")
+        mark_stage(stage_events, "assemble")
+        return RasterizeOutput(
+            rgb=rgb, feature_map=None, radii=proj.radius,
+            final_transmittance=final_t, max_tile_count=tile_count.max(),
+            total_entries=total, live_total=live_total)
+    if means2d_dummy is not None:
+        raise ValueError("means2d_dummy is read in RGB mode only")
     geom = blend.pack_gaussian_state(proj.xy, proj.conic, opacities[:, 0],
                                      proj.rgb)
-    if quick_weights is not None:
-        qw = f32(quick_weights).contiguous()
-        qi = torch.as_tensor(quick_indices, device=dev).to(
-            torch.int32).contiguous()
-        if quick_train:
-            rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
-                qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
-                grid_y, quick_channels)
-        else:
-            rgb_t, feat_t, t_t = blend.blend_tiles(
-                g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
-                qw, qi, quick_channels)
+    qw = f32(quick_weights).contiguous()
+    qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32).contiguous()
+    if quick_train:
+        rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
+            qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
+            grid_y, quick_channels)
     else:
         rgb_t, feat_t, t_t = blend.blend_tiles(
-            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y)
+            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y, qw,
+            qi, quick_channels)
     mark_stage(stage_events, "blend")
     rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
-    if feat_t is not None and settings.assemble:
+    if settings.assemble:
         feat_t = rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
     final_t = rasterize_tiles.tiles_to_image(
         t_t[..., None], grid_x, grid_y, H, W)[0]

@@ -1,8 +1,26 @@
-"""Feature-phase training, exact route (port of
-langsplatv2_tpu/train/trainer.py:36-68, 220-465, 592-605, 742-1056).
+"""Training loops (port of langsplatv2_tpu/train/trainer.py:28-137,
+220-465, 549-605, 634-1056): the geometry (RGB) phase and the feature
+phase on its exact route.
 
-Geometry frozen, the language logits and codebooks trained against the
-compact GT (segment table + segment map) with the cosine loss in Gram space:
+Geometry phase, `train_rgb` (reference train.py:114-267): the six RGB
+fields trained against the camera images with (1 - l) L1 + l (1 - SSIM):
+
+    render (RGB mode)             SH colours + preprocess under autograd ->
+                                  K1 -> sort -> K2 rgb (bg = 0) with the
+                                  background composited outside
+    backward of the blend         K7 per-entry rows -> index_add_ -> autograd
+                                  through the preprocess, the means2D carrier
+    Adam                          six named groups, xyz on its schedule
+    densify / prune / reset       host-driven, with capacity growth and
+                                  optimizer-state surgery
+
+The step updates the model in place (parameters by Adam, densification
+statistics by `add_densification_stats`); densification and the opacity
+reset return a new model and rebind the optimizer to its tensors.
+
+Feature phase, `train_features`: geometry frozen, the language logits and
+codebooks trained against the compact GT (segment table + segment map)
+with the cosine loss in Gram space:
 
     render(include_feature=True)  preprocess -> K1 -> sort -> live-prefix
                                   clamp -> K2 quick [T, 256, L*K] map
@@ -22,9 +40,9 @@ The port reports live_total for any top-k width; the JAX package reports it
 codes the two keep different budgets with the same results.
 
 Not ported yet, and raising NotImplementedError: camera batches
-(`cam_batch > 1`), gradient accumulation (`accum_iter > 1`), the
-pixel-space loss (l1 / normalize), the capped route (`tile_budget > 0`)
-and the viewer (`gui_source_path`).
+(`cam_batch > 1`), gradient accumulation (`accum_iter > 1`, both phases),
+the pixel-space feature loss (l1 / normalize), the capped route
+(`tile_budget > 0`) and the viewer (`gui_source_path`).
 """
 from __future__ import annotations
 
@@ -36,12 +54,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import gaussians as gm
 from ..models.gaussians import GaussianModel
 from ..models.renderer import make_settings, render
 from ..ops.gram import gram_loss_fused, seg_to_tiles
 from ..ops.projection import BLOCK
-from .optimizers import grouped_adam
+from ..utils import losses
+from ..utils.schedules import expon_lr_func
+from .optimizers import (grouped_adam, rebind, set_scheduled_lrs,
+                         zero_group_moments, zero_moment_rows)
 
+RGB_PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling",
+                   "rotation", "opacity")
 FEATURE_PARAM_NAMES = ("language_logits", "codebooks")
 
 
@@ -49,6 +73,30 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} belongs to a later slice of the port: {slice_name} "
         "(ROADMAP.md, Queue 1)")
+
+
+def rgb_params(model: GaussianModel) -> dict:
+    """The trained parameters of the geometry phase, switched to
+    requires_grad."""
+    return {k: getattr(model, k).requires_grad_(True)
+            for k in RGB_PARAM_NAMES}
+
+
+def make_rgb_optimizer(opt, model: GaussianModel) -> torch.optim.Adam:
+    """Six groups with the reference rates (gaussian_model.py:244-257); the
+    xyz rate follows expon_lr_func scaled by the model's spatial_lr_scale."""
+    scale = model.spatial_lr_scale
+    xyz_schedule = expon_lr_func(
+        lr_init=opt.position_lr_init * scale,
+        lr_final=opt.position_lr_final * scale,
+        lr_delay_mult=opt.position_lr_delay_mult,
+        max_steps=opt.position_lr_max_steps)
+    rates = {"xyz": xyz_schedule, "features_dc": opt.feature_lr,
+             "features_rest": opt.feature_lr / 20.0,
+             "opacity": opt.opacity_lr, "scaling": opt.scaling_lr,
+             "rotation": opt.rotation_lr}
+    return grouped_adam({k: (p, rates[k])
+                         for k, p in rgb_params(model).items()})
 
 
 def feature_params(model: GaussianModel) -> dict:
@@ -63,6 +111,80 @@ def make_feature_optimizer(opt, model: GaussianModel) -> torch.optim.Adam:
     gaussian_model.py:234-238)."""
     return grouped_adam({k: (p, opt.language_feature_lr)
                          for k, p in feature_params(model).items()})
+
+
+# ------------------------------------------------------- the geometry step
+
+def rgb_step(settings, optimizer: torch.optim.Optimizer, lambda_dssim: float,
+             model, view, proj, campos, bg, gt_image, device=None) -> dict:
+    """One geometry step: render in RGB mode with a zero means2D carrier,
+    the loss (1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM), the backward,
+    the gradients of dead (padding) rows hard-zeroed (masked branches can
+    carry NaN there: a dead row's depth is 0), the scheduled rates, Adam,
+    and the densification statistics of the visible Gaussians. The model
+    is updated in place; the gradients stay in `.grad`. Returns the
+    step's metrics."""
+    dummy = torch.zeros((model.capacity, 2), device=model.xyz.device,
+                        requires_grad=True)
+    out = render(settings, model, view, proj, campos, bg,
+                 means2d_dummy=dummy, device=device)
+    l1 = losses.l1_loss(out.render, gt_image)
+    loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
+        1.0 - losses.ssim(out.render, gt_image))
+    optimizer.zero_grad(set_to_none=False)
+    loss.backward()
+    dead = ~model.live
+    for name in RGB_PARAM_NAMES:
+        g = getattr(model, name).grad
+        g.masked_fill_(dead.reshape((-1,) + (1,) * (g.dim() - 1)), 0.0)
+    set_scheduled_lrs(optimizer)
+    optimizer.step()
+    vis = out.visibility_filter
+    with torch.no_grad():
+        model.max_radii2d.copy_(torch.where(
+            vis, torch.maximum(model.max_radii2d, out.radii.float()),
+            model.max_radii2d))
+    gm.add_densification_stats(model, dummy.grad, vis)
+    return {"loss": loss.detach(), "l1": l1.detach(),
+            "num_visible": vis.sum(), "max_tile_count": out.max_tile_count,
+            "total_entries": out.total_entries, "means2d_grad": dummy.grad}
+
+
+def run_densify(model: GaussianModel, optimizer: torch.optim.Optimizer,
+                generator: torch.Generator, opt, extent: float,
+                max_screen_size: float) -> GaussianModel:
+    """One densification round with capacity growth on overflow (the
+    capacity grows to max(C + overflow, 1.5 C), rounded up to 256, and the
+    round is redone), the Adam moments of reused slots zeroed and the
+    optimizer rebound to the new model's tensors. The split noise comes
+    from `generator`, one draw per attempt."""
+    while True:
+        eps = torch.randn((2, model.capacity, 3), generator=generator,
+                          device=generator.device).to(model.xyz.device)
+        new_model, overflow, placed = gm.densify_and_prune(
+            model, eps, max_grad=opt.densify_grad_threshold,
+            min_opacity=0.005, extent=extent,
+            max_screen_size=max_screen_size,
+            percent_dense=opt.percent_dense)
+        overflow = int(overflow)
+        if overflow == 0:
+            zero_moment_rows(optimizer, placed)
+            rebind(optimizer, rgb_params(new_model))
+            return new_model
+        old_cap = model.capacity
+        new_cap = max(old_cap + overflow, int(old_cap * 1.5))
+        model = gm.grow_capacity(model, -(-new_cap // 256) * 256)
+        rebind(optimizer, rgb_params(model))
+
+
+def apply_opacity_reset(model: GaussianModel,
+                        optimizer: torch.optim.Optimizer) -> GaussianModel:
+    """reset_opacity and zero the opacity group's Adam moments (reference
+    gaussian_model.py:308-311 + replace_tensor_to_optimizer)."""
+    model = gm.reset_opacity(model)
+    rebind(optimizer, rgb_params(model))
+    zero_group_moments(optimizer, "opacity")
+    return model
 
 
 # ---------------------------------------------------------------- the loss
@@ -172,6 +294,7 @@ class TrainLogs:
     losses: list = field(default_factory=list)
     ema_loss: float = 0.0
     live_budget: dict = field(default_factory=dict)   # camera sig -> budget
+    events: list = field(default_factory=list)   # (iteration, kind, num_live)
 
 
 def camera_arrays(camera, bg):
@@ -180,6 +303,91 @@ def camera_arrays(camera, bg):
             np.asarray(camera.full_proj_transform, np.float32),
             np.asarray(camera.camera_center, np.float32),
             np.asarray(bg, np.float32))
+
+
+def train_rgb(
+    model: GaussianModel,
+    cameras: list,
+    opt,
+    extent: float,
+    *,
+    iterations: int | None = None,
+    first_iter: int = 0,
+    bg_color=(0, 0, 0),
+    white_background: bool = False,
+    seed: int = 0,
+    max_entries: int = 2 ** 21,
+    accum_iter: int = 1,
+    optimizer: torch.optim.Optimizer | None = None,
+    on_iteration: Callable[[int, GaussianModel, Any, dict], None] | None
+    = None,
+    gui_source_path: str | None = None,
+    device=None,
+):
+    """The geometry phase's loop (reference train.py:114-267). Returns
+    (model, optimizer, logs); `logs.events` lists (iteration, "densify",
+    num_live) and (iteration, "opacity_reset", None).
+
+    Each camera carries its image [3, H, W] in `camera.image`. The SH
+    degree steps up every 1000 iterations; densification runs every
+    `opt.densification_interval` iterations after `opt.densify_from_iter`
+    and before `opt.densify_until_iter`, its split noise drawn from a
+    torch.Generator on the device seeded with `seed`.
+    `on_iteration(iteration, model, optimizer, metrics)` runs after each
+    step and any densification."""
+    if accum_iter > 1:
+        raise _later("accum_iter > 1", "gradient accumulation (item 8)")
+    if gui_source_path is not None:
+        raise _later("gui_source_path", "the viewer (item 9)")
+    dev = resolve_device(device)
+    if model.xyz.device.type != dev.type:
+        raise ValueError(f"the model lies on {model.xyz.device}, not {dev}")
+    iterations = iterations or opt.iterations
+    if optimizer is None:
+        optimizer = make_rgb_optimizer(opt, model)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    rng = random.Random(seed)
+    logs = TrainLogs()
+    images: dict[int, torch.Tensor] = {}
+
+    viewpoint_stack: list = []
+    for iteration in range(first_iter + 1, iterations + 1):
+        if iteration % 1000 == 0:
+            model.one_up_sh_degree()
+        if not viewpoint_stack:
+            viewpoint_stack = list(cameras)
+        cam = viewpoint_stack.pop(rng.randint(0, len(viewpoint_stack) - 1))
+        if id(cam) not in images:
+            images[id(cam)] = torch.as_tensor(
+                np.asarray(cam.image, np.float32), device=dev)
+        settings = make_settings(cam, model.active_sh_degree, 1.0,
+                                 max_entries)
+        view, proj, campos, bg = camera_arrays(cam, bg_color)
+        metrics = rgb_step(settings, optimizer, opt.lambda_dssim, model, view,
+                           proj, campos, bg, images[id(cam)], device=dev)
+        loss = float(metrics["loss"])
+        logs.ema_loss = 0.4 * loss + 0.6 * logs.ema_loss
+        logs.losses.append(loss)
+
+        # Densification schedule (reference train.py:246-258).
+        if iteration < opt.densify_until_iter:
+            if (iteration > opt.densify_from_iter
+                    and iteration % opt.densification_interval == 0):
+                size_threshold = (20.0 if iteration
+                                  > opt.opacity_reset_interval else 0.0)
+                model = run_densify(model, optimizer, generator, opt, extent,
+                                    size_threshold)
+                logs.events.append((iteration, "densify",
+                                    int(model.num_live)))
+            if iteration % opt.opacity_reset_interval == 0 or (
+                    white_background
+                    and iteration == opt.densify_from_iter):
+                model = apply_opacity_reset(model, optimizer)
+                logs.events.append((iteration, "opacity_reset", None))
+
+        if on_iteration is not None:
+            on_iteration(iteration, model, optimizer, metrics)
+    return model, optimizer, logs
 
 
 def train_features(

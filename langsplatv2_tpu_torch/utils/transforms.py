@@ -5,6 +5,10 @@ from __future__ import annotations
 import torch
 
 
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Quaternions [..., 4] (w, x, y, z), normalized here -> [..., 3, 3]."""
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)

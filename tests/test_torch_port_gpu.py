@@ -127,3 +127,40 @@ def test_gram_kernels_match_plain(cuda, L, lay):
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-30)
         torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def test_rgb_bwd_kernel_matches_plain(cuda):
+    """K7 against its plain version (rows within 1e-5 of the largest: sums
+    of 256 pixels in another order), and RGBTrainBlend's gradients (K2, K7,
+    index_add_) against the same chain of plain versions (1e-4 of the
+    largest: index_add_ adds with atomics, in an order that varies)."""
+    from langsplatv2_tpu_torch.ops import rgb_train
+
+    proj, ops, gx, gy = _case(cuda)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    rgb_t, _, t_t = blend.blend_tiles_plain(
+        g, start, count, geom, torch.zeros(3, device=cuda), gx)
+    g_rgb = torch.randn(gx * gy, 256, 3, device=cuda, generator=gen)
+    g_t = torch.randn(gx * gy, 256, device=cuda, generator=gen)
+    pack = rgb_train.make_pack(rgb_t, t_t, g_rgb, g_t)
+    out = rgb_train.rgb_grads(g, start, count, geom, pack, gx, gy)
+    ref = rgb_train.rgb_grads_plain(g, start, count, geom, pack, gx)
+    assert out.shape == ref.shape == (int(count.sum()), 9)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(out / scale, ref / scale, atol=1e-5, rtol=0)
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (proj.xy, proj.conic, ops, proj.rgb)]
+    rgb_k, t_k = rgb_train.RGBTrainBlend.apply(*leaves, g, start, count, gx,
+                                               gy)
+    ((rgb_k * g_rgb).sum() + (t_k * g_t).sum()).backward()
+    torch.testing.assert_close(rgb_k, rgb_t, atol=3e-5, rtol=0)
+    per = rgb_train.reduce_to_gaussians(ref, g, ops.shape[0])
+    want = (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, 6:9])
+    for leaf, w in zip(leaves, want):
+        s = max(float(w.abs().max()), 1e-30)
+        torch.testing.assert_close(leaf.grad / s, w / s, atol=1e-4, rtol=0)
