@@ -49,10 +49,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    count; then, on one step's own inputs of the trained model, the checks
    of phase 8 (K1, K2, K7, the RGBTrainBlend chain), K7 timed beside its
    plain version and its bound, the step's stages timed alone, and the
-   opacity reset once on the grown model.
+   opacity reset once on the grown model;
+10. the serving default on phase 4's scene and budgets: precision="bf16"
+   (fast16 rows), feat_bf16, assemble=False, 5 frames at each load, exact
+   and capped (budget 1e-6, cap 128, subdiv 2, as bench.py's capped
+   variant), the launch counters zeroed just before and read just after;
+   fails unless K1, fast16 K2 and bf16 K3 launched on every frame, every
+   output is finite, no entry budget saturates and the capped kept total
+   is below the exact live total; prints the relevancy-mask IoU of capped
+   against exact (sim > 0.18); then, on each frame's own inputs, fast16 K2
+   (outputs before the bf16 rounding atol 3e-5, bf16 outputs within one
+   bf16 ulp) and bf16 K3 (rtol/atol 1e-5) against their plain versions,
+   timed beside their bounds (K3 also beside the bf16 einsum pair);
+11. capped feature training: K5 against its plain version (1e-5 of its
+   largest output) on a reduced scene (50k Gaussians, 272x480), then
+   train_features with scripts/train.sh's defaults (tile_budget 1e-6,
+   cap 128) for 20 steps on phase 7's scene, the launch counters zeroed
+   just before and read just after; fails unless K1, K2, K5, K6a and K6b
+   launched on every step and K4 never, the loss is finite and falls, and
+   the expansion budget was sized from the first step and never
+   overflowed; then K5 on one step's own inputs, timed beside its plain
+   version and its bound, and the step's stages timed alone.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6 and 7; for K7 of phases 8
-and 9) and, last, {"ok": true, "device": {...}}.
+and 9; for fast16 K2 and bf16 K3 of phase 10, for K5 of phase 11) and,
+last, {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -78,7 +99,7 @@ from langsplatv2_tpu_torch.ops import (blend, expand, gram, kernels,
                                        projection, query, rasterize_tiles,
                                        rgb_train, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
-    sorted_binning
+    capped_binning, sorted_binning
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
 from langsplatv2_tpu_torch.train.config import OptimizationParams
@@ -93,6 +114,7 @@ from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F32_TENSOR_FLOPS = 495e12 / 3
+BF16_TENSOR_FLOPS = 989e12
 L, K, TOPK, DIM = 3, 64, 4, 512
 PROMPTS = ["teddy bear"]              # + the 4 canonical negatives
 LOADS = [("1080p", 1080, 1920, 5_300_000), ("986x728", 728, 986, 3_900_000)]
@@ -118,6 +140,12 @@ KERNELS = {
             "langsplatv2_tpu/ops/pallas_gram.py:205"),
     "K7": ("rgb_grads", "langsplatv2_tpu_torch/csrc/rgb_bwd.cu",
            "langsplatv2_tpu/ops/pallas_rgb_train.py:290"),
+    "K5": ("feature_grads_topk", "langsplatv2_tpu_torch/csrc/feature_bwd_topk.cu",
+           "langsplatv2_tpu/ops/pallas_train.py:449"),
+    "K2f16": ("blend_tiles_fast16", "langsplatv2_tpu_torch/csrc/blend.cu",
+              "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K3bf16": ("query_map_tiles_bf16", "langsplatv2_tpu_torch/csrc/query.cu",
+               "langsplatv2_tpu/ops/pallas_query.py:92"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -143,6 +171,15 @@ RGB_DENSIFY = dict(densify_from_iter=4, densification_interval=8,
 # (5), the chain to d(x, y, conic, op) (15), d(rgb) (3), and the 9 adds
 # that sum the pair into its entry's row.
 RGB_BWD_INCLUDE_FLOPS = 42
+# The serving default's rows (phase 10) and the capped routes: bench.py's
+# capped variant and scripts/train.sh's training defaults.
+BF16_WRAPPERS = {"K1": expand.expand_entries,
+                 "K2f16": blend.blend_tiles_fast16,
+                 "K3bf16": query.query_map_tiles_bf16}
+CAPPED = dict(tile_budget=1e-6, cap=128, subdiv=2)
+CAPPED_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                   "K4": train.feature_grads, "K5": train.feature_grads_topk,
+                   "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
 
 
 def log(*a):
@@ -1109,6 +1146,433 @@ def rgb_stages(model, optimizer, cam, x, dev) -> dict:
     return stages
 
 
+# ------------------------------------------- phase 10: bf16 (fast16) serving
+
+def bf16_variants(s: RasterizeSettings) -> dict:
+    """The serving default's rows (precision="bf16", feat_bf16) on phase
+    4's budgets: exact, and capped as bench.py:738-759 sets it."""
+    b = s._replace(precision="bf16", feat_bf16=True, assemble=False)
+    return {"exact": b, "capped": b._replace(
+        tile_budget=CAPPED["tile_budget"], tile_budget_cap=CAPPED["cap"],
+        tile_budget_subdiv=CAPPED["subdiv"], cull_alpha=1.0 / 255.0)}
+
+
+def relevancy_mask(raw, nrm2) -> torch.Tensor:
+    """test_capped_relevancy_iou's mask: cosine sim > 0.18 per level and
+    prompt (all prompts, negatives included)."""
+    t, p, lpq = raw.shape
+    sim = raw.reshape(t * p, L, -1) / (torch.sqrt(torch.clamp(
+        nrm2.reshape(t * p, L), min=0.0))[..., None] + 1e-10)
+    return sim > 0.18
+
+
+def fast16_inputs(model, s, view, pm, dev) -> dict:
+    """What fast16 K2 gets in a frame of settings `s` (the calls of
+    rasterize: preprocess, binning, the fast16 rows)."""
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    with torch.no_grad():
+        op = model.get_opacity()[:, 0].contiguous()
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(view), T(pm),
+            torch.zeros(3, device=dev), s.tanfovx, s.tanfovy,
+            s.image_width, s.image_height, 0, opacities=op,
+            cull_alpha=s.cull_alpha)
+        if s.tile_budget > 0:
+            g, start, count, _, _ = capped_binning(s, proj, op, True)
+            n_blend = int(count.sum())
+            ids = g.reshape(-1, s.tile_budget_cap)
+            ids = ids[torch.arange(s.tile_budget_cap, device=dev)[None, :]
+                      < count[:, None]]
+        else:
+            g, start, count, _, _ = sorted_binning(s, proj, op)
+            n_blend = int(count.sum())
+            ids = g[:n_blend]
+        rows = blend.pack_fast16_rows(proj.xy, proj.conic, op, proj.rgb,
+                                      model.quick_weights,
+                                      model.quick_indices)
+    return dict(g=g, start=start, count=count, rows=rows,
+                bg=torch.zeros(3, device=dev), covered=n_blend,
+                distinct=int(torch.unique(ids).numel()))
+
+
+def check_fast16(x, s, timed: bool) -> dict:
+    """fast16 K2 on one frame's inputs against its plain version: outputs
+    before the bf16 rounding (feat_bf16 off) atol 3e-5; the bf16 tiles and
+    rounded colour within one bf16 ulp of the plain version's, final T
+    atol 3e-5. With `timed`, its time (feat_bf16 on, as served), the plain
+    version's and its bound for this data."""
+    gx, gy = s.grid_x, s.grid_y
+    args = (x["g"], x["start"], x["count"], x["rows"], x["bg"], gx)
+    out = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, False)
+    ref = blend.blend_tiles_fast16_plain(*args, L * TOPK, L * K, False)
+    err = max_diff(zip(out, ref))
+    if not err <= 3e-5:
+        fail(f"fast16 K2 (f32 outputs) differs from its plain version by "
+             f"{err} (atol 3e-5)")
+    del out, ref
+    stats = torch.zeros(2, dtype=torch.int64, device=x["g"].device)
+    k2 = lambda: blend.blend_tiles_fast16(  # noqa: E731
+        *args, gy, L * TOPK, L * K, True)
+    k2_plain = lambda: blend.blend_tiles_fast16_plain(  # noqa: E731
+        *args, L * TOPK, L * K, True)
+    out = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, True,
+                                   stats=stats)
+    ref = k2_plain()
+    ulps = 0.0
+    for a, b in zip(out[:2], ref[:2]):
+        a, b = a.float(), b.float()
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30)))
+                         - 7)
+        ulps = max(ulps, float(((a - b).abs() / ulp).max()))
+    t_err = float((out[2] - ref[2]).abs().max())
+    if not (ulps <= 1.0 and t_err <= 3e-5):
+        fail(f"fast16 K2 (bf16 outputs) differs from its plain version: "
+             f"{ulps} ulp, final T {t_err}")
+    r = dict(max_abs_err=err, bf16_ulps=ulps, t_err=t_err,
+             pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]),
+             distinct_gaussians=x["distinct"])
+    del out, ref
+    if timed:
+        n_tiles = gx * gy
+        r["ms"] = cuda_ms(k2, 10)[0]
+        r["plain_ms"] = cuda_ms(k2_plain, 1)[0]
+        r["library_ms"] = None
+        # g ids of the blended entries, tile ranges, a 64-byte row a
+        # distinct Gaussian; rgb and T in f32, the map in bf16.
+        r["bound_ms"], r["bound_by"] = bound(
+            x["covered"] * 4 + n_tiles * 8 + x["distinct"] * 64
+            + n_tiles * 256 * (4 * 4 + L * K * 2),
+            r["pairs_evaluated"] * BLEND_ALPHA_FLOPS
+            + r["pairs_included"] * BLEND_INCLUDE_FLOPS)
+    return r
+
+
+def check_query_bf16(wm, phi, gram, timed: bool) -> dict:
+    """bf16 K3 on a frame's bf16 map against its plain version on the same
+    rounded operands (rtol/atol 1e-5); with `timed`, its time, the plain
+    version's, its bound (the bf16 map read once; the products at the bf16
+    tensor-core rate) and the bf16 einsum pair."""
+    out = query.query_map_tiles_bf16(wm, phi, gram)
+    ref = query.query_map_tiles_bf16_plain(wm, phi, gram)
+    r = dict(max_abs_err=max_diff(zip(out, ref)))
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+               for a, b in zip(out, ref)):
+        fail(f"bf16 K3 differs from its plain version by "
+             f"{r['max_abs_err']} (rtol/atol 1e-5)")
+    if timed:
+        pq = phi.shape[2]
+        q = wm.shape[0] * 256
+        wm3 = wm.reshape(-1, L, K)
+        phi_b, gram_b = phi.to(torch.bfloat16), gram.to(torch.bfloat16)
+
+        def einsum_pair():
+            torch.einsum("qlk,lkp->qlp", wm3, phi_b)
+            torch.einsum("qlk,lkm,qlm->ql", wm3, gram_b, wm3)
+
+        r["ms"] = cuda_ms(lambda: query.query_map_tiles_bf16(wm, phi, gram),
+                          20)[0]
+        r["plain_ms"] = cuda_ms(
+            lambda: query.query_map_tiles_bf16_plain(wm, phi, gram), 5)[0]
+        r["library_ms"] = cuda_ms(einsum_pair, 5)[0]
+        r["bound_ms"], r["bound_by"] = bound(
+            q * L * K * 2 + (L * K * pq + L * K * K) * 4
+            + q * L * (pq + 1) * 4,
+            q * L * 2 * K * (K + pq + 1), BF16_TENSOR_FLOPS)
+    return r
+
+
+def bf16_serving(model, clip, consts, plans, f32_frames, dev) -> dict:
+    """Phase 10: the serving default (fast16 rows, bf16 map), exact and
+    capped, at both loads: counted frames, then fast16 K2 and bf16 K3 on
+    the frames' own inputs against their plain versions and timed."""
+    torch.cuda.synchronize()
+    for fn in BF16_WRAPPERS.values():
+        fn.launches = 0
+    runs = {}
+    for name, (s, view, pm) in plans.items():
+        for variant, sv in bf16_variants(s).items():
+            host_ms, stages = [], []
+            for _ in range(FRAMES):
+                events = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, relev = frame(model, sv, view, pm, clip, consts, dev,
+                                   events)
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                stages.append({b[0]: a[1].elapsed_time(b[1])
+                               for a, b in zip(events, events[1:])})
+            runs[name, variant] = (sv, out, relev, host_ms, stages)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in BF16_WRAPPERS.items()}
+    n_frames = FRAMES * len(runs)
+    log(f"launches on the bf16 serving path ({n_frames} frames): {launches}")
+    if not all(v == n_frames for v in launches.values()):
+        fail(f"a kernel of the bf16 serving path missed a frame: {launches}")
+
+    results = {}
+    for name, (s, view, pm) in plans.items():
+        res = {}
+        for variant in ("exact", "capped"):
+            sv, out, relev, host_ms, stages = runs[name, variant]
+            wm = out.language_feature_weight_map
+            tot, live = int(out.total_entries), int(out.live_total)
+            checks = {
+                "total < max_entries": tot < sv.max_entries,
+                "bf16 map": wm.dtype == torch.bfloat16
+                and tuple(wm.shape) == (s.grid_x * s.grid_y, 256, L * K),
+                "finite": all(bool(torch.isfinite(t).all()) for t in (
+                    out.render, wm, out.final_transmittance, relev)),
+            }
+            bad = [k for k, v in checks.items() if not v]
+            if bad:
+                fail(f"{name} bf16 {variant}: checks failed: {bad}")
+            res[variant] = dict(
+                frame_ms_median=statistics.median(host_ms), frame_ms=host_ms,
+                stage_ms_median={k: statistics.median(st[k] for st in stages)
+                                 for k in stages[0]},
+                total_entries=tot, live_total=live,
+                max_tile_count=int(out.max_tile_count))
+        if not res["capped"]["live_total"] < res["exact"]["live_total"]:
+            fail(f"{name}: the capped kept total is not below the exact "
+                 f"live total: {res}")
+        masks = [relevancy_mask(*query.query_map_tiles(
+            runs[name, v][1].language_feature_weight_map, *consts))
+            for v in ("exact", "capped")]
+        union = int((masks[0] | masks[1]).sum())
+        res["relevancy_iou"] = int((masks[0] & masks[1]).sum()) / max(union,
+                                                                      1)
+        del masks
+        for variant in ("exact", "capped"):
+            sv, out = runs[name, variant][:2]
+            x = fast16_inputs(model, sv, view, pm, dev)
+            res[variant]["K2f16"] = check_fast16(x, sv,
+                                                 timed=variant == "exact")
+            res[variant]["K3bf16"] = check_query_bf16(
+                out.language_feature_weight_map, *consts,
+                timed=variant == "exact")
+            del x
+        results[name] = res
+        e, c = res["exact"], res["capped"]
+        log(f"{name} bf16: frame median exact {e['frame_ms_median']:.3f} ms, "
+            f"capped {c['frame_ms_median']:.3f} ms (f32 frame "
+            f"{f32_frames[name]:.3f} ms); live {e['live_total']} exact, "
+            f"kept {c['live_total']} capped, saturation bound "
+            f"{c['max_tile_count']}; relevancy IoU capped vs exact "
+            f"{res['relevancy_iou']!r}")
+        for variant in ("exact", "capped"):
+            log(f"{name} bf16 {variant} stages (median ms): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in
+                res[variant]["stage_ms_median"].items()))
+            for k in ("K2f16", "K3bf16"):
+                log(f"{name} bf16 {variant} {k}: " + ", ".join(
+                    f"{a} {b!r}" for a, b in res[variant][k].items()))
+        for key in [k for k in runs if k[0] == name]:
+            del runs[key]
+        torch.cuda.empty_cache()
+    return dict(loads=results, launches=launches)
+
+
+# ------------------------------------------ phase 11: capped feature training
+
+def capped_step_inputs(model, cam, max_entries: int, dev) -> dict:
+    """What the kernels of one capped training step get: the windows, the
+    K2 forward on them (with its pair counts), the map's Gram-loss
+    cotangent from K6b, for K5 and the stages timed alone."""
+    s = make_settings(cam, 0, 1.0, max_entries,
+                      tile_budget=CAPPED["tile_budget"],
+                      tile_budget_cap=CAPPED["cap"],
+                      tile_budget_subdiv=CAPPED["subdiv"])
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    gx, gy = s.grid_x, s.grid_y
+    hw = s.image_height * s.image_width
+    with torch.no_grad():
+        qw, qi = model.get_weights_and_indices(TRAIN_TOPK)
+        qw, qi = qw.contiguous(), qi.int().contiguous()
+        op = model.get_opacity()[:, 0].contiguous()
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(cam.world_view_transform),
+            T(cam.full_proj_transform), T(cam.camera_center), s.tanfovx,
+            s.tanfovy, s.image_width, s.image_height, 0, opacities=op)
+        g, start, kept, sat, total = capped_binning(s, proj, op, False)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        _, wmap, _ = blend.blend_tiles(g, start, kept, geom,
+                                       torch.zeros(3, device=dev), gx, gy, qw,
+                                       qi, TRAIN_K, stats=stats)
+        table, seg = cam.get_language_feature_compact(GT_DIR, 1)
+        rhs, gfull = gram.prep(model.codebooks, T(table), 0)
+        cot = gram.gram_tiles_bwd(gram.seg_to_tiles(T(seg), gx, gy), wmap,
+                                  rhs, gfull, 0, TRAIN_K, 1e-8, 1.0 / hw,
+                                  torch.ones((), device=dev))[0]
+        slots = torch.arange(s.tile_budget_cap, device=dev)[None, :] \
+            < kept[:, None]
+    return dict(settings=s, g=g, start=start, kept=kept, geom=geom, qw=qw,
+                qi=qi, cot=cot, total=int(total), kept_total=int(kept.sum()),
+                saturation_bound=int(sat.max()), n_eval=int(stats[0]),
+                n_inc=int(stats[1]),
+                distinct=int(torch.unique(g.reshape(kept.shape[0], -1)[
+                    slots]).numel()))
+
+
+def check_k5(x, timed: bool) -> dict:
+    """K5 on one step's windows and cotangent against its plain version
+    (1e-5 of its largest output: sums of 256 pixels in another order);
+    with `timed`, its time, the plain version's and its bound."""
+    s = x["settings"]
+    gx, gy, cap = s.grid_x, s.grid_y, s.tile_budget_cap
+    args = (x["g"], x["kept"], x["geom"], x["qi"], x["cot"])
+    k5 = lambda: train.feature_grads_topk(*args, gx, gy, cap)  # noqa: E731
+    k5_plain = lambda: train.feature_grads_topk_plain(  # noqa: E731
+        *args, gx, cap)
+    out, ref = k5(), k5_plain()
+    err = normalized_err(out, ref)
+    r = dict(max_abs_err=err[0], rel_err=err[1])
+    if not err[1] <= 1e-5:
+        fail(f"K5 differs from its plain version by {err} (abs, relative)")
+    del out, ref
+    if timed:
+        n_tiles, topk = gx * gy, x["qi"].shape[1]
+        r["ms"] = cuda_ms(k5, 10)[0]
+        r["plain_ms"] = cuda_ms(k5_plain, 1)[0]
+        r["library_ms"] = None
+        # The cotangent, the blended slots' ids, the kept counts, 24 B of
+        # state and the top-k indices of each distinct Gaussian; the
+        # [T*cap, topk] rows written.
+        r["bound_ms"], r["bound_by"] = bound(
+            x["cot"].numel() * 4 + x["kept_total"] * 4 + n_tiles * 4
+            + x["distinct"] * (24 + topk * 4) + n_tiles * cap * topk * 4,
+            x["n_eval"] * BLEND_ALPHA_FLOPS + x["n_inc"] * (3 + 2 * topk))
+    return r
+
+
+def capped_train_path(dev) -> dict:
+    """Phase 11: K5 against its plain version on a reduced scene, then
+    train_features on the capped route (scripts/train.sh's defaults:
+    tile_budget 1e-6, cap 128) at phase 7's full width, the launch counts
+    of the run, K5 on one step's own inputs, timed, and the step's stages
+    alone."""
+    small, rng = train_scene(50_000, 1, dev)
+    write_gt(rng, "csmall", 1, 272, 480)
+    cam = train_cameras("csmall", (0.0,), 272, 480)[0]
+    reduced = check_k5(capped_step_inputs(small, cam, 1 << 20, dev), False)
+    log(f"reduced K5: max |kernel - plain| {reduced['max_abs_err']!r} "
+        f"({reduced['rel_err']!r} of the largest)")
+    del small
+
+    model, rng = train_scene(TRAIN_N, 0, dev)
+    write_gt(rng, "cap", len(TRAIN_YAW_DEG), TRAIN_H, TRAIN_W)
+    cams = train_cameras("cap", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W)
+    opt = type("Opt", (), {"language_feature_lr": 0.0025})()
+    max_entries = 2 ** 21
+    step_ms, metrics_log = [], []
+    clock = [None]
+
+    def on_iteration(_it, _model, _opt, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        metrics_log.append({k: float(v) for k, v in metrics.items()})
+
+    torch.cuda.synchronize()
+    for fn in CAPPED_WRAPPERS.values():
+        fn.launches = 0
+    clock[0] = time.perf_counter()
+    model, optimizer, logs = trainer.train_features(
+        model, cams, opt, GT_DIR, 1, iterations=TRAIN_ITERS, seed=0,
+        max_entries=max_entries, tile_budget=CAPPED["tile_budget"],
+        tile_budget_cap=CAPPED["cap"], tile_budget_subdiv=CAPPED["subdiv"],
+        feature_cache={}, on_iteration=on_iteration, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in CAPPED_WRAPPERS.items()}
+    losses_ = logs.losses
+    budgets = list(logs.exp_budget.values())
+    tot = [int(m["total_entries"]) for m in metrics_log]
+    kept = [int(m["live_total"]) for m in metrics_log]
+    log(f"capped training: {TRAIN_ITERS} steps, median "
+        f"{statistics.median(step_ms):.3f} ms a step (host clock + "
+        f"synchronize); loss first {losses_[0]!r} last {losses_[-1]!r}; "
+        f"kept {min(kept)}..{max(kept)}; total_entries {min(tot)}.."
+        f"{max(tot)} against the expansion budget {budgets} (first step "
+        f"at {max_entries})")
+    log(f"launches on the capped training path ({TRAIN_ITERS} steps): "
+        f"{launches}")
+    once = ("K5", "K6b")
+    if not (all(launches[k] == TRAIN_ITERS for k in once)
+            and all(launches[k] >= TRAIN_ITERS for k in ("K1", "K2", "K6a"))
+            and launches["K4"] == 0):
+        fail(f"the capped training path's launches are off: {launches}")
+    if not all(math.isfinite(v) for v in losses_):
+        fail(f"non-finite capped training loss: {losses_}")
+    if not statistics.mean(losses_[-4:]) < statistics.mean(losses_[:4]):
+        fail(f"the capped training loss did not fall: {losses_}")
+    if not (len(budgets) == 1 and tot[0] < max_entries
+            and max(tot[1:]) < budgets[0]
+            and launches["K1"] == TRAIN_ITERS):
+        fail(f"the expansion budget overflowed or was redone: {budgets}, "
+             f"totals {tot}, launches {launches}")
+
+    x = capped_step_inputs(model, cams[0], budgets[0], dev)
+    rows = check_k5(x, timed=True)
+    s = x["settings"]._replace(assemble=False)
+    c = cams[0]
+    zero3 = np.zeros(3, np.float32)
+    with torch.no_grad():
+        fwd = lambda: render(  # noqa: E731
+            s, model, c.world_view_transform, c.full_proj_transform,
+            c.camera_center, zero3, include_feature=True, topk=TRAIN_TOPK,
+            device=dev)
+        dproj = train.feature_grads_topk(x["g"], x["kept"], x["geom"],
+                                         x["qi"], x["cot"], s.grid_x,
+                                         s.grid_y, s.tile_budget_cap)
+        g_long = x["g"].long()
+        red = lambda: torch.zeros(x["qi"].shape, device=dev).index_add_(  # noqa: E731
+            0, g_long, dproj)
+        gin = gram_inputs(model, c, s, dev)
+        stages = {
+            "render forward (preprocess, K1, sort, windows + budget, K2, "
+            "top-k)": cuda_ms(fwd, 5)[0],
+            "K6a gram forward": cuda_ms(lambda: gram.gram_tiles_fwd(
+                *gin[:4]), 10)[0],
+            "K6b gram backward": cuda_ms(lambda: gram.gram_tiles_bwd(
+                *gin), 10)[0],
+            "K5 feature backward": rows["ms"],
+            "index_add_": cuda_ms(red, 5)[0],
+            "Adam step": cuda_ms(optimizer.step, 5)[0]}
+    del dproj
+    log("capped training K5: " + ", ".join(f"{a} {b!r}"
+                                           for a, b in rows.items()))
+    log("capped training stages (ms, each alone): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(step_ms_median=statistics.median(step_ms), step_ms=step_ms,
+                losses=losses_, exp_budget=budgets, total_entries=tot,
+                kept_total=kept, max_entries=max_entries, launches=launches,
+                reduced=reduced, kernels={"K5": rows}, stage_ms=stages,
+                step_entries=dict(total=x["total"], kept=x["kept_total"],
+                                  saturation_bound=x["saturation_bound"],
+                                  pairs_evaluated=x["n_eval"],
+                                  pairs_included=x["n_inc"],
+                                  distinct_gaussians=x["distinct"]))
+
+
+def gram_inputs(model, cam, s, dev):
+    """(seg tiles, the step's map, rhs, G, layer, K, eps, 1/HW, upstream)
+    for K6a/K6b on one capped step's map."""
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = render(s, model, cam.world_view_transform, cam.full_proj_transform,
+                 cam.camera_center, np.zeros(3, np.float32),
+                 include_feature=True, topk=TRAIN_TOPK, device=dev)
+    table, seg = cam.get_language_feature_compact(GT_DIR, 1)
+    rhs, gfull = gram.prep(model.codebooks.detach(), T(table), 0)
+    return (gram.seg_to_tiles(T(seg), s.grid_x, s.grid_y),
+            out.language_feature_weight_map.contiguous(), rhs, gfull, 0,
+            TRAIN_K, 1e-8, 1.0 / (s.image_height * s.image_width),
+            torch.ones((), device=dev))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1141,8 +1605,11 @@ def main() -> None:
     log(f"scene: 1,000,000 Gaussians, {L}x{K}x{DIM} codebooks, "
         f"{L * TOPK} pairs ({time.perf_counter() - t0:.1f} s)")
     path = main_path(model, clip, consts, dev)
-    timing = kernels_at_main_shapes(model, clip, consts, path.pop("plans"),
-                                    dev)
+    plans = path.pop("plans")
+    timing = kernels_at_main_shapes(model, clip, consts, plans, dev)
+    bf16 = bf16_serving(model, clip, consts, plans,
+                        {k: v["frame_ms_median"]
+                         for k, v in path["loads"].items()}, dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -1151,6 +1618,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     rgb_errs = rgb_checks_reduced(dev)
     rpath = rgb_path(dev)
+    torch.cuda.empty_cache()
+    cpath = capped_train_path(dev)
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -1165,6 +1634,16 @@ def main() -> None:
             r = rpath["kernels"][k]
             launches = rpath["launches"][k]
             err = max(r["max_abs_err"], rgb_errs[k]["max_abs_err"])
+        elif k == "K5":
+            r = cpath["kernels"][k]
+            launches = cpath["launches"][k]
+            err = max(r["max_abs_err"], cpath["reduced"]["max_abs_err"])
+        elif k in ("K2f16", "K3bf16"):
+            loads = bf16["loads"]
+            r = loads["1080p"]["exact"][k]
+            launches = bf16["launches"][k]
+            err = max(v[k]["max_abs_err"] for load in loads.values()
+                      for v in (load["exact"], load["capped"]))
         else:
             r = tpath["kernels"][k]
             launches = tpath["launches"][k]
@@ -1183,7 +1662,9 @@ def main() -> None:
                        elapsed_s=elapsed, max_abs_err_reduced=errs,
                        main_path=path, kernel_timing=timing,
                        train_reduced=train_errs, train_path=tpath,
-                       rgb_reduced=rgb_errs, rgb_path=rpath), f, indent=1)
+                       rgb_reduced=rgb_errs, rgb_path=rpath,
+                       bf16_serving=bf16, capped_train_path=cpath), f,
+                  indent=1)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))

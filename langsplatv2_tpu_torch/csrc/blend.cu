@@ -29,6 +29,19 @@
 // Numerics: compiled with -fmad=false; the plain PyTorch version (ops/blend.py)
 // runs the same sequence of f32 ops, so the two agree to the last bit on the
 // alpha and termination tests.
+//
+// fast16 mode (the serving rows of precision="bf16", replacing the Pallas
+// kernel's rowfmt="fast16"): the per-Gaussian state comes from one 64-byte
+// row (ops/blend.py::pack_fast16_rows: xy f32, conic, opacity and rgb as
+// bf16, 12 u8 codebook indices, 12 bf16 weights), read as four 16-byte loads
+// and widened to f32 in shared memory; the blend that follows is the f32
+// mode's, op for op, on the rounded state. With out_bf16 (feat_bf16) the
+// feature tiles are stored as bf16 (round to nearest even) and the colour as
+// bf16(acc_rgb) + T * bg in f32, as the Pallas kernel stores its bf16
+// accumulator and adds the background outside; the final T stays f32. The
+// row halves the gathered bytes (64 B against 132 B an entry) and bf16 tiles
+// halve the output write, the two byte terms of this kernel's bound.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,6 +51,7 @@ constexpr int kPix = kBlock * kBlock;  // threads per block = pixels per tile
 constexpr int kPad = kPix + 1;         // accumulator row stride
 constexpr int kBatch = 128;            // entries staged per batch
 constexpr int kGeom = 9;               // x y ca cb cc op r g b
+constexpr int kFast16Pairs = 12;       // (index, weight) slots of a fast16 row
 constexpr float kAlphaMin = 0.003921569f;  // f32(1/255)
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
@@ -55,15 +69,65 @@ __device__ __forceinline__ void add_stats(unsigned long long* stats,
   }
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Stage Gaussian gi's state at batch slot `slot`: from the f32 arrays, or
+// (kFast16) from its 64-byte row, widened to f32.
+template <bool kFast16>
+__device__ __forceinline__ void stage_entry(
+    int gi, int slot, const float* __restrict__ geom,
+    const float* __restrict__ qw, const int* __restrict__ qi,
+    const uint4* __restrict__ rows, int topk, float* s_geom, float* s_w,
+    int* s_idx) {
+  if (kFast16) {
+    const uint4* row = rows + (size_t)gi * 4;
+    const uint4 a = row[0], b = row[1], c = row[2], d = row[3];
+    const unsigned w[16] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                            c.x, c.y, c.z, c.w, d.x, d.y, d.z, d.w};
+    s_geom[0 * kBatch + slot] = __uint_as_float(w[0]);
+    s_geom[1 * kBatch + slot] = __uint_as_float(w[1]);
+#pragma unroll
+    for (int f = 0; f < 7; ++f)  // ca cb cc op r g b
+      s_geom[(2 + f) * kBatch + slot] =
+          (f & 1) ? bf16_hi(w[2 + f / 2]) : bf16_lo(w[2 + f / 2]);
+#pragma unroll
+    for (int k = 0; k < kFast16Pairs; ++k) {  // constant indices: registers
+      if (k < topk) {
+        s_idx[k * kBatch + slot] = (w[6 + k / 4] >> (8 * (k % 4))) & 0xFF;
+        s_w[k * kBatch + slot] =
+            (k & 1) ? bf16_hi(w[9 + k / 2]) : bf16_lo(w[9 + k / 2]);
+      }
+    }
+  } else {
+    const float* row = geom + (size_t)gi * kGeom;
+    for (int f = 0; f < kGeom; ++f) s_geom[f * kBatch + slot] = row[f];
+    for (int k = 0; k < topk; ++k) {
+      s_w[k * kBatch + slot] = qw[(size_t)gi * topk + k];
+      s_idx[k * kBatch + slot] = qi[(size_t)gi * topk + k];
+    }
+  }
+}
+
+template <bool kFast16>
 __global__ void __launch_bounds__(kPix)
     blend_kernel(const int* __restrict__ g_sorted,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_count,
                  const float* __restrict__ geom, const float* __restrict__ qw,
-                 const int* __restrict__ qi, const float* __restrict__ bg,
-                 int grid_x, int topk, int channels,
-                 float* __restrict__ rgb_out, float* __restrict__ feat_out,
-                 float* __restrict__ t_out,
+                 const int* __restrict__ qi, const uint4* __restrict__ rows,
+                 const float* __restrict__ bg, int grid_x, int topk,
+                 int channels, int out_bf16, float* __restrict__ rgb_out,
+                 void* __restrict__ feat_out, float* __restrict__ t_out,
                  unsigned long long* __restrict__ stats) {
   extern __shared__ float smem[];
   float* acc = smem;                               // [channels][kPad]
@@ -86,15 +150,9 @@ __global__ void __launch_bounds__(kPix)
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     const int nb = min(kBatch, count - b0);
     __syncthreads();  // the previous batch is consumed
-    if (pix < nb) {
-      const int gi = g_sorted[start + b0 + pix];
-      const float* row = geom + (size_t)gi * kGeom;
-      for (int f = 0; f < kGeom; ++f) s_geom[f * kBatch + pix] = row[f];
-      for (int k = 0; k < topk; ++k) {
-        s_w[k * kBatch + pix] = qw[(size_t)gi * topk + k];
-        s_idx[k * kBatch + pix] = qi[(size_t)gi * topk + k];
-      }
-    }
+    if (pix < nb)
+      stage_entry<kFast16>(g_sorted[start + b0 + pix], pix, geom, qw, qi,
+                           rows, topk, s_geom, s_w, s_idx);
     __syncthreads();
     for (int j = 0; j < nb && !done; ++j) {
       const float dx = px - s_geom[0 * kBatch + j];
@@ -128,6 +186,11 @@ __global__ void __launch_bounds__(kPix)
   }
 
   const size_t p = (size_t)tile * kPix + pix;
+  if (out_bf16) {
+    r = round_bf16(r);
+    g = round_bf16(g);
+    b = round_bf16(b);
+  }
   rgb_out[3 * p + 0] = r + T * bg[0];
   rgb_out[3 * p + 1] = g + T * bg[1];
   rgb_out[3 * p + 2] = b + T * bg[2];
@@ -136,13 +199,42 @@ __global__ void __launch_bounds__(kPix)
   if (channels > 0) {
     __syncthreads();
     // Coalesced write of the tile's [kPix, channels] block.
-    float* dst = feat_out + (size_t)tile * kPix * channels;
+    const size_t base = (size_t)tile * kPix * channels;
     for (int i = pix; i < kPix * channels; i += kPix) {
       const int q = i / channels;
       const int c = i - q * channels;
-      dst[i] = acc[c * kPad + q];
+      const float v = acc[c * kPad + q];
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(feat_out)[base + i] =
+            __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(feat_out)[base + i] = v;
     }
   }
+}
+
+template <bool kFast16>
+int launch_blend(const int* g_sorted, const int* tile_start,
+                 const int* tile_count, const float* geom, const float* qw,
+                 const int* qi, const uint4* rows, const float* bg,
+                 int num_tiles, int grid_x, int topk, int channels,
+                 int out_bf16, float* rgb_out, void* feat_out, float* t_out,
+                 unsigned long long* stats, void* stream) {
+  cudaGetLastError();  // drop a stale error so only this launch reports
+  const size_t smem = sizeof(float) * ((size_t)channels * kPad +
+                                       (size_t)kGeom * kBatch +
+                                       2 * (size_t)topk * kBatch);
+  cudaError_t err = cudaFuncSetAttribute(
+      blend_kernel<kFast16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles > 0) {
+    blend_kernel<kFast16>
+        <<<num_tiles, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
+            g_sorted, tile_start, tile_count, geom, qw, qi, rows, bg, grid_x,
+            topk, channels, out_bf16, rgb_out, feat_out, t_out, stats);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -154,17 +246,25 @@ extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
                                 int topk, int channels, float* rgb_out,
                                 float* feat_out, float* t_out,
                                 unsigned long long* stats, void* stream) {
-  cudaGetLastError();  // drop a stale error so only this launch reports
-  const size_t smem = sizeof(float) * ((size_t)channels * kPad +
-                                       (size_t)kGeom * kBatch +
-                                       2 * (size_t)topk * kBatch);
-  cudaError_t err = cudaFuncSetAttribute(
-      blend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_tiles > 0) {
-    blend_kernel<<<num_tiles, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
-        g_sorted, tile_start, tile_count, geom, qw, qi, bg, grid_x, topk,
-        channels, rgb_out, feat_out, t_out, stats);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_blend<false>(g_sorted, tile_start, tile_count, geom, qw, qi,
+                             nullptr, bg, num_tiles, grid_x, topk, channels,
+                             0, rgb_out, feat_out, t_out, stats, stream);
+}
+
+// rows: [N, 16] 32-bit words, 64 bytes a Gaussian, 16-byte aligned.
+extern "C" int lsv2_blend_tiles_fast16(const int* g_sorted,
+                                       const int* tile_start,
+                                       const int* tile_count,
+                                       const void* rows, const float* bg,
+                                       int num_tiles, int grid_x, int topk,
+                                       int channels, int out_bf16,
+                                       float* rgb_out, void* feat_out,
+                                       float* t_out,
+                                       unsigned long long* stats,
+                                       void* stream) {
+  return launch_blend<true>(g_sorted, tile_start, tile_count, nullptr,
+                            nullptr, nullptr,
+                            static_cast<const uint4*>(rows), bg, num_tiles,
+                            grid_x, topk, channels, out_bf16, rgb_out,
+                            feat_out, t_out, stats, stream);
 }

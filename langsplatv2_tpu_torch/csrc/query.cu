@@ -27,6 +27,17 @@
 // the map once, keeps w @ gram in registers and the constants in shared
 // memory. 3xTF32 tensor-core products and overlapping the staging with
 // compute are later work.
+//
+// bf16 map (the fast16 serving tiles, feat_bf16): the kernel reads the map as
+// bf16, 8 values a 16-byte load, and widens them in shared memory; the
+// wrapper hands it phi and gram rounded to bf16 and widened, as the Pallas
+// kernel casts them to the map's type (mm_dt). Each product of two bf16
+// values is exact in f32, so the f32 sums are the bf16 matmul with f32
+// accumulation of the Pallas kernel, in another order. The map read halves
+// (0.8 GB at 1080p); the CUDA-core operations do not, so as written this
+// mode is further above its bound than the f32 one. bf16 mma products are
+// later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,8 +47,28 @@ constexpr int kK = 64;        // codebook rows per level
 constexpr int kPad = kPix + 1;
 constexpr int kMaxPQ = 16;
 
+// Widen 4 (f32 map) or 8 (bf16 map) consecutive map values, one 16-byte load.
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+template <typename MapT>
 __global__ void __launch_bounds__(kPix)
-    query_kernel(const float* __restrict__ wm, const float* __restrict__ phi,
+    query_kernel(const MapT* __restrict__ wm, const float* __restrict__ phi,
                  const float* __restrict__ gram, int n_tiles, int levels,
                  int pq, float* __restrict__ raw, float* __restrict__ nrm2) {
   extern __shared__ float smem[];
@@ -56,19 +87,18 @@ __global__ void __launch_bounds__(kPix)
   for (int i = tid; i < levels * kK * pq; i += kPix) s_phi[i] = phi[i];
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const float* src = wm + (size_t)tile * kPix * C;
+    constexpr int kVec = 16 / sizeof(MapT);   // map values a 16-byte load
+    const MapT* src = wm + (size_t)tile * kPix * C;
     const size_t p = (size_t)tile * kPix + tid;
     for (int l = 0; l < levels; ++l) {
       __syncthreads();  // s_w is free (and the constants are loaded)
-      // [256 px][kK] slice at column l*kK: 16 float4 per pixel row.
-      for (int i = tid; i < kPix * (kK / 4); i += kPix) {
-        const int q = i / (kK / 4), k4 = i - q * (kK / 4);
-        const float4 v = *reinterpret_cast<const float4*>(
-            src + (size_t)q * C + l * kK + 4 * k4);
-        s_w[(4 * k4 + 0) * kPad + q] = v.x;
-        s_w[(4 * k4 + 1) * kPad + q] = v.y;
-        s_w[(4 * k4 + 2) * kPad + q] = v.z;
-        s_w[(4 * k4 + 3) * kPad + q] = v.w;
+      // [256 px][kK] slice at column l*kK, kK / kVec loads a pixel row.
+      for (int i = tid; i < kPix * (kK / kVec); i += kPix) {
+        const int q = i / (kK / kVec), kv = i - q * (kK / kVec);
+        float v[kVec];
+        load_vec(src + (size_t)q * C + l * kK + kVec * kv, v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) s_w[(kVec * kv + e) * kPad + q] = v[e];
       }
       __syncthreads();
       float w[kK];
@@ -103,12 +133,10 @@ __global__ void __launch_bounds__(kPix)
   }
 }
 
-}  // namespace
-
-extern "C" int lsv2_query_map_tiles(const float* wm, const float* phi,
-                                    const float* gram, int n_tiles,
-                                    int levels, int pq, float* raw,
-                                    float* nrm2, void* stream) {
+template <typename MapT>
+int launch_query(const MapT* wm, const float* phi, const float* gram,
+                 int n_tiles, int levels, int pq, float* raw, float* nrm2,
+                 void* stream) {
   cudaGetLastError();  // drop a stale error so only this launch reports
   if (pq < 1 || pq > kMaxPQ || levels < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -116,19 +144,39 @@ extern "C" int lsv2_query_map_tiles(const float* wm, const float* phi,
                                        (size_t)levels * kK * pq +
                                        (size_t)kK * kPad);
   cudaError_t err = cudaFuncSetAttribute(
-      query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      query_kernel<MapT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, query_kernel,
-                                                      kPix, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, query_kernel<MapT>, kPix, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   if (grid > 0) {
-    query_kernel<<<grid, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
-        wm, phi, gram, n_tiles, levels, pq, raw, nrm2);
+    query_kernel<MapT>
+        <<<grid, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
+            wm, phi, gram, n_tiles, levels, pq, raw, nrm2);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lsv2_query_map_tiles(const float* wm, const float* phi,
+                                    const float* gram, int n_tiles,
+                                    int levels, int pq, float* raw,
+                                    float* nrm2, void* stream) {
+  return launch_query(wm, phi, gram, n_tiles, levels, pq, raw, nrm2, stream);
+}
+
+// wm: bf16 [T, 256, L*64]; phi and gram: f32 holding bf16-rounded values.
+extern "C" int lsv2_query_map_tiles_bf16(const void* wm, const float* phi,
+                                         const float* gram, int n_tiles,
+                                         int levels, int pq, float* raw,
+                                         float* nrm2, void* stream) {
+  return launch_query(static_cast<const __nv_bfloat16*>(wm), phi, gram,
+                      n_tiles, levels, pq, raw, nrm2, stream);
 }

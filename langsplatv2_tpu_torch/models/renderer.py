@@ -36,17 +36,19 @@ class RenderOutput(NamedTuple):
 def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
                   max_entries: int = 2 ** 21, impl: str = "auto",
                   live_entries: int = 0, tile_budget: float = 0.0,
+                  tile_budget_cap: int = 128, tile_budget_subdiv: int = 2,
                   cull_alpha: float = 1.0 / 255.0) -> RasterizeSettings:
     """`camera` has image_height, image_width, tanfovx and tanfovy. The
-    JAX options tile_cap, tile_batch, tile_budget_cap and
-    tile_budget_subdiv belong to later slices and are left out."""
+    JAX options tile_cap and tile_batch (read by the reference rasterizer,
+    a later slice) are left at their defaults."""
     return RasterizeSettings(
         image_height=int(camera.image_height),
         image_width=int(camera.image_width),
         tanfovx=float(camera.tanfovx), tanfovy=float(camera.tanfovy),
         sh_degree=sh_degree, scale_modifier=scaling_modifier,
         max_entries=max_entries, impl=impl, live_entries=live_entries,
-        tile_budget=tile_budget, cull_alpha=cull_alpha)
+        tile_budget=tile_budget, tile_budget_cap=tile_budget_cap,
+        tile_budget_subdiv=tile_budget_subdiv, cull_alpha=cull_alpha)
 
 
 def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,

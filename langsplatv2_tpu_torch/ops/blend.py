@@ -1,6 +1,7 @@
-"""Tile blend (kernel K2), modes "rgb" and "quick" with f32 numerics
-(port of langsplatv2_tpu/ops/pallas_blend.py, `blend_tiles_pallas` with
-rowfmt="f32").
+"""Tile blend (kernel K2), modes "rgb" and "quick" on f32 state, and the
+quick mode on fast16 rows (port of langsplatv2_tpu/ops/pallas_blend.py,
+`blend_tiles_pallas` with rowfmt="f32" and "fast16", and
+`pack_fast16_rows` / `_unpack_hi` / `_unpack_lo`).
 
 On a CUDA tensor `blend_tiles` launches csrc/blend.cu; on a CPU tensor it
 runs `blend_tiles_plain`, a per-position loop vectorized over tiles and
@@ -10,6 +11,15 @@ tiles) and the per-pair f32 work; csrc/blend.cu says how its design meets
 that. The Pallas kernel's packed rows (index pairs as lo + 256*hi in
 f32, 128-aligned field-major windows) are TPU devices the port does not
 need: both versions gather per-Gaussian state by g_sorted.
+
+fast16 (precision="bf16", the serving default): what must match JAX is the
+numerics, not the layout. xy stays f32; conic, opacity, rgb and the top-k
+weights are rounded to bf16 (round to nearest even, as JAX's astype);
+indices are exact. The port's row is 64 bytes a Gaussian
+(`pack_fast16_rows`), against the 16-wide f32 row of base-256 triples and
+bf16 pairs that the TPU gathers. `blend_tiles_fast16` launches the kernel's
+fast16 mode on CUDA tensors; `blend_tiles_fast16_plain` is the f32 blend on
+the unpacked (rounded) state followed by the same output rounding.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from . import kernels
 from .projection import BLOCK
 
 P = BLOCK * BLOCK
+FAST16_PAIRS = 12      # (index, weight) slots of a fast16 row
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -30,6 +41,46 @@ def pack_gaussian_state(xy, conic, opacities, colors) -> torch.Tensor:
     rgb = colors if colors is not None else torch.zeros(
         (n, 3), dtype=xy.dtype, device=xy.device)
     return torch.cat([xy, conic, opacities[:, None], rgb], dim=1).contiguous()
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16)
+
+
+def pack_fast16_rows(xy, conic, opacities, colors, quick_weights,
+                     quick_indices) -> torch.Tensor:
+    """[N, 16] int32 words, 64 bytes a Gaussian: x y (f32), then as bf16
+    ca cb cc opacity r g b 0, then 12 u8 codebook indices, 12 bf16 weights
+    and 4 zero bytes. Top-k widths under 12 are padded with zero weights;
+    indices must lie in [0, 256)."""
+    n, s = quick_weights.shape
+    if s > FAST16_PAIRS:
+        raise ValueError(f"fast16 rows hold {FAST16_PAIRS} pairs, not {s}")
+    dev = xy.device
+    rgb = colors if colors is not None else torch.zeros((n, 3), device=dev)
+    pad = FAST16_PAIRS - s
+    halves = _bf16(torch.cat([conic, opacities[:, None], rgb,
+                              torch.zeros((n, 1), device=dev)], dim=1))
+    idx = torch.nn.functional.pad(quick_indices.to(torch.uint8), (0, pad))
+    w = _bf16(torch.nn.functional.pad(quick_weights, (0, pad)))
+    row = torch.cat([xy.float().contiguous().view(torch.uint8),
+                     halves.view(torch.uint8), idx, w.view(torch.uint8),
+                     torch.zeros((n, 4), dtype=torch.uint8, device=dev)],
+                    dim=1)
+    return row.view(torch.int32)
+
+
+def unpack_fast16_rows(rows, topk: int):
+    """Inverse of pack_fast16_rows: (geom [N, 9] f32 as
+    pack_gaussian_state lays it out, weights [N, topk] f32, indices
+    [N, topk] i32), the bf16 halves widened exactly."""
+    b = rows.view(torch.uint8)
+    halves = b[:, 8:24].contiguous().view(torch.bfloat16).float()
+    geom = torch.cat([b[:, 0:8].contiguous().view(torch.float32),
+                      halves[:, :7]], dim=1)
+    qi = b[:, 24:24 + topk].int()
+    qw = b[:, 36:60].contiguous().view(torch.bfloat16).float()[:, :topk]
+    return geom, qw.contiguous(), qi.contiguous()
 
 
 def pixel_coords(n_tiles: int, grid_x: int, device):
@@ -151,3 +202,67 @@ def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
 
 
 blend_tiles.launches = 0
+
+
+def blend_tiles_fast16_plain(g_sorted, tile_start, tile_count, rows, bg,
+                             grid_x, topk: int, channels: int,
+                             feat_bf16: bool):
+    """The f32 blend on the unpacked state with bg = 0, then the outputs:
+    with feat_bf16 the feature tiles and the background-free colour
+    rounded to bf16, then rgb = colour + T * bg."""
+    geom, qw, qi = unpack_fast16_rows(rows, topk)
+    acc, feat, T = blend_tiles_plain(
+        g_sorted, tile_start, tile_count, geom, torch.zeros_like(bg), grid_x,
+        qw, qi, channels)
+    if feat_bf16:
+        acc, feat = _bf16(acc).float(), _bf16(feat)
+    return acc + T[..., None] * bg, feat, T
+
+
+def blend_tiles_fast16(g_sorted, tile_start, tile_count, rows, bg,
+                       grid_x: int, grid_y: int, topk: int, channels: int,
+                       feat_bf16: bool = True, stats=None):
+    """The quick blend on fast16 rows [N, 16] (pack_fast16_rows). Returns
+    (rgb [T, 256, 3] f32, feat [T, 256, channels] bf16 when feat_bf16 else
+    f32, final_T [T, 256] f32). Other inputs as for `blend_tiles`;
+    channels <= 256 (u8 indices)."""
+    dev = rows.device
+    n_tiles = grid_x * grid_y
+    if not 0 < channels <= 256:
+        raise ValueError(f"fast16 rows index at most 256 channels, not "
+                         f"{channels}")
+    if dev.type == "cpu":
+        return blend_tiles_fast16_plain(g_sorted, tile_start, tile_count,
+                                        rows, bg, grid_x, topk, channels,
+                                        feat_bf16)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_fast16: unsupported device {dev}")
+    kernels.check_tensor(g_sorted, "g_sorted", torch.int32, (None,), dev)
+    kernels.check_tensor(tile_start, "tile_start", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(tile_count, "tile_count", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(rows, "rows", torch.int32, (None, 16), dev)
+    kernels.check_tensor(bg, "bg", torch.float32, (3,), dev)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: not 16-byte aligned")
+    if not 0 < topk <= FAST16_PAIRS:
+        raise ValueError(f"topk {topk} outside [1, {FAST16_PAIRS}]")
+    if stats is not None:
+        kernels.check_tensor(stats, "stats", torch.int64, (2,), dev)
+    rgb = torch.empty((n_tiles, P, 3), device=dev)
+    feat = torch.empty((n_tiles, P, channels), device=dev,
+                       dtype=torch.bfloat16 if feat_bf16 else torch.float32)
+    final_t = torch.empty((n_tiles, P), device=dev)
+    P_ = kernels.ptr
+    kernels.launch(
+        "lsv2_blend_tiles_fast16", P_(g_sorted), P_(tile_start),
+        P_(tile_count), P_(rows), P_(bg), n_tiles, grid_x, topk, channels,
+        int(feat_bf16), P_(rgb), P_(feat), P_(final_t),
+        P_(stats) if stats is not None else kernels.NULL,
+        kernels.stream(rgb))
+    blend_tiles_fast16.launches += 1
+    return rgb, feat, final_t
+
+
+blend_tiles_fast16.launches = 0

@@ -24,15 +24,17 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# expand.cu, blend.cu, feature_bwd.cu and rgb_bwd.cu round every f32 op on
-# its own (no fused multiply-add), as their plain PyTorch versions do: the
-# entry sets of K1 and the alpha / termination tests of K2 then agree bit for
-# bit, and K4 and K7 replay K2's blend weights exactly.
+# expand.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu and rgb_bwd.cu
+# round every f32 op on its own (no fused multiply-add), as their plain
+# PyTorch versions do: the entry sets of K1 and the alpha / termination tests
+# of K2 then agree bit for bit, and K4, K5 and K7 replay K2's blend weights
+# exactly.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false"],
     "query.cu": [],
     "feature_bwd.cu": ["-fmad=false"],
+    "feature_bwd_topk.cu": ["-fmad=false"],
     "gram.cu": [],
     "rgb_bwd.cu": ["-fmad=false"],
     "errors.cu": [],
@@ -48,11 +50,17 @@ ENTRY_POINTS = {
     # g_sorted tile_start tile_count geom qw qi bg num_tiles grid_x topk
     # channels rgb feat final_t stats stream
     "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
+    # g_sorted tile_start tile_count rows bg num_tiles grid_x topk channels
+    # out_bf16 rgb feat final_t stats stream
+    "lsv2_blend_tiles_fast16": [_P] * 5 + [_I] * 5 + [_P] * 5,
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,
     # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
     # num_entries dfeat stream
     "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
+    # g_win kept geom qi cot num_tiles grid_x cap channels topk dproj stream
+    "lsv2_feature_bwd_topk": [_P] * 5 + [_I] * 5 + [_P] * 2,
     # seg w rhs gfull num_tiles C M eps partial stream
     "lsv2_gram_fwd": [_P] * 4 + [_I] * 3 + [_F] + [_P] * 2,
     # seg w rhs gfull num_tiles C M K lay eps inv_hw upstream dw dphi dg

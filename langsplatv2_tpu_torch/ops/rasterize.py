@@ -1,6 +1,7 @@
 """Rasterizer entry point, sort-binning path
 (port of langsplatv2_tpu/ops/rasterize.py:168-277 and `_rasterize_pallas`,
-sort branch, with `_sorted_quick_binning` and `_assemble`).
+sort branch, with `_sorted_quick_binning`, `_capped_quick_binning`,
+`_capped_kept_from_rows` and `_assemble`).
 
     preprocess -> expand (K1) -> key sort -> tile ranges
       [-> live_entries prefix clamp] -> blend (K2, "rgb" | "quick") -> assemble
@@ -13,8 +14,17 @@ backward (K4) gives d(quick_weights). RGB mode (:258-271) goes through
 and the background composited outside it; the output equals the plain
 blend's with the background inside, so serving and training share it.
 
+precision="bf16" switches quick serving to the fast16 rows (K2's fast16
+mode; with feat_bf16 the map comes out in bf16 and K3 reads it so).
+tile_budget > 0 takes the budget-capped route where the JAX package does:
+quick serving at precision="bf16" (:399-444) and quick training with a
+top-k width of at most 4 (pallas_train.py:609-654). Each tile then blends
+the depth prefix of its window of tile_budget_cap entries whose
+transmittance bound stays above the budget (ops/budget.py); training's
+backward is K5. Elsewhere, as in JAX, the budget fields are not read.
+
 Options that belong to later slices of the port raise NotImplementedError
-naming the slice; none of them falls back to another path.
+naming their ROADMAP item; none of them falls back to another path.
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import blend, expand, projection, rasterize_tiles, rgb_train, train
+from . import (blend, budget, expand, projection, rasterize_tiles, rgb_train,
+               train)
 from .projection import BLOCK
 
 
@@ -45,7 +56,7 @@ class RasterizeSettings(NamedTuple):
     binning: str = "sort"
     precision: str = "f32"
     bf16_cells: bool = False
-    feat_bf16: bool = True            # bf16 rows only (a later slice)
+    feat_bf16: bool = True            # fast16 rows: bf16 output tiles
     assemble: bool = True             # False: feature map in [T, 256, C]
     live_entries: int = 0             # sorted live-prefix budget, 0 = off
     pair_capacity: int = 0
@@ -73,21 +84,17 @@ class RasterizeOutput(NamedTuple):
     live_total: torch.Tensor | None = None   # [] entries surviving the cull
 
 
-def _later(what: str, slice_name: str):
+def _later(what: str, item: str):
     return NotImplementedError(
-        f"{what} belongs to a later slice of the port: {slice_name} "
-        "(ROADMAP.md, Queue 1)")
+        f"{what} belongs to a later slice of the port: ROADMAP.md {item}")
 
 
-# Fields the sort path at f32 does not read, with the slice that will.
+REFERENCE_RASTERIZER = "Queue 1 item 4, the differentiable reference rasterizer"
+# Fields no ported path reads yet, with the ROADMAP item that will.
 _LATER_FIELDS = {
-    "tile_cap": "the differentiable reference rasterizer (item 4)",
-    "tile_batch": "the differentiable reference rasterizer (item 4)",
-    "bf16_cells": "bf16 serving rows (Queue 2, K2)",
-    "feat_bf16": "bf16 serving rows (Queue 2, K2)",
-    "pair_capacity": "distribution (item 12)",
-    "tile_budget_cap": "capped and temporal serving (item 9)",
-    "tile_budget_subdiv": "capped and temporal serving (item 9)",
+    "tile_batch": REFERENCE_RASTERIZER,
+    "bf16_cells": "Queue 2, K2's bf16_cells",
+    "pair_capacity": "Queue 1 item 12, distribution",
 }
 # Fields that no path of either package reads.
 _UNREAD_FIELDS = ("prefiltered", "debug")
@@ -96,37 +103,32 @@ _UNREAD_FIELDS = ("prefiltered", "debug")
 def check_slice(settings: RasterizeSettings, *, cov3d_precomp=None,
                 features=None) -> None:
     """Raise for every option outside the ported slices (the sort path,
-    f32 rows, rgb and quick modes, quick training), and for a non-default
-    value of a field this path would otherwise ignore."""
+    f32 and fast16 rows, rgb and quick modes, quick training, the capped
+    routes), and for a non-default value of a field no path reads. Fields
+    a ported route reads (tile_cap, the budget and fast16 fields) are, as
+    in JAX, not read on the other routes."""
     defaults = RasterizeSettings._field_defaults
-    for name, slice_name in _LATER_FIELDS.items():
+    for name, item in _LATER_FIELDS.items():
         if getattr(settings, name) != defaults[name]:
-            raise _later(f"{name}={getattr(settings, name)!r}", slice_name)
+            raise _later(f"{name}={getattr(settings, name)!r}", item)
     for name in _UNREAD_FIELDS:
         if getattr(settings, name) != defaults[name]:
             raise ValueError(f"{name} is read by no rasterizer path; leave "
                              f"it at {defaults[name]!r}")
-    if settings.tile_budget > 0.0:
-        raise _later("tile_budget > 0", "capped and temporal serving (item 9)")
     if settings.binning == "cascade":
-        raise _later('binning="cascade"', "the cascade binner, kernel K8")
+        raise _later('binning="cascade"', "Queue 2, K8 (the cascade binner)")
     if settings.binning == "gauss":
-        raise _later('binning="gauss"', "distribution (item 12)")
+        raise _later('binning="gauss"', "Queue 1 item 12, distribution")
     if settings.binning != "sort":
         raise ValueError(f"unknown binning {settings.binning!r}")
-    if settings.precision == "bf16":
-        raise _later('precision="bf16"', "bf16 serving rows (Queue 2, K2)")
-    if settings.precision != "f32":
+    if settings.precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {settings.precision!r}")
     if settings.impl == "xla":
-        raise _later('impl="xla"',
-                     "the differentiable reference rasterizer (item 4)")
+        raise _later('impl="xla"', REFERENCE_RASTERIZER)
     if features is not None:
-        raise _later("dense features",
-                     "the dense training blend (Queue 2, K2 dense mode)")
+        raise _later("dense features", "Queue 2, K2's dense mode")
     if cov3d_precomp is not None:
-        raise _later("cov3d_precomp",
-                     "the differentiable reference rasterizer (item 4)")
+        raise _later("cov3d_precomp", "Queue 1 item 3, the preprocess")
 
 
 def mark_stage(stage_events, name: str) -> None:
@@ -157,6 +159,39 @@ def sorted_binning(settings: RasterizeSettings, proj, opacities,
     return g_sorted, tile_start, tile_count, total, live_total
 
 
+def capped_binning(settings: RasterizeSettings, proj, opacities,
+                   rounded: bool, stage_events=None):
+    """expand -> sort -> the dense [T, tile_budget_cap] windows and their
+    budget counts, the bound read from the slots' xy, conic and opacity
+    (bf16-rounded conic and opacity when `rounded`, as the fast16 rows
+    carry them). Returns (g_win [T*cap], window starts t*cap, kept [T]
+    clamped to tile_cap, sat_bound [T], total)."""
+    cap = settings.tile_budget_cap
+    if cap % 128:
+        raise ValueError(f"tile_budget_cap must be a multiple of 128, not "
+                         f"{cap}")
+    num_tiles = settings.grid_x * settings.grid_y
+    tile, depth, gauss, total = expand.expand_entries(
+        proj, opacities, settings.grid_x, settings.grid_y,
+        settings.max_entries, exact_cull=True, cull_alpha=settings.cull_alpha)
+    mark_stage(stage_events, "expand")
+    g_sorted, tile_start, tile_count = expand.sort_entries(
+        tile, depth, gauss, num_tiles)
+    mark_stage(stage_events, "sort")
+    g_win = budget.slice_windows(g_sorted, tile_start, cap).reshape(-1)
+    conic, op = proj.conic, opacities
+    if rounded:
+        conic, op = (x.to(torch.bfloat16).float() for x in (conic, op))
+    g = g_win.long()
+    kept, sat_bound = budget.budget_from_rows(
+        proj.xy[g], conic[g], op[g], tile_count, settings.grid_x, cap,
+        settings.tile_budget_subdiv, settings.tile_budget)
+    kept = torch.clamp(kept, max=settings.tile_cap)
+    starts = torch.arange(num_tiles, dtype=torch.int32,
+                          device=g_win.device) * cap
+    return g_win, starts, kept, sat_bound, total
+
+
 def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               projmatrix, campos, bg, scales=None, rotations=None,
               cov3d_precomp=None, shs=None, colors_precomp=None,
@@ -171,9 +206,17 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     means3d, scales, rotations, opacities, shs / colors_precomp and
     `means2d_dummy` [N, 2] (the densification statistics' carrier).
 
+    On the capped routes max_tile_count is the tiles' saturation bound
+    (> tile_budget_cap: a window was full) and live_total the kept total.
+
     `stage_events` (CUDA only): a list that gets (stage name, recorded
     torch.cuda.Event) after "start", "preprocess", "expand", "sort",
-    "blend" and "assemble"; consecutive events time each stage."""
+    ("budget": the windows and their counts, capped routes), "blend" and
+    "assemble"; consecutive events time each stage."""
+    quick = quick_weights is not None
+    fast16 = quick and not quick_train and settings.precision == "bf16"
+    capped = settings.tile_budget > 0.0 and (fast16 or (
+        quick and quick_train and train.capped_fits(quick_weights.shape[1])))
     check_slice(settings, cov3d_precomp=cov3d_precomp, features=features)
     if scales is None or rotations is None:
         raise ValueError("rasterize needs scales and rotations")
@@ -196,11 +239,18 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
         cull_alpha=settings.cull_alpha)
     mark_stage(stage_events, "preprocess")
     with torch.no_grad():   # binning is not differentiable
-        g_sorted, tile_start, tile_count, total, live_total = sorted_binning(
-            settings, projection.detach(proj), opacities[:, 0].detach(),
-            stage_events)
-    mark_stage(stage_events, "sort")
-    if quick_weights is None:
+        proj_d, op_d = projection.detach(proj), opacities[:, 0].detach()
+        if capped:
+            g_sorted, tile_start, tile_count, sat_bound, total = \
+                capped_binning(settings, proj_d, op_d, fast16, stage_events)
+            max_tile_count = sat_bound.max()
+            live_total = tile_count.sum(dtype=torch.int32)
+        else:
+            g_sorted, tile_start, tile_count, total, live_total = \
+                sorted_binning(settings, proj_d, op_d, stage_events)
+            max_tile_count = tile_count.max()
+    mark_stage(stage_events, "budget" if capped else "sort")
+    if not quick:
         rgb, final_t = rgb_train.rasterize_rgb_vjp(
             settings, proj, opacities[:, 0], (g_sorted, tile_start,
                                               tile_count), bg,
@@ -209,22 +259,31 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
         mark_stage(stage_events, "assemble")
         return RasterizeOutput(
             rgb=rgb, feature_map=None, radii=proj.radius,
-            final_transmittance=final_t, max_tile_count=tile_count.max(),
+            final_transmittance=final_t, max_tile_count=max_tile_count,
             total_entries=total, live_total=live_total)
     if means2d_dummy is not None:
         raise ValueError("means2d_dummy is read in RGB mode only")
-    geom = blend.pack_gaussian_state(proj.xy, proj.conic, opacities[:, 0],
-                                     proj.rgb)
     qw = f32(quick_weights).contiguous()
     qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32).contiguous()
-    if quick_train:
-        rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
-            qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
-            grid_y, quick_channels)
+    if fast16:
+        with torch.no_grad():
+            rows = blend.pack_fast16_rows(proj_d.xy, proj_d.conic, op_d,
+                                          proj_d.rgb, qw, qi)
+        rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
+            g_sorted, tile_start, tile_count, rows, bg, grid_x, grid_y,
+            qw.shape[1], quick_channels, settings.feat_bf16)
     else:
-        rgb_t, feat_t, t_t = blend.blend_tiles(
-            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y, qw,
-            qi, quick_channels)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic,
+                                         opacities[:, 0], proj.rgb)
+        if quick_train:
+            rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
+                qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
+                grid_y, quick_channels,
+                settings.tile_budget_cap if capped else 0)
+        else:
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
+                qw, qi, quick_channels)
     mark_stage(stage_events, "blend")
     rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
     if settings.assemble:
@@ -234,5 +293,5 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     mark_stage(stage_events, "assemble")
     return RasterizeOutput(
         rgb=rgb, feature_map=feat_t, radii=proj.radius,
-        final_transmittance=final_t, max_tile_count=tile_count.max(),
+        final_transmittance=final_t, max_tile_count=max_tile_count,
         total_entries=total, live_total=live_total)

@@ -29,20 +29,33 @@ with the cosine loss in Gram space:
                                   index_add_ to d(quick_weights) -> logits
     Adam                          torch.optim.Adam, two named groups
 
+With tile_budget > 0 (the default of scripts/train.sh) and a top-k width of
+at most 4, the step takes the budget-capped route instead: K1 -> sort ->
+[T, cap] windows and their budget counts -> K2 on the windows, and the
+backward K5 (replay fused with the top-k projection) -> index_add_.
+
 `train_features` runs the sequential loop: the camera order from
 random.Random(seed), the layer curriculum, the 512-row padding of the
 segment table and the adaptive live-prefix budget per camera signature with
-its grow-and-redo guard. Where the JAX step rolls the model back after an
-overflowing step, the port decides before the backward and the optimizer
-step (the forward already returns live_total), so nothing is rolled back.
+its grow-and-redo guard; on the capped route, the expansion budget
+(max_entries) per camera signature sized from the first step instead. Where
+the JAX step rolls the model back after an overflowing step, the port
+decides before the backward and the optimizer step (the forward already
+returns live_total and total_entries), so nothing is rolled back.
 The port reports live_total for any top-k width; the JAX package reports it
 (and clamps) only where its packed rows fit (L*topk <= 4), so at wider
 codes the two keep different budgets with the same results.
 
+One deliberate difference: the JAX trainer accepts a capped step whose
+expansion total equals its budget (`tot <= cur`, trainer.py:1033), but the
+total is clamped to the budget, so an overflowing camera is truncated
+without a redo. The port accepts only a total below the budget and grows
+and redoes otherwise (ROADMAP.md Queue 3).
+
 Not ported yet, and raising NotImplementedError: camera batches
 (`cam_batch > 1`), gradient accumulation (`accum_iter > 1`, both phases),
-the pixel-space feature loss (l1 / normalize), the capped route
-(`tile_budget > 0`) and the viewer (`gui_source_path`).
+the pixel-space feature loss (l1 / normalize) and the viewer
+(`gui_source_path`).
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ from ..models.gaussians import GaussianModel
 from ..models.renderer import make_settings, render
 from ..ops.gram import gram_loss_fused, seg_to_tiles
 from ..ops.projection import BLOCK
+from ..ops.train import capped_fits
 from ..utils import losses
 from ..utils.schedules import expon_lr_func
 from .optimizers import (grouped_adam, rebind, set_scheduled_lrs,
@@ -294,6 +308,7 @@ class TrainLogs:
     losses: list = field(default_factory=list)
     ema_loss: float = 0.0
     live_budget: dict = field(default_factory=dict)   # camera sig -> budget
+    exp_budget: dict = field(default_factory=dict)    # capped: sig -> budget
     events: list = field(default_factory=list)   # (iteration, kind, num_live)
 
 
@@ -409,6 +424,9 @@ def train_features(
     accum_iter: int = 1,
     cam_batch: int = 1,
     tile_budget: float = 0.0,
+    tile_budget_cap: int = 128,
+    tile_budget_subdiv: int = 2,
+    cull_alpha: float = 1.0 / 255.0,
     optimizer: torch.optim.Optimizer | None = None,
     feature_cache: dict | None = None,
     on_iteration: Callable[[int, GaussianModel, Any, dict], None] | None
@@ -419,6 +437,9 @@ def train_features(
     """The feature phase's sequential loop (reference train.py language
     branch), the cosine-only Gram configuration. Returns (model, optimizer,
     logs); the model's logits and codebooks are updated in place.
+    `tile_budget` > 0 takes the capped route where the top-k width
+    (L * topk) is at most 4, as the JAX package does; `logs.exp_budget`
+    then records the expansion budget per camera signature.
 
     `feature_cache` maps camera.image_name -> GT tensors (pass {} to keep
     them across epochs); `on_iteration(iteration, model, optimizer,
@@ -430,9 +451,6 @@ def train_features(
     if use_l1_loss or normalize or not use_cos_loss:
         raise _later("the pixel-space loss (l1 / normalize)",
                      "pixel-space feature loss (item 7)")
-    if tile_budget > 0.0:
-        raise _later("tile_budget > 0",
-                     "the capped training route, kernel K5 (item 7)")
     if gui_source_path is not None:
         raise _later("gui_source_path", "the viewer (item 9)")
     if model.language_logits is None or model.codebooks is None:
@@ -446,10 +464,15 @@ def train_features(
     rng = random.Random(seed)
     logs = TrainLogs()
     layer_num = model.codebooks.shape[0]
+    capped = tile_budget > 0.0 and capped_fits(layer_num * topk)
     # Live-prefix budget per camera signature: 0 = full budget (the first
     # step of a signature measures live_total); a later viewpoint whose
-    # live_total overflows the budget grows it and redoes its step.
-    live_budget = logs.live_budget
+    # live_total overflows the budget grows it and redoes its step. The
+    # capped route has no live prefix (its windows are fixed-size); it
+    # sizes the expansion buffer per signature the same way instead.
+    # tile_budget > 0 at a wider code runs the exact route with neither
+    # budget, as in JAX (its telemetry there is off).
+    live_budget, exp_budget = logs.live_budget, logs.exp_budget
 
     def _grow_budget(lt: int) -> int:
         return min(max_entries, -(-int(lt * 1.3 + 32768) // 65536) * 65536)
@@ -459,24 +482,37 @@ def train_features(
                 round(camera.tanfovx, 9), round(camera.tanfovy, 9))
 
     def get_step(camera, sig):
-        settings = make_settings(camera, model.active_sh_degree, 1.0,
-                                 max_entries,
-                                 live_entries=live_budget.get(sig, 0))
+        live = 0 if tile_budget > 0.0 else live_budget.get(sig, 0)
+        ebud = exp_budget.get(sig, max_entries) if capped else max_entries
+        settings = make_settings(
+            camera, model.active_sh_degree, 1.0, ebud, live_entries=live,
+            tile_budget=tile_budget, tile_budget_cap=tile_budget_cap,
+            tile_budget_subdiv=tile_budget_subdiv, cull_alpha=cull_alpha)
         return make_feature_train_step(settings, optimizer, topk)
 
     def budget_check(sig):
+        budgets, key = ((exp_budget, "total_entries") if capped
+                        else (live_budget, "live_total"))
+
         def accept(metrics) -> bool:
-            lt = int(metrics["live_total"])
-            cur = live_budget.get(sig, 0)
+            if tile_budget > 0.0 and not capped:
+                return True
+            n = int(metrics[key])
+            cur = budgets.get(sig, 0)
             if cur == 0:
                 # The first step ran at the full budget (exact): tighten
                 # for the rest of the run.
-                live_budget[sig] = _grow_budget(lt)
+                budgets[sig] = _grow_budget(n)
                 return True
-            if lt <= cur:
+            # The live prefix holds live_total <= cur entries; the
+            # expansion total is clamped to its budget, so only a total
+            # below it shows that nothing was cut. At max_entries there is
+            # nothing to grow into: an overflow then shows in the step's
+            # total_entries, as on the exact route.
+            if ((n < cur) if capped else (n <= cur)) or cur == max_entries:
                 return True
-            # The clamp would drop real entries: grow and redo.
-            live_budget[sig] = _grow_budget(lt)
+            # Real entries would be dropped: grow and redo.
+            budgets[sig] = _grow_budget(n)
             return False
         return accept
 

@@ -164,3 +164,69 @@ def test_rgb_bwd_kernel_matches_plain(cuda):
     for leaf, w in zip(leaves, want):
         s = max(float(w.abs().max()), 1e-30)
         torch.testing.assert_close(leaf.grad / s, w / s, atol=1e-4, rtol=0)
+
+
+def test_fast16_blend_and_bf16_query_kernels_match_plain(cuda):
+    """K2's fast16 mode against its plain version: f32 outputs (feat_bf16
+    off) atol 3e-5; with feat_bf16 the bf16 tiles and the rounded colour
+    within one bf16 ulp (the pre-rounding sums may differ in their last
+    bits), final T atol 3e-5. K3 on the bf16 map against its plain version
+    on the same rounded operands, rtol/atol 1e-5."""
+    proj, ops, gx, gy = _case(cuda)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    qw, qi = quick_pairs(ops.shape[0])
+    rows = blend.pack_fast16_rows(
+        proj.xy, proj.conic, ops, proj.rgb, torch.as_tensor(qw, device=cuda),
+        torch.as_tensor(qi.astype(np.int32), device=cuda))
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    args = (g, start, count, rows, bg, gx)
+    out = blend.blend_tiles_fast16(*args, gy, 12, 192, feat_bf16=False)
+    ref = blend.blend_tiles_fast16_plain(*args, 12, 192, False)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    out = blend.blend_tiles_fast16(*args, gy, 12, 192, feat_bf16=True)
+    ref = blend.blend_tiles_fast16_plain(*args, 12, 192, True)
+    assert out[1].dtype == torch.bfloat16
+    for a, b in zip(out[:2], ref[:2]):
+        ulp = torch.exp2(torch.floor(torch.log2(
+            b.float().abs().clamp(min=1e-30))) - 7)
+        assert bool(((a.float() - b.float()).abs() <= ulp + 3e-5).all())
+    torch.testing.assert_close(out[2], ref[2], atol=3e-5, rtol=0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    phi = torch.randn(3, 64, 5, device=cuda, generator=gen)
+    cb = torch.randn(3, 64, 32, device=cuda, generator=gen)
+    gram = torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+    raw, nrm2 = query.query_map_tiles(out[1], phi, gram)
+    raw_p, nrm2_p = query.query_map_tiles_bf16_plain(out[1], phi, gram)
+    torch.testing.assert_close(raw, raw_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(nrm2, nrm2_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t_budget,cap", [(1e-6, 128), (1e-300, 256)])
+def test_feature_bwd_topk_kernel_matches_plain(cuda, t_budget, cap):
+    """K5 against its plain version on capped windows (1e-5 of the largest
+    output: sums of 256 pixels in another order); slots at or past kept[t]
+    are 0."""
+    from langsplatv2_tpu_torch.ops import budget, train
+
+    proj, ops, gx, gy = _case(cuda)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    g_win = budget.slice_windows(g, start, cap).reshape(-1)
+    gl = g_win.long()
+    kept, _ = budget.budget_from_rows(proj.xy[gl], proj.conic[gl], ops[gl],
+                                      count, gx, cap, 2, t_budget)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qi = torch.randint(0, 64, (ops.shape[0], 4), device=cuda, generator=gen,
+                       dtype=torch.int32)
+    cot = torch.randn(gx * gy, 256, 64, device=cuda, generator=gen)
+    out = train.feature_grads_topk(g_win, kept, geom, qi, cot, gx, gy, cap)
+    ref = train.feature_grads_topk_plain(g_win, kept, geom, qi, cot, gx, cap)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(out / scale, ref / scale, atol=1e-5, rtol=0)
+    dead = (torch.arange(cap, device=cuda)[None, :]
+            >= kept[:, None]).reshape(-1)
+    assert float(out[dead].abs().max()) == 0.0

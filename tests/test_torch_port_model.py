@@ -222,21 +222,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("change,kwargs", [
-    (dict(tile_budget=1e-3), {}),
     (dict(binning="cascade"), {}),
     (dict(binning="gauss"), {}),
-    (dict(precision="bf16"), {}),
     (dict(impl="xla"), {}),
     ({}, dict(features=np.zeros((4, 64), np.float32))),
     ({}, dict(features=np.zeros((4, 64), np.float32), quick_train=True)),
     ({}, dict(cov3d_precomp=np.zeros((4, 6), np.float32))),
-    (dict(tile_cap=512), {}),
     (dict(tile_batch=8), {}),
     (dict(bf16_cells=True), {}),
-    (dict(feat_bf16=False), {}),
+    (dict(bf16_cells=True, precision="bf16"),
+     dict(quick_weights=np.ones((4, 4), np.float32),
+          quick_indices=np.zeros((4, 4), np.int32), quick_channels=64)),
     (dict(pair_capacity=1024), {}),
-    (dict(tile_budget_cap=256), {}),
-    (dict(tile_budget_subdiv=4), {}),
 ])
 def test_later_slice_options_raise(change, kwargs):
     view, pm, tfx, tfy = camera(32, 32)
@@ -261,12 +258,11 @@ def _train_call(**kw):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(tile_budget=1e-6), dict(cam_batch=2), dict(accum_iter=2),
+    dict(cam_batch=2), dict(accum_iter=2),
     dict(use_l1_loss=True), dict(normalize=True),
     dict(use_cos_loss=False, use_l1_loss=True),
     dict(gui_source_path="scene")],
-    ids=["tile_budget", "cam_batch", "accum_iter", "l1", "normalize",
-         "l1-only", "gui"])
+    ids=["cam_batch", "accum_iter", "l1", "normalize", "l1-only", "gui"])
 def test_later_training_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="later slice"):
         _train_call(**kwargs)
