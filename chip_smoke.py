@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: nvcc builds the kernels from langsplatv2_tpu_torch/csrc;
 3. kernel checks on a reduced scene (50k Gaussians, 512x512): each CUDA
    kernel against its plain PyTorch version on the card — K1 expansion
-   exact, K2 blend (quick and rgb) atol 3e-5, K3 query rtol/atol 1e-5;
+   exact, K2 blend (quick and rgb) atol 3e-5, K2 f32 and fast16 on rows
+   with NaN / inf xy or conic atol 3e-5, K3 query rtol/atol 1e-5;
 4. the main path at full width: the bench scene (1M Gaussians, seed 0;
    3 levels x 64 codes x 512-d, top-4 a level = 12 pairs, 192 channels),
    1 positive + 4 negative prompts, render(quick_render=True) +
@@ -69,11 +70,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    launched on every step and K4 never, the loss is finite and falls, and
    the expansion budget was sized from the first step and never
    overflowed; then K5 on one step's own inputs, timed beside its plain
-   version and its bound, and the step's stages timed alone.
+   version and its bound, and the step's stages timed alone;
+12. (run after phase 10, on its scene and budgets) the fused-query serving
+   frame: rasterize_quick_query + relevancy_from_query, exact and capped,
+   5 frames at each load, the launch counters zeroed just before and read
+   just after; fails unless K1 and K2q launched on every frame and K2
+   (f32 and fast16) and K3 (f32 and bf16) never, every output is finite
+   and no entry budget
+   saturates; then, on each variant's own inputs, K2q against its plain
+   version (rgb and T atol 3e-5, raw and nrm2 1e-5 of their largest) and
+   against the unfused routes (f32 tiles + f32 K3: 5e-3 of the largest;
+   bf16 tiles + bf16 K3: raw 1e-5, nrm2 5e-3), timed beside its bound and
+   the unfused pair (fast16 K2 + bf16 K3);
+13. the render server (serve/backend.py) in process at 986x728 on phase
+   4's scene, as bench.py:1073-1119 drives it: compose="device", prompt
+   "object", budget 1e-6, cap 128, temporal_reuse_px 4, reuse_zref 2, 24
+   requests on a yaw path of 1 px a frame after a warm-up, the launch
+   counters zeroed just before and read just after; fails unless the
+   rebin / steady counters are what the 4 px policy implies, K1 launched
+   on every rebin and fast16 K2 on every request (f32 K2, K2q and both
+   K3 never), the frames are finite and no budget saturates; then fast16
+   K2 on a served steady frame's own inputs (the server's frozen binning
+   at the steady request with the most motion, and the same binning after
+   a teleport that puts entries behind the near plane) against its plain
+   version as phase 10 holds it; times (host clock) the steady and rebin
+   requests, a pose-cache hit, a capped request without reuse, an rgb
+   request, the bin-cache build and a fused steady frame; the steady frame
+   at its bin pose must equal a fresh capped render with cov3d_precomp
+   (kept equal, rgb atol 1e-6); prints the relevancy error and mask IoU of
+   fused steady frames against fresh fused frames at 1-16 px, and holds
+   K2q against its plain version on one of them.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6 and 7; for K7 of phases 8
-and 9; for fast16 K2 and bf16 K3 of phase 10, for K5 of phase 11) and,
-last, {"ok": true, "device": {...}}.
+and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for bf16
+K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13) and, last,
+{"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -97,9 +128,10 @@ from langsplatv2_tpu_torch.models.gaussians import (create_from_pcd,
 from langsplatv2_tpu_torch.models.renderer import make_settings, render
 from langsplatv2_tpu_torch.ops import (blend, expand, gram, kernels,
                                        projection, query, rasterize_tiles,
-                                       rgb_train, train)
+                                       rgb_train, temporal, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
-    capped_binning, sorted_binning
+    capped_binning, rasterize, rasterize_quick_query, sorted_binning
+from langsplatv2_tpu_torch.serve.backend import BackendRenderer
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
 from langsplatv2_tpu_torch.train.config import OptimizationParams
@@ -146,6 +178,8 @@ KERNELS = {
               "langsplatv2_tpu/ops/pallas_blend.py:695"),
     "K3bf16": ("query_map_tiles_bf16", "langsplatv2_tpu_torch/csrc/query.cu",
                "langsplatv2_tpu/ops/pallas_query.py:92"),
+    "K2q": ("blend_tiles_query", "langsplatv2_tpu_torch/csrc/blend.cu",
+            "langsplatv2_tpu/ops/pallas_blend.py:695"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -180,6 +214,16 @@ CAPPED = dict(tile_budget=1e-6, cap=128, subdiv=2)
 CAPPED_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
                    "K4": train.feature_grads, "K5": train.feature_grads_topk,
                    "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
+# Phases 12-13: the fused-query frame and the render server. Every serving
+# wrapper is counted, so that the runs show which ones did not launch.
+SERVE_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                  "K2f16": blend.blend_tiles_fast16,
+                  "K2q": blend.blend_tiles_query,
+                  "K3": query.query_map_tiles,
+                  "K3bf16": query.query_map_tiles_bf16}
+SERVE_LOAD = "986x728"                 # the server's load (bench.py:1013)
+SERVE_REQUESTS = 24
+REUSE_PX = 4.0
 
 
 def log(*a):
@@ -189,6 +233,17 @@ def log(*a):
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def zero_counts(wrappers) -> None:
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(wrappers) -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in wrappers.items()}
 
 
 def bench_scene(n: int, seed: int = 0) -> dict:
@@ -308,6 +363,10 @@ def check_kernels(dev) -> dict:
     if not errs["K2"] <= 3e-5:
         fail("K2 blend differs from its plain version")
 
+    errs["K2 non-finite rows"] = check_non_finite_rows(x, gx, gy)
+    log(f"K2 on rows with NaN / inf xy or conic (f32 and fast16): max "
+        f"|kernel - plain| {errs['K2 non-finite rows']} (atol 3e-5)")
+
     raw, nrm2 = query.query_map_tiles(out[1], x["phi"], x["gram"])
     raw_p, nrm2_p = query.query_map_tiles_plain(out[1], x["phi"], x["gram"])
     errs["K3"] = max(float((raw - raw_p).abs().max()),
@@ -317,6 +376,37 @@ def check_kernels(dev) -> dict:
     log(f"K3 query: max |kernel - plain| = {errs['K3']} (rtol/atol 1e-5)")
     torch.cuda.synchronize()
     return errs
+
+
+def check_non_finite_rows(x, gx, gy) -> float:
+    """K2 f32 and fast16 on the reduced scene with every 7th Gaussian's x,
+    y or a conic term set to NaN, +inf or -inf (a steady frame's entries
+    near depth 0): each kernel against its plain version, which skips a
+    pair whose power is NaN (atol 3e-5, finite outputs)."""
+    geom = x["geom"].clone()
+    bad = torch.arange(0, geom.shape[0], 7, device=geom.device)
+    specials = torch.tensor([math.nan, math.inf, -math.inf],
+                            device=geom.device)
+    geom[bad, bad % 5] = specials[bad % 3]
+    rows = blend.pack_fast16_rows(geom[:, 0:2], geom[:, 2:5], geom[:, 5],
+                                  geom[:, 6:9], x["qw"], x["qi"])
+    seg = (x["g"], x["start"], x["count"])
+    pairs = list(zip(
+        blend.blend_tiles(*seg, geom, x["bg"], gx, gy, x["qw"], x["qi"],
+                          L * K),
+        blend.blend_tiles_plain(*seg, geom, x["bg"], gx, x["qw"], x["qi"],
+                                L * K)))
+    pairs += list(zip(
+        blend.blend_tiles_fast16(*seg, rows, x["bg"], gx, gy, L * TOPK,
+                                 L * K, False),
+        blend.blend_tiles_fast16_plain(*seg, rows, x["bg"], gx, L * TOPK,
+                                       L * K, False)))
+    err = max_diff(pairs)
+    if not (err <= 3e-5 and all(bool(torch.isfinite(a).all())
+                                for a, _ in pairs)):
+        fail(f"K2 on non-finite rows differs from its plain version by "
+             f"{err} (atol 3e-5) or is not finite")
+    return err
 
 
 def frame(model, settings, view, pm, clip, consts, dev, events=None):
@@ -347,10 +437,7 @@ def main_path(model, clip, consts, dev) -> dict:
                        view, pm)
         log(f"{name}: probe total {tot}, live {live} -> budgets "
             f"{budget} / {live_b}")
-    torch.cuda.synchronize()
-
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    zero_counts(WRAPPERS)
     results = {}
     for name, (s, view, pm) in plans.items():
         host_ms, stages = [], []
@@ -392,8 +479,7 @@ def main_path(model, clip, consts, dev) -> dict:
         log(f"{name}: median frame {results[name]['frame_ms_median']:.3f} ms "
             f"over {FRAMES} frames; stages (median ms) "
             + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()))
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    launches = read_counts(WRAPPERS)
     log(f"launches on the main path ({2 * FRAMES} frames): {launches}")
     if not all(v > 0 for v in launches.values()):
         fail(f"a kernel of the path was not launched: {launches}")
@@ -752,16 +838,13 @@ def train_path(dev) -> dict:
         clock[0] = now
         metrics_log.append({k: float(v) for k, v in metrics.items()})
 
-    torch.cuda.synchronize()
-    for fn in TRAIN_WRAPPERS.values():
-        fn.launches = 0
+    zero_counts(TRAIN_WRAPPERS)
     clock[0] = time.perf_counter()
     model, optimizer, logs = trainer.train_features(
         model, cams, opt, GT_DIR, 1, iterations=TRAIN_ITERS, seed=0,
         max_entries=max_entries, feature_cache={}, on_iteration=on_iteration,
         device=dev)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in TRAIN_WRAPPERS.items()}
+    launches = read_counts(TRAIN_WRAPPERS)
     losses = logs.losses
     budget = list(logs.live_budget.values())
     live = [int(m["live_total"]) for m in metrics_log]
@@ -1016,17 +1099,14 @@ def rgb_path(dev) -> dict:
 
     trainer.run_densify = timed_densify
     try:
-        torch.cuda.synchronize()
-        for fn in RGB_WRAPPERS.values():
-            fn.launches = 0
+        zero_counts(RGB_WRAPPERS)
         clock[0] = time.perf_counter()
         model, optimizer, logs = trainer.train_rgb(
             model, cams, opt, RGB_EXTENT, iterations=RGB_ITERS, seed=0,
             max_entries=max_entries, on_iteration=on_iteration, device=dev)
-        torch.cuda.synchronize()
     finally:
         trainer.run_densify = run_densify
-    launches = {k: fn.launches for k, fn in RGB_WRAPPERS.items()}
+    launches = read_counts(RGB_WRAPPERS)
     losses_ = logs.losses
     tot = [m["total_entries"] for m in metrics_log]
     dens_it = {e[0] for e in logs.events if e[1] == "densify"}
@@ -1286,9 +1366,7 @@ def bf16_serving(model, clip, consts, plans, f32_frames, dev) -> dict:
     """Phase 10: the serving default (fast16 rows, bf16 map), exact and
     capped, at both loads: counted frames, then fast16 K2 and bf16 K3 on
     the frames' own inputs against their plain versions and timed."""
-    torch.cuda.synchronize()
-    for fn in BF16_WRAPPERS.values():
-        fn.launches = 0
+    zero_counts(BF16_WRAPPERS)
     runs = {}
     for name, (s, view, pm) in plans.items():
         for variant, sv in bf16_variants(s).items():
@@ -1304,8 +1382,7 @@ def bf16_serving(model, clip, consts, plans, f32_frames, dev) -> dict:
                 stages.append({b[0]: a[1].elapsed_time(b[1])
                                for a, b in zip(events, events[1:])})
             runs[name, variant] = (sv, out, relev, host_ms, stages)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in BF16_WRAPPERS.items()}
+    launches = read_counts(BF16_WRAPPERS)
     n_frames = FRAMES * len(runs)
     log(f"launches on the bf16 serving path ({n_frames} frames): {launches}")
     if not all(v == n_frames for v in launches.values()):
@@ -1372,6 +1449,489 @@ def bf16_serving(model, clip, consts, plans, f32_frames, dev) -> dict:
             del runs[key]
         torch.cuda.empty_cache()
     return dict(loads=results, launches=launches)
+
+
+# -------------------------------------- phase 12: the fused-query serving frame
+
+def query_frame(model, s, view, pm, clip, consts, dev, events=None):
+    """rasterize_quick_query (K1, K2q) and the relevancy tail."""
+    out = rasterize_quick_query(
+        s, model.xyz, model.get_opacity(), view, pm, np.zeros(3, np.float32),
+        np.zeros(3, np.float32), scales=model.get_scaling(),
+        rotations=model.get_rotation(), shs=model.get_features(),
+        quick_weights=model.quick_weights, quick_indices=model.quick_indices,
+        phi=consts[0], gram=consts[1], quick_channels=L * K, device=dev,
+        stage_events=events)
+    relev = clip.relevancy_from_query(
+        out[1], out[2], s.grid_x, s.grid_y, s.image_height, s.image_width,
+        stage_events=events)
+    return out, relev
+
+
+def query_bound(x, n_tiles, pq, n_eval, n_inc) -> tuple[float, str]:
+    """K2q's bound: g, the ranges, a 64-byte row a distinct Gaussian, the
+    constants, and rgb, raw, nrm2 and T written, against the pair work at
+    the f32 rate plus the epilogue's 2 L K (PQ + K + 1) products a pixel at
+    the bf16 tensor rate (bf16 K3's count)."""
+    nbytes = (x["covered"] * 4 + n_tiles * 8 + x["distinct"] * 64
+              + (L * K * pq + L * K * K) * 4
+              + n_tiles * 256 * (3 + L * pq + L + 1) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((n_eval * BLEND_ALPHA_FLOPS + n_inc * BLEND_INCLUDE_FLOPS)
+             / F32_FLOPS + n_tiles * 256 * 2 * L * K * (pq + K + 1)
+             / BF16_TENSOR_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_query_kernel(x, s, consts, timed: bool) -> dict:
+    """K2q on one frame's inputs against its plain version (rgb and T atol
+    3e-5, raw and nrm2 1e-5 of their largest) and against the unfused
+    routes on the same inputs: fast16 K2 with f32 tiles then f32 K3 (5e-3
+    of the largest: the fused products take bf16 operands); fast16 K2 with
+    bf16 tiles then bf16 K3 (the same bf16 products: raw 1e-5 of its
+    largest; nrm2 5e-3, its last factor is the f32 weight). With `timed`,
+    K2q beside its plain version, its bound and the unfused pair."""
+    gx, gy = s.grid_x, s.grid_y
+    phi, gram = consts
+    pq = phi.shape[2]
+    seg = (x["g"], x["start"], x["count"], x["rows"], x["bg"])
+    stats = torch.zeros(2, dtype=torch.int64, device=x["g"].device)
+    out = blend.blend_tiles_query(*seg, gx, gy, L * TOPK, phi, gram,
+                                  stats=stats)
+    ref = blend.blend_tiles_query_plain(*seg, gx, L * TOPK, phi, gram)
+    r = dict(max_abs_err=max_diff(zip(out, ref)),
+             rgb_t_err=max(float((out[i] - ref[i]).abs().max())
+                           for i in (0, 3)),
+             raw_nrm2_rel=max(normalized_err(out[i], ref[i])[1]
+                              for i in (1, 2)),
+             pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]),
+             distinct_gaussians=x["distinct"])
+    del ref
+    if not (r["rgb_t_err"] <= 3e-5 and r["raw_nrm2_rel"] <= 1e-5):
+        fail(f"K2q differs from its plain version: {r}")
+    _, wm32, _ = blend.blend_tiles_fast16(*seg, gx, gy, L * TOPK, L * K,
+                                          False)
+    unf = query.query_map_tiles(wm32, phi, gram)
+    del wm32
+    _, wm16, _ = blend.blend_tiles_fast16(*seg, gx, gy, L * TOPK, L * K,
+                                          True)
+    unb = query.query_map_tiles(wm16, phi, gram)
+    del wm16
+    r["vs_unfused_f32"] = [normalized_err(out[i], unf[i - 1])[1]
+                           for i in (1, 2)]
+    r["vs_unfused_bf16"] = [normalized_err(out[i], unb[i - 1])[1]
+                            for i in (1, 2)]
+    del unf, unb, out
+    if not (max(r["vs_unfused_f32"]) <= 5e-3
+            and r["vs_unfused_bf16"][0] <= 1e-5
+            and r["vs_unfused_bf16"][1] <= 5e-3):
+        fail(f"K2q differs from the unfused route: {r}")
+    if timed:
+        k2q = lambda: blend.blend_tiles_query(  # noqa: E731
+            *seg, gx, gy, L * TOPK, phi, gram)
+
+        def unfused_pair():
+            wm = blend.blend_tiles_fast16(*seg, gx, gy, L * TOPK, L * K,
+                                          True)[1]
+            query.query_map_tiles_bf16(wm, phi, gram)
+
+        r["ms"] = cuda_ms(k2q, 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: blend.blend_tiles_query_plain(
+            *seg, gx, L * TOPK, phi, gram), 1)[0]
+        r["library_ms"] = None
+        r["unfused_pair_ms"] = cuda_ms(unfused_pair, 10)[0]
+        r["bound_ms"], r["bound_by"] = query_bound(
+            x, gx * gy, pq, r["pairs_evaluated"], r["pairs_included"])
+    return r
+
+
+def fused_query_serving(model, clip, consts, plans, bf16_frames,
+                        dev) -> dict:
+    """Phase 12: rasterize_quick_query at both loads, exact and capped
+    (phase 10's variants, assemble off): counted frames, then K2q on each
+    variant's own inputs against its plain version and the unfused routes,
+    timed beside its bound and the unfused pair."""
+    zero_counts(SERVE_WRAPPERS)
+    runs = {}
+    for name, (s, view, pm) in plans.items():
+        for variant, sv in bf16_variants(s).items():
+            host_ms, stages = [], []
+            for _ in range(FRAMES):
+                events = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, relev = query_frame(model, sv, view, pm, clip, consts,
+                                         dev, events)
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                stages.append({b[0]: a[1].elapsed_time(b[1])
+                               for a, b in zip(events, events[1:])})
+            runs[name, variant] = (sv, out, relev, host_ms, stages)
+    launches = read_counts(SERVE_WRAPPERS)
+    n_frames = FRAMES * len(runs)
+    log(f"launches on the fused-query serving path ({n_frames} frames): "
+        f"{launches}")
+    if not (launches["K1"] == launches["K2q"] == n_frames
+            and launches["K2"] == launches["K2f16"] == 0
+            and launches["K3"] == launches["K3bf16"] == 0):
+        fail(f"the fused-query path's launches are off: {launches}")
+
+    results = {}
+    pq = consts[0].shape[2]
+    for name, (s, view, pm) in plans.items():
+        res = {}
+        for variant in ("exact", "capped"):
+            sv, out, relev, host_ms, stages = runs.pop((name, variant))
+            rgb, raw, nrm2, final_t, _radii, tot, live = out
+            n_tiles = sv.grid_x * sv.grid_y
+            checks = {
+                "total < max_entries": int(tot) < sv.max_entries,
+                "live_total <= live_entries": variant == "capped"
+                or int(live) <= sv.live_entries,
+                "shapes": tuple(raw.shape) == (n_tiles, 256, L * pq)
+                and tuple(nrm2.shape) == (n_tiles, 256, L),
+                "finite": all(bool(torch.isfinite(t).all()) for t in (
+                    rgb, raw, nrm2, final_t, relev)),
+            }
+            bad = [k for k, v in checks.items() if not v]
+            if bad:
+                fail(f"{name} fused {variant}: checks failed: {bad}")
+            del out, relev
+            x = fast16_inputs(model, sv, view, pm, dev)
+            kq = check_query_kernel(x, sv, consts, timed=variant == "exact")
+            del x
+            res[variant] = dict(
+                frame_ms_median=statistics.median(host_ms), frame_ms=host_ms,
+                stage_ms_median={k: statistics.median(st[k] for st in stages)
+                                 for k in stages[0]},
+                total_entries=int(tot), live_total=int(live), K2q=kq)
+            log(f"{name} fused {variant}: frame median "
+                f"{res[variant]['frame_ms_median']:.3f} ms (phase 10 "
+                f"unfused {bf16_frames[name][variant]:.3f}); stages "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            res[variant]["stage_ms_median"].items()))
+            log(f"{name} fused {variant} K2q: " + ", ".join(
+                f"{a} {b!r}" for a, b in kq.items()))
+            torch.cuda.empty_cache()
+        results[name] = res
+    return dict(loads=results, launches=launches)
+
+
+# ------------------------------ phase 13: the render server, temporal reuse
+
+def yaw_c2w(px: float, width: int, fovx: float) -> np.ndarray:
+    """bench.py's serving path (treq_at): the identity camera turned by
+    `px` pixels of yaw at this width."""
+    th = px / (0.5 * width / math.tan(fovx / 2))
+    c, s_ = math.cos(th), math.sin(th)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]])
+    return c2w
+
+
+def serve_request(c2w, w, h, fovy, heatmap=True, threshold=-10.0) -> dict:
+    return {"c2w": c2w.tolist(), "width": w, "height": h, "fov_y": fovy,
+            "prompt": "object", "show_heatmap": heatmap,
+            "threshold": threshold}
+
+
+def timed_request(backend, req) -> tuple[np.ndarray, float, float]:
+    """(u8 frame, dispatch ms, finalize ms), host clock, the card idle
+    before."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = backend.dispatch_request(req)
+    t1 = time.perf_counter()
+    img = backend.finalize_frame(pending, as_uint8=True)
+    t2 = time.perf_counter()
+    return img, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() followed by synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serve_path(backend, w, h, fovx, fovy, max_entries) -> dict:
+    """The counted run of phase 13: SERVE_REQUESTS requests on the 1 px a
+    frame path after a warm-up, the rebin / steady split against what the
+    policy implies from the last bin pose, the launch counts, and each
+    request's dispatch and finalize times."""
+    for px in (0.0, 0.2):               # warm-up: a rebin, then a steady
+        backend.finalize_frame(backend.dispatch_request(serve_request(
+            yaw_c2w(px, w, fovx), w, h, fovy)), as_uint8=True)
+    # The policy's decisions on the path, on the poses as the server reads
+    # them (f32), from the warm-up's bin pose.
+    bin_c2w, want = np.float32(yaw_c2w(0.0, w, fovx)), []
+    for i in range(SERVE_REQUESTS):
+        c2w = np.float32(yaw_c2w(i + 1.0, w, fovx))
+        if temporal.motion_px(bin_c2w, c2w, w, fovx, 2.0) <= REUSE_PX:
+            want.append("steady")
+        else:
+            want.append("rebin")
+            bin_c2w = c2w
+    zero_counts(SERVE_WRAPPERS)
+    times = {"steady": [], "rebin": []}
+    dispatch = {"steady": [], "rebin": []}
+    got, saturated, served = [], False, None
+    for i in range(SERVE_REQUESTS):
+        before = dict(backend.cache_hits)
+        c2w = yaw_c2w(i + 1.0, w, fovx)
+        img, d_ms, f_ms = timed_request(backend, serve_request(c2w, w, h,
+                                                               fovy))
+        kind = "steady" if backend.cache_hits["steady"] > before["steady"] \
+            else "rebin"
+        if kind == "steady":
+            motion = temporal.motion_px(backend._tc_c2w, np.float32(c2w), w,
+                                        fovx, 2.0)
+            if served is None or motion >= served[0]:
+                served = (motion, backend._tc_cache, c2w)
+        got.append(kind)
+        times[kind].append(d_ms + f_ms)
+        dispatch[kind].append(d_ms)
+        entry = backend._pose_entry
+        if not (img.dtype == np.uint8 and img.shape == (h, w, 3)
+                and bool(torch.isfinite(entry["rgb"]).all())
+                and bool(torch.isfinite(entry["wm16"].float()).all())):
+            fail(f"server request {i}: bad frame")
+        saturated |= int(backend._tc_cache.total_entries) >= max_entries
+    launches = read_counts(SERVE_WRAPPERS)
+    counters = {k: got.count(k) for k in ("steady", "rebin")}
+    log(f"server: {SERVE_REQUESTS} requests on a 1 px yaw path, counters "
+        f"{counters}, rebins at requests "
+        f"{[i + 1 for i, k in enumerate(got) if k == 'rebin']} (the "
+        f"{REUSE_PX} px policy's: "
+        f"{[i + 1 for i, k in enumerate(want) if k == 'rebin']}); launches "
+        f"{launches}")
+    if got != want or not (0 < counters["rebin"] < SERVE_REQUESTS):
+        fail("the server's rebin / steady sequence is not the policy's")
+    if not (launches["K1"] == counters["rebin"]
+            and launches["K2f16"] == SERVE_REQUESTS
+            and launches["K2"] == launches["K2q"] == 0
+            and launches["K3"] == launches["K3bf16"] == 0):
+        fail(f"the server's launches are off: {launches}")
+    if saturated:
+        fail("a server bin frame saturated its entry budget")
+    return served, dict(counters=counters, launches=launches,
+                steady_ms_median=statistics.median(times["steady"]),
+                rebin_ms_median=statistics.median(times["rebin"]),
+                steady_dispatch_ms_median=statistics.median(
+                    dispatch["steady"]),
+                rebin_dispatch_ms_median=statistics.median(dispatch["rebin"]),
+                steady_ms=times["steady"], rebin_ms=times["rebin"])
+
+
+def check_steady_fast16(backend, served, w, h, fovy) -> dict:
+    """fast16 K2 as the server launches it on a steady frame (the frozen
+    binning's per-entry rows with their pose words rebuilt, g = slot id,
+    tile t's window at t*cap, kept frozen), held against its plain
+    version as phase 10 holds it (check_fast16): at the counted run's
+    steady request with the most motion from its bin pose, on that
+    request's own cache, and on the same cache after a teleport forward to
+    the kept entries' median depth, where about half of them fall behind
+    the near plane (opacity 0, their conic possibly non-finite)."""
+    motion, cache, c2w = served
+    cap = backend.tile_budget_cap
+    g = torch.arange(cache.rows.shape[0], dtype=torch.int32,
+                     device=cache.rows.device)
+    live = (torch.arange(cap, device=g.device)[None, :]
+            < cache.kept[:, None]).reshape(-1)
+    covered = int(cache.kept.sum())
+    teleport = np.eye(4)
+    teleport[2, 3] = float(cache.geo[live, 2].median())
+    r = {}
+    for key, pose in (("served", c2w), ("teleport", teleport)):
+        settings, view, full, _ = backend._camera(np.float32(pose), w, h,
+                                                  fovy)
+        rows = temporal.steady_entry_geom(settings, cache, view, full)
+        # Each slot has a row of its own: the distinct rows are the kept.
+        x = dict(g=g, start=g[::cap].contiguous(), count=cache.kept,
+                 rows=rows, bg=backend.background, covered=covered,
+                 distinct=covered)
+        r[key] = check_fast16(x, settings, timed=False)
+        vz = torch.as_tensor(view[:, 2], device=g.device)
+        depth = cache.geo[:, :3] @ vz[:3] + vz[3]
+        r[key]["masked_entries"] = int(((depth <= 0.2) & live).sum())
+        del rows, x
+    r["served"]["motion_px"] = motion
+    log(f"server fast16 K2 on steady frames vs plain: {r}")
+    if not 0 < r["teleport"]["masked_entries"] < covered:
+        fail("the teleported steady frame masked no entry, or all")
+    return r
+
+
+def bin_pose_check(model, settings, view, full, campos, dev):
+    """The steady frame at its bin pose against a fresh capped render with
+    cov3d_precomp (the same EWA formulation), and the bin-cache build
+    timed. Returns (the cache, the comparison, the build's median ms)."""
+    m, zero3 = model, np.zeros(3, np.float32)
+    h, w = settings.image_height, settings.image_width
+    bin_args = (settings, m.xyz, m.get_opacity(), view, full, campos)
+    bin_kw = dict(scales=m.get_scaling(), rotations=m.get_rotation(),
+                  shs=m.get_features(), quick_weights=m.quick_weights,
+                  quick_indices=m.quick_indices, device=dev)
+    build_ms = host_ms(lambda: temporal.quick_bin_cache(*bin_args, **bin_kw),
+                       FRAMES)
+    cache = temporal.quick_bin_cache(*bin_args, **bin_kw)
+    steady = temporal.rasterize_quick_steady(settings, cache, view, full,
+                                             zero3, L * K, L * TOPK)
+    with torch.no_grad():
+        cov3d = temporal.build_cov3d(m.get_scaling(), m.get_rotation())
+        op = m.get_opacity()[:, 0]
+        proj_c = projection.preprocess(
+            m.xyz, None, None, m.get_features(), None, *(torch.as_tensor(
+                a, device=dev) for a in (view, full, campos)),
+            settings.tanfovx, settings.tanfovy, w, h, 0, opacities=op,
+            cull_alpha=settings.cull_alpha, cov3d_precomp=cov3d)
+        kept_f = capped_binning(settings, proj_c, op, True)[2]
+        fresh = rasterize(settings._replace(assemble=False), m.xyz,
+                          m.get_opacity(), view, full, campos, zero3,
+                          cov3d_precomp=cov3d, shs=m.get_features(),
+                          quick_weights=m.quick_weights,
+                          quick_indices=m.quick_indices,
+                          quick_channels=L * K, device=dev)
+    rgb_s = rasterize_tiles.tiles_to_image(steady[0], settings.grid_x,
+                                           settings.grid_y, h, w)
+    r = dict(kept_tiles_differing=int((kept_f != cache.kept).sum()),
+             kept_total=[int(cache.live_total), int(fresh.live_total)],
+             rgb_err=float((rgb_s - fresh.rgb).abs().max()),
+             feat_err=float((steady[1].float()
+                             - fresh.feature_map.float()).abs().max()))
+    log(f"server bin pose: steady frame vs fresh capped render with "
+        f"cov3d_precomp {r} (kept equal, rgb atol 1e-6)")
+    return cache, r, build_ms
+
+
+def fused_steady_curve(model, clip, consts, backend, cache, settings, fovx,
+                       dev):
+    """Fused steady frames (K2q) against fresh fused frames at 1-16 px
+    (bench.py:924-975): relevancy max and mean error and the mask IoU
+    (> 0.5), printed, not gated; K2q held against its plain version on the
+    2 px frame (rgb and T atol 3e-5, raw and nrm2 1e-5 of the largest)."""
+    m, zero3 = model, np.zeros(3, np.float32)
+    h, w = settings.image_height, settings.image_width
+    gx, gy, cap = settings.grid_x, settings.grid_y, CAPPED["cap"]
+    curve, kq = [], None
+    for px in (1.0, 2.0, 4.0, 8.0, 16.0):
+        _s, v, p, _c = backend._camera(
+            yaw_c2w(px, w, fovx).astype(np.float32), w, h,
+            math.radians(60))
+        st = temporal.rasterize_quick_steady(settings, cache, v, p, zero3,
+                                             L * K, L * TOPK, *consts)
+        fr = rasterize_quick_query(
+            settings, m.xyz, m.get_opacity(), v, p, zero3, zero3,
+            scales=m.get_scaling(), rotations=m.get_rotation(),
+            shs=m.get_features(), quick_weights=m.quick_weights,
+            quick_indices=m.quick_indices, phi=consts[0], gram=consts[1],
+            quick_channels=L * K, device=dev)
+        r_s, r_f = (clip.relevancy_from_query(a, b, gx, gy, h, w)
+                    for a, b in ((st[1], st[2]), (fr[1], fr[2])))
+        m_s, m_f = r_s > 0.5, r_f > 0.5
+        d = (r_s - r_f).abs()
+        curve.append(dict(px=px, max_err=float(d.max()),
+                          mean_err=float(d.mean()),
+                          mask_iou=int((m_s & m_f).sum())
+                          / max(int((m_s | m_f).sum()), 1)))
+        if px == 2.0:
+            g = torch.arange(gx * gy * cap, dtype=torch.int32, device=dev)
+            ref = blend.blend_tiles_query_plain(
+                g, g[::cap].contiguous(), cache.kept,
+                temporal.steady_entry_geom(settings, cache, v, p),
+                torch.zeros(3, device=dev), gx, L * TOPK, *consts)
+            kq = dict(max_abs_err=max_diff(zip(st, ref)),
+                      rgb_t_err=max(float((st[i] - ref[i]).abs().max())
+                                    for i in (0, 3)),
+                      raw_nrm2_rel=max(normalized_err(st[i], ref[i])[1]
+                                       for i in (1, 2)))
+            if not (kq["rgb_t_err"] <= 3e-5 and kq["raw_nrm2_rel"] <= 1e-5):
+                fail(f"K2q on a steady frame differs from its plain "
+                     f"version: {kq}")
+            del ref
+        del st, fr, r_s, r_f
+    log("server relevancy, fused steady vs fresh: " + "; ".join(
+        f"{c['px']} px max {c['max_err']:.4f} mean {c['mean_err']:.6f} "
+        f"IoU {c['mask_iou']:.4f}" for c in curve))
+    log(f"server K2q on a steady frame vs plain: {kq}")
+    return curve, kq
+
+
+def serving_server(model, clip, consts, plans, dev) -> dict:
+    """Phase 13: BackendRenderer at 986x728 with temporal reuse on a 1 px a
+    frame yaw path (bench.py:1073-1119); a pose-cache hit, a capped request
+    without reuse and an rgb request timed; the steady frame at its bin
+    pose against the fresh cov3d render; the steady request's parts timed
+    alone; the fused steady frames' relevancy against fresh ones."""
+    s_load = plans[SERVE_LOAD][0]
+    h, w = s_load.image_height, s_load.image_width
+    fovy = math.radians(60)
+    fovx = 2 * math.atan(math.tan(fovy / 2) * w / h)
+    common = dict(clip_model=OpenCLIPNetwork("hash", device=dev),
+                  max_entries=s_load.max_entries, compose="device",
+                  tile_budget=CAPPED["tile_budget"],
+                  tile_budget_cap=CAPPED["cap"],
+                  tile_budget_subdiv=CAPPED["subdiv"], device=dev)
+    backend = BackendRenderer(model, temporal_reuse_px=REUSE_PX,
+                              reuse_zref=2.0, **common)
+    served, r = serve_path(backend, w, h, fovx, fovy, s_load.max_entries)
+    r["K2f16_steady"] = check_steady_fast16(backend, served, w, h, fovy)
+    del served
+
+    last = yaw_c2w(float(SERVE_REQUESTS), w, fovx)
+    hits = backend.cache_hits["pose"]
+    r["pose_hit_ms_median"] = statistics.median(
+        sum(timed_request(backend, serve_request(last, w, h, fovy,
+                                                 threshold=t))[1:])
+        for t in (-9.0, -8.0, -7.0, -6.0, -5.0))
+    if backend.cache_hits["pose"] != hits + 5:
+        fail(f"pose-cache hits {backend.cache_hits}")
+    plain = BackendRenderer(model, pose_cache=False, **common)
+    for key, start, heatmap in (("capped_frame", 100.0, True),
+                                ("rgb_request", 200.0, False)):
+        ms = [sum(timed_request(plain, serve_request(
+            yaw_c2w(start + i, w, fovx), w, h, fovy, heatmap))[1:])
+            for i in range(FRAMES + 1)]
+        r[f"{key}_ms_median"] = statistics.median(ms[1:])  # after a warm-up
+    del plain
+
+    settings, view, full, campos = backend._camera(
+        yaw_c2w(0.0, w, fovx).astype(np.float32), w, h, fovy)
+    settings = settings._replace(assemble=False)
+    cache, r["bin_pose"], r["bin_cache_ms_median"] = bin_pose_check(
+        model, settings, view, full, campos, dev)
+    # The steady request's two parts alone, 2 px from the bin pose.
+    _s, v, p, _c = backend._camera(yaw_c2w(2.0, w, fovx).astype(np.float32),
+                                   w, h, fovy)
+    zero3 = np.zeros(3, np.float32)
+    r["steady_blend_ms_median"] = host_ms(
+        lambda: temporal.rasterize_quick_steady(settings, cache, v, p, zero3,
+                                                L * K, L * TOPK), FRAMES)
+    entry = backend._pose_entry
+    phi_s, gram_s = backend._phi_gram("object")
+    r["query_compose_ms_median"] = host_ms(
+        lambda: backend._query_compose(entry["rgb"], entry["wm16"], phi_s,
+                                       gram_s, -10.0, L, K, True), FRAMES)
+    r["fused_steady_ms_median"] = host_ms(
+        lambda: temporal.rasterize_quick_steady(settings, cache, v, p, zero3,
+                                                L * K, L * TOPK, *consts),
+        FRAMES)
+    r["relevancy_vs_fresh"], r["K2q_steady"] = fused_steady_curve(
+        model, clip, consts, backend, cache, settings, fovx, dev)
+    log("server times (median ms, host clock): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r.items() if k.endswith("ms_median")))
+    bp = r["bin_pose"]
+    if not (bp["kept_tiles_differing"] == 0 and bp["rgb_err"] <= 1e-6
+            and bp["kept_total"][0] == bp["kept_total"][1]):
+        fail(f"the steady frame at its bin pose is not the fresh cov3d "
+             f"render: {bp}")
+    return r
 
 
 # ------------------------------------------ phase 11: capped feature training
@@ -1477,17 +2037,14 @@ def capped_train_path(dev) -> dict:
         clock[0] = now
         metrics_log.append({k: float(v) for k, v in metrics.items()})
 
-    torch.cuda.synchronize()
-    for fn in CAPPED_WRAPPERS.values():
-        fn.launches = 0
+    zero_counts(CAPPED_WRAPPERS)
     clock[0] = time.perf_counter()
     model, optimizer, logs = trainer.train_features(
         model, cams, opt, GT_DIR, 1, iterations=TRAIN_ITERS, seed=0,
         max_entries=max_entries, tile_budget=CAPPED["tile_budget"],
         tile_budget_cap=CAPPED["cap"], tile_budget_subdiv=CAPPED["subdiv"],
         feature_cache={}, on_iteration=on_iteration, device=dev)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in CAPPED_WRAPPERS.items()}
+    launches = read_counts(CAPPED_WRAPPERS)
     losses_ = logs.losses
     budgets = list(logs.exp_budget.values())
     tot = [int(m["total_entries"]) for m in metrics_log]
@@ -1610,6 +2167,12 @@ def main() -> None:
     bf16 = bf16_serving(model, clip, consts, plans,
                         {k: v["frame_ms_median"]
                          for k, v in path["loads"].items()}, dev)
+    fused = fused_query_serving(
+        model, clip, consts, plans,
+        {name: {v: r["frame_ms_median"] for v, r in load.items()
+                if v in ("exact", "capped")}
+         for name, load in bf16["loads"].items()}, dev)
+    server = serving_server(model, clip, consts, plans, dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -1630,6 +2193,8 @@ def main() -> None:
                                    for t in timing.values()]
                       + [d[k]["max_abs_err"]
                          for d in (rgb_errs, rpath["kernels"]) if k in d])
+            if k == "K2":
+                err = max(err, errs["K2 non-finite rows"])
         elif k == "K7":
             r = rpath["kernels"][k]
             launches = rpath["launches"][k]
@@ -1644,6 +2209,17 @@ def main() -> None:
             launches = bf16["launches"][k]
             err = max(v[k]["max_abs_err"] for load in loads.values()
                       for v in (load["exact"], load["capped"]))
+            if k == "K2f16":
+                err = max([err, errs["K2 non-finite rows"]]
+                          + [v["max_abs_err"] for v in
+                             server["K2f16_steady"].values()])
+        elif k == "K2q":
+            loads = fused["loads"]
+            r = loads["1080p"]["exact"][k]
+            launches = fused["launches"][k]
+            err = max([v[k]["max_abs_err"] for load in loads.values()
+                       for v in (load["exact"], load["capped"])]
+                      + [server["K2q_steady"]["max_abs_err"]])
         else:
             r = tpath["kernels"][k]
             launches = tpath["launches"][k]
@@ -1663,7 +2239,8 @@ def main() -> None:
                        main_path=path, kernel_timing=timing,
                        train_reduced=train_errs, train_path=tpath,
                        rgb_reduced=rgb_errs, rgb_path=rpath,
-                       bf16_serving=bf16, capped_train_path=cpath), f,
+                       bf16_serving=bf16, fused_query_serving=fused,
+                       serving_server=server, capped_train_path=cpath), f,
                   indent=1)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

@@ -10,7 +10,10 @@ preprocess -> entry expansion (CUDA kernel K1) -> key sort -> tile blend
 (CUDA kernel K2) -> Gram relevancy query (CUDA kernel K3) -> relevancy
 tail; and the exact feature-phase training step (`train/trainer.py`) —
 the same K1/K2 forward, the fused Gram-space loss (K6a forward, K6b
-backward), the W-replay feature backward (K4) and Adam. Kernels are built from `csrc/` with nvcc at first use
+backward), the W-replay feature backward (K4) and Adam; the geometry
+(RGB) phase (K7); capped feature training (K5) and fast16 serving; and the
+render server (`serve/`) with temporal binning reuse (`ops/temporal.py`)
+and the fused Gram-query frame (K2's query mode, K2q). Kernels are built from `csrc/` with nvcc at first use
 (`ops/kernels.py`); on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 

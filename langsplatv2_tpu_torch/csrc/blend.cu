@@ -12,7 +12,7 @@
 // indices) is gathered straight from the per-Gaussian arrays by g_sorted into
 // shared memory, so no packed entry rows are ever written. Each pixel then runs
 // the sequential CUDA-rasterizer loop:
-//   power > 0 or alpha < 1/255  -> skip (does not count);
+//   not power <= 0 (NaN too) or alpha < 1/255 -> skip (does not count);
 //   T * (1 - alpha) < 1e-4      -> the pixel ends, this entry not included;
 //   else acc += alpha * T * feature, T *= 1 - alpha.
 // The block leaves once every pixel has ended (__syncthreads_count).
@@ -41,6 +41,28 @@
 // accumulator and adds the background outside; the final T stays f32. The
 // row halves the gathered bytes (64 B against 132 B an entry) and bf16 tiles
 // halve the output write, the two byte terms of this kernel's bound.
+//
+// query mode (K2q, replacing the Pallas kernel with query=True: wrapper
+// pallas_blend.py::blend_tiles_query, epilogue :483-501): the fast16 blend
+// with f32 outputs, then per pixel, from the channel accumulators in shared
+// memory, the Gram relevancy query of kernel K3:
+//   raw[l*PQ + q] = sum_k bf16(wm[l,k]) phi[l,k,q]
+//   nrm2[l]       = sum_k (sum_m bf16(wm[l,m]) gram[l,m,k]) wm[l,k]
+// with phi and gram rounded to bf16 by the wrapper, as the TPU kernel's MXU
+// pass rounds its operands; the last factor and the band sum use the f32
+// accumulator, as there. The [T, 256, L*K] map is never written: the
+// outputs are rgb, raw, nrm2 and T. The accumulators fill the shared memory,
+// so each level's phi and then gram (16 KB) are staged, one after the
+// other, in the entry-staging area that the finished blend leaves free
+// (grown to 16 KB in this mode). Each thread keeps its pixel's 64 rounded
+// weights of the level in registers and runs 8 independent sums at once,
+// fed by 16-byte loads of gram that every thread of a warp reads at the
+// same address (a broadcast): one block of 8 warps an SM is too few warps
+// to hide the latency of a single dependent chain of loads. The epilogue
+// adds 2 * L * K * (PQ + K + 1) flops a pixel on CUDA cores (~0.8 ms at
+// 1080p at the H100's 67 TFLOP/s f32 rate); tensor-core products are later
+// work. Products of bf16 values are exact in f32, so the kernel and its
+// plain version differ only in the order of the sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,6 +77,10 @@ constexpr int kFast16Pairs = 12;       // (index, weight) slots of a fast16 row
 constexpr float kAlphaMin = 0.003921569f;  // f32(1/255)
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
+constexpr int kLevelK = 64;            // codebook rows a level (query mode)
+constexpr int kMaxLevels = 3;
+constexpr int kMaxPQ = 16;             // prompts a level (query mode)
+constexpr int kChains = 8;             // independent sums of the epilogue
 
 __device__ __forceinline__ void add_stats(unsigned long long* stats,
                                           unsigned long long n_eval,
@@ -118,7 +144,63 @@ __device__ __forceinline__ void stage_entry(
   }
 }
 
-template <bool kFast16>
+// Query mode's epilogue for pixel `pix` of the tile: raw [levels * pq] and
+// nrm2 [levels] from the channel accumulators (see the header). `stage` is
+// the free staging area, at least kLevelK * kLevelK floats, 16-byte
+// aligned; every thread of the block calls this.
+__device__ __forceinline__ void query_epilogue(
+    const float* acc, float* stage, int pix, int levels, int pq,
+    const float* __restrict__ phi, const float* __restrict__ gram,
+    float* __restrict__ raw, float* __restrict__ nrm2) {
+  for (int l = 0; l < levels; ++l) {
+    const float* a = acc + l * kLevelK * kPad + pix;
+    float w[kLevelK];
+#pragma unroll
+    for (int m = 0; m < kLevelK; ++m) w[m] = round_bf16(a[m * kPad]);
+
+    __syncthreads();  // the staging area is free
+    for (int i = pix; i < kLevelK * pq; i += kPix)
+      stage[i] = phi[l * kLevelK * pq + i];
+    __syncthreads();
+#pragma unroll 4
+    for (int q = 0; q < pq; ++q) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < kLevelK; ++m)  // exact products: fma == mul + add
+        s = __fmaf_rn(w[m], stage[m * pq + q], s);
+      raw[l * pq + q] = s;
+    }
+
+    __syncthreads();
+    for (int i = pix; i < kLevelK * kLevelK; i += kPix)
+      stage[i] = gram[l * kLevelK * kLevelK + i];
+    __syncthreads();
+    float n2 = 0.0f;
+    for (int k0 = 0; k0 < kLevelK; k0 += kChains) {
+      float s[kChains];
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) s[c] = 0.0f;
+#pragma unroll
+      for (int m = 0; m < kLevelK; ++m) {
+        const float4* g =
+            reinterpret_cast<const float4*>(stage + m * kLevelK + k0);
+#pragma unroll
+        for (int v = 0; v < kChains / 4; ++v) {
+          const float4 gv = g[v];
+          s[4 * v + 0] = __fmaf_rn(w[m], gv.x, s[4 * v + 0]);
+          s[4 * v + 1] = __fmaf_rn(w[m], gv.y, s[4 * v + 1]);
+          s[4 * v + 2] = __fmaf_rn(w[m], gv.z, s[4 * v + 2]);
+          s[4 * v + 3] = __fmaf_rn(w[m], gv.w, s[4 * v + 3]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kChains; ++c) n2 += s[c] * a[(k0 + c) * kPad];
+    }
+    nrm2[l] = n2;
+  }
+}
+
+template <bool kFast16, bool kQuery>
 __global__ void __launch_bounds__(kPix)
     blend_kernel(const int* __restrict__ g_sorted,
                  const int* __restrict__ tile_start,
@@ -126,8 +208,11 @@ __global__ void __launch_bounds__(kPix)
                  const float* __restrict__ geom, const float* __restrict__ qw,
                  const int* __restrict__ qi, const uint4* __restrict__ rows,
                  const float* __restrict__ bg, int grid_x, int topk,
-                 int channels, int out_bf16, float* __restrict__ rgb_out,
-                 void* __restrict__ feat_out, float* __restrict__ t_out,
+                 const float* __restrict__ phi,
+                 const float* __restrict__ gram, int channels, int out_bf16,
+                 int levels, int pq, float* __restrict__ rgb_out,
+                 void* __restrict__ feat_out, float* __restrict__ nrm2_out,
+                 float* __restrict__ t_out,
                  unsigned long long* __restrict__ stats) {
   extern __shared__ float smem[];
   float* acc = smem;                               // [channels][kPad]
@@ -162,7 +247,7 @@ __global__ void __launch_bounds__(kPix)
       const float cc = s_geom[4 * kBatch + j];
       const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
       ++n_eval;
-      if (power > 0.0f) continue;
+      if (!(power <= 0.0f)) continue;
       const float alpha = fminf(kAlphaMax, s_geom[5 * kBatch + j] * expf(power));
       if (alpha < kAlphaMin) continue;
       const float test_t = T * (1.0f - alpha);
@@ -196,6 +281,12 @@ __global__ void __launch_bounds__(kPix)
   rgb_out[3 * p + 2] = b + T * bg[2];
   t_out[p] = T;
   if (stats != nullptr) add_stats(stats, n_eval, n_inc);
+  if (kQuery) {  // feat_out is raw [T, 256, levels * pq]
+    query_epilogue(acc, s_geom, pix, levels, pq, phi, gram,
+                   static_cast<float*>(feat_out) + p * levels * pq,
+                   nrm2_out + p * levels);
+    return;
+  }
   if (channels > 0) {
     __syncthreads();
     // Coalesced write of the tile's [kPix, channels] block.
@@ -213,26 +304,29 @@ __global__ void __launch_bounds__(kPix)
   }
 }
 
-template <bool kFast16>
+template <bool kFast16, bool kQuery>
 int launch_blend(const int* g_sorted, const int* tile_start,
                  const int* tile_count, const float* geom, const float* qw,
                  const int* qi, const uint4* rows, const float* bg,
-                 int num_tiles, int grid_x, int topk, int channels,
-                 int out_bf16, float* rgb_out, void* feat_out, float* t_out,
-                 unsigned long long* stats, void* stream) {
+                 const float* phi, const float* gram, int num_tiles,
+                 int grid_x, int topk, int channels, int out_bf16, int levels,
+                 int pq, float* rgb_out, void* feat_out, float* nrm2_out,
+                 float* t_out, unsigned long long* stats, void* stream) {
   cudaGetLastError();  // drop a stale error so only this launch reports
-  const size_t smem = sizeof(float) * ((size_t)channels * kPad +
-                                       (size_t)kGeom * kBatch +
-                                       2 * (size_t)topk * kBatch);
+  size_t stage = (size_t)kGeom * kBatch + 2 * (size_t)topk * kBatch;
+  if (kQuery && stage < (size_t)kLevelK * kLevelK)  // the epilogue's gram
+    stage = (size_t)kLevelK * kLevelK;
+  const size_t smem = sizeof(float) * ((size_t)channels * kPad + stage);
   cudaError_t err = cudaFuncSetAttribute(
-      blend_kernel<kFast16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      blend_kernel<kFast16, kQuery>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_tiles > 0) {
-    blend_kernel<kFast16>
+    blend_kernel<kFast16, kQuery>
         <<<num_tiles, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
             g_sorted, tile_start, tile_count, geom, qw, qi, rows, bg, grid_x,
-            topk, channels, out_bf16, rgb_out, feat_out, t_out, stats);
+            topk, phi, gram, channels, out_bf16, levels, pq, rgb_out,
+            feat_out, nrm2_out, t_out, stats);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,9 +340,10 @@ extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
                                 int topk, int channels, float* rgb_out,
                                 float* feat_out, float* t_out,
                                 unsigned long long* stats, void* stream) {
-  return launch_blend<false>(g_sorted, tile_start, tile_count, geom, qw, qi,
-                             nullptr, bg, num_tiles, grid_x, topk, channels,
-                             0, rgb_out, feat_out, t_out, stats, stream);
+  return launch_blend<false, false>(
+      g_sorted, tile_start, tile_count, geom, qw, qi, nullptr, bg, nullptr,
+      nullptr, num_tiles, grid_x, topk, channels, 0, 0, 0, rgb_out,
+      feat_out, nullptr, t_out, stats, stream);
 }
 
 // rows: [N, 16] 32-bit words, 64 bytes a Gaussian, 16-byte aligned.
@@ -262,9 +357,31 @@ extern "C" int lsv2_blend_tiles_fast16(const int* g_sorted,
                                        float* t_out,
                                        unsigned long long* stats,
                                        void* stream) {
-  return launch_blend<true>(g_sorted, tile_start, tile_count, nullptr,
-                            nullptr, nullptr,
-                            static_cast<const uint4*>(rows), bg, num_tiles,
-                            grid_x, topk, channels, out_bf16, rgb_out,
-                            feat_out, t_out, stats, stream);
+  return launch_blend<true, false>(
+      g_sorted, tile_start, tile_count, nullptr, nullptr, nullptr,
+      static_cast<const uint4*>(rows), bg, nullptr, nullptr, num_tiles,
+      grid_x, topk, channels, out_bf16, 0, 0, rgb_out, feat_out, nullptr,
+      t_out, stats, stream);
+}
+
+// Query mode on fast16 rows: phi [levels, 64, pq] and gram [levels, 64, 64]
+// f32 on the device, already rounded to bf16; raw [T, 256, levels * pq],
+// nrm2 [T, 256, levels].
+extern "C" int lsv2_blend_tiles_query(const int* g_sorted,
+                                      const int* tile_start,
+                                      const int* tile_count, const void* rows,
+                                      const float* bg, const float* phi,
+                                      const float* gram, int num_tiles,
+                                      int grid_x, int topk, int levels,
+                                      int pq, float* rgb_out, float* raw_out,
+                                      float* nrm2_out, float* t_out,
+                                      unsigned long long* stats,
+                                      void* stream) {
+  if (levels < 1 || levels > kMaxLevels || pq < 1 || pq > kMaxPQ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_blend<true, true>(
+      g_sorted, tile_start, tile_count, nullptr, nullptr, nullptr,
+      static_cast<const uint4*>(rows), bg, phi, gram, num_tiles, grid_x,
+      topk, levels * kLevelK, 0, levels, pq, rgb_out, raw_out, nrm2_out,
+      t_out, stats, stream);
 }

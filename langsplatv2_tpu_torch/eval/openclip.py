@@ -7,9 +7,10 @@ straight from the rasterized coefficient map (the Gram identity of the JAX
 `get_max_across_from_weights`): with feat_l = C_l^T w,
     sim = (w . (C_l phrase)) / sqrt(w^T (C_l C_l^T) w),
 so the 512-d feature map is never built. `relevancy_from_tiles` computes
-the two contractions with kernel K3 on the [T, 256, L*K] tile layout and
-applies softmax([10 pos, 10 neg])[0] = sigmoid(10 (pos - neg)), min over
-the negatives = sigmoid against the largest negative.
+the two contractions with kernel K3 on the [T, 256, L*K] tile layout, and
+`relevancy_from_query` turns them (or the fused query's, K2q) into
+relevancy: softmax([10 pos, 10 neg])[0] = sigmoid(10 (pos - neg)), min
+over the negatives = sigmoid against the largest negative.
 """
 from __future__ import annotations
 
@@ -60,8 +61,13 @@ class OpenCLIPNetwork:
         self.pos_embeds = self._embed(list(self.positives))
 
     def _embed(self, texts: list[str]) -> torch.Tensor:
-        e = torch.from_numpy(self.backend.encode_text(texts)).to(self.device)
+        e = self.encode_text(texts)
         return e / torch.linalg.norm(e, dim=-1, keepdim=True)
+
+    def encode_text(self, texts: list[str]) -> torch.Tensor:
+        """[len(texts), 512] f32 embeddings, not normalized."""
+        return torch.from_numpy(self.backend.encode_text(texts)).to(
+            self.device)
 
     def set_positives(self, texts: list[str]) -> None:
         self.positives = tuple(texts)
@@ -106,10 +112,18 @@ class OpenCLIPNetwork:
         prompt_constants -> relevancy [L, positives, H, W], through the
         query kernel K3. `stage_events` (CUDA only) gets ("query", event)
         and ("relevancy", event) after each stage."""
-        L = phi.shape[0]
-        t, p, _ = wm_tiles.shape
         raw, nrm2 = query.query_map_tiles(wm_tiles, phi, gram)
         mark_stage(stage_events, "query")
+        return self.relevancy_from_query(raw, nrm2, grid_x, grid_y, height,
+                                         width, stage_events)
+
+    def relevancy_from_query(self, raw: torch.Tensor, nrm2: torch.Tensor,
+                             grid_x: int, grid_y: int, height: int,
+                             width: int, stage_events: list | None = None):
+        """raw [T, 256, L*(P+N)] and nrm2 [T, 256, L] (K3's or the fused
+        query's outputs) -> relevancy [L, positives, H, W]; `stage_events`
+        gets ("relevancy", event)."""
+        t, p, L = nrm2.shape
         relev = self._relevancy(raw.reshape(t * p, L, -1).transpose(0, 1),
                                 nrm2.reshape(t * p, L).T)      # [L, Q, P]
         n_phr = len(self.positives)

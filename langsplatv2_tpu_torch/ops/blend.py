@@ -20,6 +20,14 @@ indices are exact. The port's row is 64 bytes a Gaussian
 bf16 pairs that the TPU gathers. `blend_tiles_fast16` launches the kernel's
 fast16 mode on CUDA tensors; `blend_tiles_fast16_plain` is the f32 blend on
 the unpacked (rounded) state followed by the same output rounding.
+
+Fused query (K2q, `blend_tiles_query`, port of `blend_tiles_query` with
+its epilogue :483-501): the fast16 blend with f32 outputs and, per pixel,
+the Gram query of kernel K3 from the channel accumulators, so the
+[T, 256, L*K] map is never written. The products take the weights, phi
+and gram rounded to bf16 (the TPU kernel's MXU pass); the last factor of
+nrm2 and its band sum use the f32 accumulator. `blend_tiles_query_plain`
+is the fast16 plain blend followed by those products in torch.
 """
 from __future__ import annotations
 
@@ -27,9 +35,11 @@ import torch
 
 from . import kernels
 from .projection import BLOCK
+from .query import KERNEL_K, KERNEL_MAX_PQ, round_bf16
 
 P = BLOCK * BLOCK
 FAST16_PAIRS = 12      # (index, weight) slots of a fast16 row
+QUERY_MAX_LEVELS = 3   # fused query: 192 channels fill shared memory
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -47,6 +57,14 @@ def _bf16(x):
     return x.to(torch.bfloat16)
 
 
+def fast16_pose_words(xy, conic, opacities) -> torch.Tensor:
+    """Words 0-3 of a fast16 row, the fields a new pose changes: x y (f32),
+    then ca cb cc opacity as bf16 halves. [N, 4] int32."""
+    halves = _bf16(torch.cat([conic, opacities[:, None]], dim=1))
+    return torch.cat([xy.float().contiguous().view(torch.uint8),
+                      halves.view(torch.uint8)], dim=1).view(torch.int32)
+
+
 def pack_fast16_rows(xy, conic, opacities, colors, quick_weights,
                      quick_indices) -> torch.Tensor:
     """[N, 16] int32 words, 64 bytes a Gaussian: x y (f32), then as bf16
@@ -59,12 +77,12 @@ def pack_fast16_rows(xy, conic, opacities, colors, quick_weights,
     dev = xy.device
     rgb = colors if colors is not None else torch.zeros((n, 3), device=dev)
     pad = FAST16_PAIRS - s
-    halves = _bf16(torch.cat([conic, opacities[:, None], rgb,
-                              torch.zeros((n, 1), device=dev)], dim=1))
+    color = _bf16(torch.cat([rgb, torch.zeros((n, 1), device=dev)], dim=1))
     idx = torch.nn.functional.pad(quick_indices.to(torch.uint8), (0, pad))
     w = _bf16(torch.nn.functional.pad(quick_weights, (0, pad)))
-    row = torch.cat([xy.float().contiguous().view(torch.uint8),
-                     halves.view(torch.uint8), idx, w.view(torch.uint8),
+    row = torch.cat([fast16_pose_words(xy, conic, opacities).view(
+                         torch.uint8), color.view(torch.uint8), idx,
+                     w.view(torch.uint8),
                      torch.zeros((n, 4), dtype=torch.uint8, device=dev)],
                     dim=1)
     return row.view(torch.int32)
@@ -266,3 +284,86 @@ def blend_tiles_fast16(g_sorted, tile_start, tile_count, rows, bg,
 
 
 blend_tiles_fast16.launches = 0
+
+
+def blend_tiles_query_plain(g_sorted, tile_start, tile_count, rows, bg,
+                            grid_x, topk: int, phi, gram):
+    """The fast16 plain blend (f32 outputs), then the query: products of
+    bf16-rounded weights, phi and gram summed in f32; nrm2's last factor
+    is the f32 weight."""
+    L, K, PQ = phi.shape
+    rgb, wm, T = blend_tiles_fast16_plain(g_sorted, tile_start, tile_count,
+                                          rows, bg, grid_x, topk, L * K,
+                                          feat_bf16=False)
+    t = wm.shape[0]
+    wm = wm.reshape(t * P, L, K)
+    wmb = round_bf16(wm)
+    raw = torch.einsum("qlk,lkp->qlp", wmb, round_bf16(phi))
+    wg = torch.einsum("qlm,lmk->qlk", wmb, round_bf16(gram))
+    nrm2 = (wg * wm).sum(dim=-1)
+    return rgb, raw.reshape(t, P, L * PQ), nrm2.reshape(t, P, L), T
+
+
+def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
+                      grid_x: int, grid_y: int, topk: int, phi, gram,
+                      stats=None):
+    """The quick blend on fast16 rows with the Gram query fused (K2q).
+    phi [L, K, PQ] and gram [L, K, K] f32 (the prompt constants of
+    eval/openclip.py); other inputs as for `blend_tiles_fast16`, with
+    L*K channels. Returns (rgb [T, 256, 3], raw [T, 256, L*PQ], nrm2
+    [T, 256, L], final_T [T, 256]), all f32: raw[t,p,l*PQ+q] =
+    sum_k wm[l,k] phi[l,k,q], nrm2[t,p,l] = sum_k (wm_l gram_l)[k] wm[l,k].
+    On CUDA, K = 64, L <= 3 and PQ <= 16."""
+    dev = rows.device
+    n_tiles = grid_x * grid_y
+    L, K, PQ = phi.shape
+    if tuple(gram.shape) != (L, K, K):
+        raise ValueError(f"gram {tuple(gram.shape)} does not match phi "
+                         f"{tuple(phi.shape)}")
+    if L * K > 256:
+        raise ValueError(f"fast16 rows index at most 256 channels, not "
+                         f"{L * K}")
+    if dev.type == "cpu":
+        return blend_tiles_query_plain(g_sorted, tile_start, tile_count,
+                                       rows, bg, grid_x, topk, phi, gram)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_query: unsupported device {dev}")
+    if K != KERNEL_K or not (1 <= L <= QUERY_MAX_LEVELS
+                             and 1 <= PQ <= KERNEL_MAX_PQ):
+        raise NotImplementedError(
+            f"the fused query takes K={KERNEL_K} codebook rows, at most "
+            f"{QUERY_MAX_LEVELS} levels and {KERNEL_MAX_PQ} prompts a level "
+            f"(as K3), not K={K}, L={L}, PQ={PQ}")
+    kernels.check_tensor(g_sorted, "g_sorted", torch.int32, (None,), dev)
+    kernels.check_tensor(tile_start, "tile_start", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(tile_count, "tile_count", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(rows, "rows", torch.int32, (None, 16), dev)
+    kernels.check_tensor(bg, "bg", torch.float32, (3,), dev)
+    kernels.check_tensor(phi, "phi", torch.float32, (L, K, PQ), dev)
+    kernels.check_tensor(gram, "gram", torch.float32, (L, K, K), dev)
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: not 16-byte aligned")
+    if not 0 < topk <= FAST16_PAIRS:
+        raise ValueError(f"topk {topk} outside [1, {FAST16_PAIRS}]")
+    if stats is not None:
+        kernels.check_tensor(stats, "stats", torch.int64, (2,), dev)
+    phi_b = round_bf16(phi).contiguous()
+    gram_b = round_bf16(gram).contiguous()
+    rgb = torch.empty((n_tiles, P, 3), device=dev)
+    raw = torch.empty((n_tiles, P, L * PQ), device=dev)
+    nrm2 = torch.empty((n_tiles, P, L), device=dev)
+    final_t = torch.empty((n_tiles, P), device=dev)
+    P_ = kernels.ptr
+    kernels.launch(
+        "lsv2_blend_tiles_query", P_(g_sorted), P_(tile_start),
+        P_(tile_count), P_(rows), P_(bg), P_(phi_b), P_(gram_b), n_tiles,
+        grid_x, topk, L, PQ, P_(rgb), P_(raw), P_(nrm2), P_(final_t),
+        P_(stats) if stats is not None else kernels.NULL,
+        kernels.stream(rgb))
+    blend_tiles_query.launches += 1
+    return rgb, raw, nrm2, final_t
+
+
+blend_tiles_query.launches = 0

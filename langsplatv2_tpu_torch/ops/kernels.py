@@ -53,6 +53,9 @@ ENTRY_POINTS = {
     # g_sorted tile_start tile_count rows bg num_tiles grid_x topk channels
     # out_bf16 rgb feat final_t stats stream
     "lsv2_blend_tiles_fast16": [_P] * 5 + [_I] * 5 + [_P] * 5,
+    # g_sorted tile_start tile_count rows bg phi gram num_tiles grid_x topk
+    # levels pq rgb raw nrm2 final_t stats stream
+    "lsv2_blend_tiles_query": [_P] * 7 + [_I] * 5 + [_P] * 6,
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
     "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,

@@ -37,9 +37,12 @@ def detach(proj: ProjectedGaussians) -> ProjectedGaussians:
 def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
                       tanfovx: float, tanfovy: float, image_width: int,
                       image_height: int, scale_modifier: float = 1.0,
-                      opacities=None, cull_alpha: float = 1.0 / 255.0):
+                      opacities=None, cull_alpha: float = 1.0 / 255.0, *,
+                      cov3d_precomp=None):
     """Returns (xy, depth, conic, radius, ext_x, ext_y); ext_* are None
-    without opacities (no opacity-aware tight rect)."""
+    without opacities (no opacity-aware tight rect). With cov3d_precomp
+    [N, 6] (xx, xy, xz, yy, yz, zz) the world covariance comes from it and
+    scales / rotations are not read."""
     mx, my, mz = means3d[:, 0], means3d[:, 1], means3d[:, 2]
 
     def hrow(m, j):
@@ -69,28 +72,42 @@ def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
     k2 = (-focal_y * ty / (tz * tz))[:, None]
     m0 = j0 * W[0][None, :] + j2 * W[2][None, :]
     m1 = k1 * W[1][None, :] + k2 * W[2][None, :]
+    if cov3d_precomp is not None:
+        # m . Sigma . m' from the 6 unique entries, in JAX's op order.
+        xx, xy_, xz, yy, yz, zz = cov3d_precomp.unbind(-1)
 
-    qn = rotations / torch.linalg.norm(rotations, dim=-1, keepdim=True)
-    r, x, y, z = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
-    R00 = 1 - 2 * (y * y + z * z)
-    R01 = 2 * (x * y - r * z)
-    R02 = 2 * (x * z + r * y)
-    R10 = 2 * (x * y + r * z)
-    R11 = 1 - 2 * (x * x + z * z)
-    R12 = 2 * (y * z - r * x)
-    R20 = 2 * (x * z - r * y)
-    R21 = 2 * (y * z + r * x)
-    R22 = 1 - 2 * (x * x + y * y)
-    s2 = torch.square(scale_modifier * scales)
-    u0 = m0[:, 0] * R00 + m0[:, 1] * R10 + m0[:, 2] * R20
-    u1 = m0[:, 0] * R01 + m0[:, 1] * R11 + m0[:, 2] * R21
-    u2 = m0[:, 0] * R02 + m0[:, 1] * R12 + m0[:, 2] * R22
-    v0 = m1[:, 0] * R00 + m1[:, 1] * R10 + m1[:, 2] * R20
-    v1 = m1[:, 0] * R01 + m1[:, 1] * R11 + m1[:, 2] * R21
-    v2 = m1[:, 0] * R02 + m1[:, 1] * R12 + m1[:, 2] * R22
-    a = s2[:, 0] * u0 * u0 + s2[:, 1] * u1 * u1 + s2[:, 2] * u2 * u2 + 0.3
-    b = s2[:, 0] * u0 * v0 + s2[:, 1] * u1 * v1 + s2[:, 2] * u2 * v2
-    c = s2[:, 0] * v0 * v0 + s2[:, 1] * v1 * v1 + s2[:, 2] * v2 * v2 + 0.3
+        def quad(p, q):
+            return (p[:, 0] * q[:, 0] * xx + p[:, 1] * q[:, 1] * yy
+                    + p[:, 2] * q[:, 2] * zz
+                    + (p[:, 0] * q[:, 1] + p[:, 1] * q[:, 0]) * xy_
+                    + (p[:, 0] * q[:, 2] + p[:, 2] * q[:, 0]) * xz
+                    + (p[:, 1] * q[:, 2] + p[:, 2] * q[:, 1]) * yz)
+
+        a = quad(m0, m0) + 0.3
+        b = quad(m0, m1)
+        c = quad(m1, m1) + 0.3
+    else:
+        qn = rotations / torch.linalg.norm(rotations, dim=-1, keepdim=True)
+        r, x, y, z = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
+        R00 = 1 - 2 * (y * y + z * z)
+        R01 = 2 * (x * y - r * z)
+        R02 = 2 * (x * z + r * y)
+        R10 = 2 * (x * y + r * z)
+        R11 = 1 - 2 * (x * x + z * z)
+        R12 = 2 * (y * z - r * x)
+        R20 = 2 * (x * z - r * y)
+        R21 = 2 * (y * z + r * x)
+        R22 = 1 - 2 * (x * x + y * y)
+        s2 = torch.square(scale_modifier * scales)
+        u0 = m0[:, 0] * R00 + m0[:, 1] * R10 + m0[:, 2] * R20
+        u1 = m0[:, 0] * R01 + m0[:, 1] * R11 + m0[:, 2] * R21
+        u2 = m0[:, 0] * R02 + m0[:, 1] * R12 + m0[:, 2] * R22
+        v0 = m1[:, 0] * R00 + m1[:, 1] * R10 + m1[:, 2] * R20
+        v1 = m1[:, 0] * R01 + m1[:, 1] * R11 + m1[:, 2] * R21
+        v2 = m1[:, 0] * R02 + m1[:, 1] * R12 + m1[:, 2] * R22
+        a = s2[:, 0] * u0 * u0 + s2[:, 1] * u1 * u1 + s2[:, 2] * u2 * u2 + 0.3
+        b = s2[:, 0] * u0 * v0 + s2[:, 1] * u1 * v1 + s2[:, 2] * u2 * v2
+        c = s2[:, 0] * v0 * v0 + s2[:, 1] * v1 * v1 + s2[:, 2] * v2 * v2 + 0.3
 
     det = a * c - b * b
     det_ok = det != 0.0
@@ -158,11 +175,12 @@ def preprocess(means3d, scales, rotations, shs, colors_precomp, viewmatrix,
                projmatrix, campos, tanfovx: float, tanfovy: float,
                image_width: int, image_height: int, sh_degree: int,
                scale_modifier: float = 1.0, opacities=None,
-               cull_alpha: float = 1.0 / 255.0) -> ProjectedGaussians:
+               cull_alpha: float = 1.0 / 255.0, *,
+               cov3d_precomp=None) -> ProjectedGaussians:
     xy, depth, conic, radius, ext_x, ext_y = project_gaussians(
         means3d, scales, rotations, viewmatrix, projmatrix, tanfovx, tanfovy,
         image_width, image_height, scale_modifier, opacities=opacities,
-        cull_alpha=cull_alpha)
+        cull_alpha=cull_alpha, cov3d_precomp=cov3d_precomp)
     rect_min, rect_max, tiles = tile_rect(
         xy, radius, image_width, image_height, ext_x=ext_x, ext_y=ext_y)
     radius = torch.where(tiles > 0, radius, 0)

@@ -23,6 +23,12 @@ the depth prefix of its window of tile_budget_cap entries whose
 transmittance bound stays above the budget (ops/budget.py); training's
 backward is K5. Elsewhere, as in JAX, the budget fields are not read.
 
+`rasterize_quick_query` (:590-653) is the serving frame with the Gram
+query fused into the blend (K2's query mode, K2q): fast16 rows, exact or
+capped binning, and per-prompt raw scores and per-level norms out instead
+of the [T, 256, L*K] map. `cov3d_precomp` [N, 6] replaces scales and
+rotations in the preprocess (the temporal steady frames' formulation).
+
 Options that belong to later slices of the port raise NotImplementedError
 naming their ROADMAP item; none of them falls back to another path.
 """
@@ -100,8 +106,7 @@ _LATER_FIELDS = {
 _UNREAD_FIELDS = ("prefiltered", "debug")
 
 
-def check_slice(settings: RasterizeSettings, *, cov3d_precomp=None,
-                features=None) -> None:
+def check_slice(settings: RasterizeSettings, *, features=None) -> None:
     """Raise for every option outside the ported slices (the sort path,
     f32 and fast16 rows, rgb and quick modes, quick training, the capped
     routes), and for a non-default value of a field no path reads. Fields
@@ -127,8 +132,6 @@ def check_slice(settings: RasterizeSettings, *, cov3d_precomp=None,
         raise _later('impl="xla"', REFERENCE_RASTERIZER)
     if features is not None:
         raise _later("dense features", "Queue 2, K2's dense mode")
-    if cov3d_precomp is not None:
-        raise _later("cov3d_precomp", "Queue 1 item 3, the preprocess")
 
 
 def mark_stage(stage_events, name: str) -> None:
@@ -192,6 +195,69 @@ def capped_binning(settings: RasterizeSettings, proj, opacities,
     return g_win, starts, kept, sat_bound, total
 
 
+def to_f32(x, dev):
+    return None if x is None else torch.as_tensor(x, dtype=torch.float32,
+                                                  device=dev)
+
+
+class Fast16Binned(NamedTuple):
+    """A fast16 frame up to its blend."""
+
+    proj: projection.ProjectedGaussians
+    op: torch.Tensor               # [N] f32 opacities
+    rows: torch.Tensor             # [N, 16] int32 fast16 rows
+    g: torch.Tensor                # [E] int32 Gaussian ids in blend order
+    start: torch.Tensor            # [T] int32 tile segment starts
+    count: torch.Tensor            # [T] int32 tile blend counts
+    max_tile_count: torch.Tensor   # [] int32 (capped: saturation bound)
+    total: torch.Tensor            # [] int32 expansion total
+    live_total: torch.Tensor       # [] int32 (capped: the kept total)
+
+
+def fast16_binned(settings: RasterizeSettings, means3d, opacities,
+                  viewmatrix, projmatrix, campos, scales=None, rotations=None,
+                  cov3d_precomp=None, shs=None, colors_precomp=None,
+                  quick_weights=None, quick_indices=None, *, dev,
+                  stage_events=None) -> Fast16Binned:
+    """The fast16 serving frame's setup, without gradients: the
+    preprocess, then the capped windows when tile_budget > 0 (the budget
+    read from the rows' bf16-rounded conic and opacity, kept clamped to
+    tile_cap) or the sorted binning with the live-prefix clamp, then the
+    fast16 rows. Shared by `rasterize`'s fast16 route,
+    `rasterize_quick_query` and `temporal.quick_bin_cache`; stage events
+    "start" to "budget" / "sort" as `rasterize` documents them."""
+    capped = settings.tile_budget > 0.0
+    with torch.no_grad():
+        op = to_f32(opacities, dev)[:, 0]
+        mark_stage(stage_events, "start")
+        proj = projection.preprocess(
+            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                       colors_precomp, viewmatrix,
+                                       projmatrix, campos)),
+            settings.tanfovx, settings.tanfovy, settings.image_width,
+            settings.image_height, settings.sh_degree,
+            settings.scale_modifier, opacities=op,
+            cull_alpha=settings.cull_alpha,
+            cov3d_precomp=to_f32(cov3d_precomp, dev))
+        mark_stage(stage_events, "preprocess")
+        if capped:
+            g, start, count, sat_bound, total = capped_binning(
+                settings, proj, op, True, stage_events)
+            max_tile_count = sat_bound.max()
+            live_total = count.sum(dtype=torch.int32)
+        else:
+            g, start, count, total, live_total = sorted_binning(
+                settings, proj, op, stage_events)
+            max_tile_count = count.max()
+        mark_stage(stage_events, "budget" if capped else "sort")
+        qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32)
+        rows = blend.pack_fast16_rows(
+            proj.xy, proj.conic, op, proj.rgb,
+            to_f32(quick_weights, dev).contiguous(), qi.contiguous())
+    return Fast16Binned(proj, op, rows, g, start, count, max_tile_count,
+                        total, live_total)
+
+
 def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               projmatrix, campos, bg, scales=None, rotations=None,
               cov3d_precomp=None, shs=None, colors_precomp=None,
@@ -215,34 +281,45 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     "assemble"; consecutive events time each stage."""
     quick = quick_weights is not None
     fast16 = quick and not quick_train and settings.precision == "bf16"
-    capped = settings.tile_budget > 0.0 and (fast16 or (
-        quick and quick_train and train.capped_fits(quick_weights.shape[1])))
-    check_slice(settings, cov3d_precomp=cov3d_precomp, features=features)
-    if scales is None or rotations is None:
-        raise ValueError("rasterize needs scales and rotations")
+    capped = settings.tile_budget > 0.0 and not fast16 and quick \
+        and quick_train and train.capped_fits(quick_weights.shape[1])
+    check_slice(settings, features=features)
+    if cov3d_precomp is None and (scales is None or rotations is None):
+        raise ValueError("rasterize needs scales and rotations, or "
+                         "cov3d_precomp")
+    if quick and means2d_dummy is not None:
+        raise ValueError("means2d_dummy is read in RGB mode only")
     dev = resolve_device(device)
-
-    def f32(x):
-        return None if x is None else torch.as_tensor(
-            x, dtype=torch.float32, device=dev)
-
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
-    opacities = f32(opacities)
-    bg = f32(bg).contiguous()
+    opacities = to_f32(opacities, dev)
+    bg = to_f32(bg, dev).contiguous()
+    if fast16:
+        b = fast16_binned(settings, means3d, opacities, viewmatrix,
+                          projmatrix, campos, scales, rotations,
+                          cov3d_precomp, shs, colors_precomp, quick_weights,
+                          quick_indices, dev=dev, stage_events=stage_events)
+        rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
+            b.g, b.start, b.count, b.rows, bg, grid_x, grid_y,
+            quick_weights.shape[1], quick_channels, settings.feat_bf16)
+        return _assemble(settings, rgb_t, feat_t, t_t, b.proj.radius,
+                         b.max_tile_count, b.total, b.live_total,
+                         stage_events)
+
     mark_stage(stage_events, "start")
     proj = projection.preprocess(
-        f32(means3d), f32(scales), f32(rotations), f32(shs),
-        f32(colors_precomp), f32(viewmatrix), f32(projmatrix), f32(campos),
-        settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
-        settings.scale_modifier, opacities=opacities[:, 0].detach(),
-        cull_alpha=settings.cull_alpha)
+        *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                   colors_precomp, viewmatrix, projmatrix,
+                                   campos)), settings.tanfovx,
+        settings.tanfovy, W, H, settings.sh_degree, settings.scale_modifier,
+        opacities=opacities[:, 0].detach(), cull_alpha=settings.cull_alpha,
+        cov3d_precomp=to_f32(cov3d_precomp, dev))
     mark_stage(stage_events, "preprocess")
     with torch.no_grad():   # binning is not differentiable
         proj_d, op_d = projection.detach(proj), opacities[:, 0].detach()
         if capped:
             g_sorted, tile_start, tile_count, sat_bound, total = \
-                capped_binning(settings, proj_d, op_d, fast16, stage_events)
+                capped_binning(settings, proj_d, op_d, False, stage_events)
             max_tile_count = sat_bound.max()
             live_total = tile_count.sum(dtype=torch.int32)
         else:
@@ -254,37 +331,36 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
         rgb, final_t = rgb_train.rasterize_rgb_vjp(
             settings, proj, opacities[:, 0], (g_sorted, tile_start,
                                               tile_count), bg,
-            None if means2d_dummy is None else f32(means2d_dummy))
+            to_f32(means2d_dummy, dev))
         mark_stage(stage_events, "blend")
         mark_stage(stage_events, "assemble")
         return RasterizeOutput(
             rgb=rgb, feature_map=None, radii=proj.radius,
             final_transmittance=final_t, max_tile_count=max_tile_count,
             total_entries=total, live_total=live_total)
-    if means2d_dummy is not None:
-        raise ValueError("means2d_dummy is read in RGB mode only")
-    qw = f32(quick_weights).contiguous()
+    qw = to_f32(quick_weights, dev).contiguous()
     qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32).contiguous()
-    if fast16:
-        with torch.no_grad():
-            rows = blend.pack_fast16_rows(proj_d.xy, proj_d.conic, op_d,
-                                          proj_d.rgb, qw, qi)
-        rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
-            g_sorted, tile_start, tile_count, rows, bg, grid_x, grid_y,
-            qw.shape[1], quick_channels, settings.feat_bf16)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, opacities[:, 0],
+                                     proj.rgb)
+    if quick_train:
+        rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
+            qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
+            grid_y, quick_channels, settings.tile_budget_cap if capped else 0)
     else:
-        geom = blend.pack_gaussian_state(proj.xy, proj.conic,
-                                         opacities[:, 0], proj.rgb)
-        if quick_train:
-            rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
-                qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
-                grid_y, quick_channels,
-                settings.tile_budget_cap if capped else 0)
-        else:
-            rgb_t, feat_t, t_t = blend.blend_tiles(
-                g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
-                qw, qi, quick_channels)
+        rgb_t, feat_t, t_t = blend.blend_tiles(
+            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y, qw,
+            qi, quick_channels)
+    return _assemble(settings, rgb_t, feat_t, t_t, proj.radius,
+                     max_tile_count, total, live_total, stage_events)
+
+
+def _assemble(settings, rgb_t, feat_t, t_t, radii, max_tile_count, total,
+              live_total, stage_events) -> RasterizeOutput:
+    """The quick modes' tail: the tiles to images (the feature map only
+    with settings.assemble)."""
     mark_stage(stage_events, "blend")
+    H, W = settings.image_height, settings.image_width
+    grid_x, grid_y = settings.grid_x, settings.grid_y
     rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
     if settings.assemble:
         feat_t = rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
@@ -292,6 +368,47 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
         t_t[..., None], grid_x, grid_y, H, W)[0]
     mark_stage(stage_events, "assemble")
     return RasterizeOutput(
-        rgb=rgb, feature_map=feat_t, radii=proj.radius,
+        rgb=rgb, feature_map=feat_t, radii=radii,
         final_transmittance=final_t, max_tile_count=max_tile_count,
         total_entries=total, live_total=live_total)
+
+
+def rasterize_quick_query(settings: RasterizeSettings, means3d, opacities,
+                          viewmatrix, projmatrix, campos, bg, scales=None,
+                          rotations=None, shs=None, colors_precomp=None,
+                          quick_weights=None, quick_indices=None, phi=None,
+                          gram=None, quick_channels: int = 192, *,
+                          device=None, stage_events: list | None = None):
+    """The serving frame with the Gram query fused into the blend: fast16
+    rows, sorted binning with the live-prefix clamp, or the capped windows
+    when tile_budget > 0 (the budget read from the rows' bf16-rounded conic
+    and opacity, kept clamped to tile_cap). phi [L, K, PQ] and gram
+    [L, K, K] are the prompt constants (eval/openclip.py), L*K =
+    quick_channels. Returns (rgb [3, H, W], raw [T, 256, L*PQ], nrm2
+    [T, 256, L], final_T [H, W], radii [N], total_entries [], live_total
+    []); on the capped route live_total is the kept total. Stage events
+    as for `rasterize` ("blend" includes the query)."""
+    check_slice(settings)
+    dev = resolve_device(device)
+    phi, gram = to_f32(phi, dev), to_f32(gram, dev)
+    L, K, _ = phi.shape
+    if quick_channels != L * K:
+        raise ValueError(f"quick_channels {quick_channels} != L*K = "
+                         f"{L * K} of phi {tuple(phi.shape)}")
+    H, W = settings.image_height, settings.image_width
+    grid_x, grid_y = settings.grid_x, settings.grid_y
+    b = fast16_binned(settings, means3d, opacities, viewmatrix, projmatrix,
+                      campos, scales, rotations, None, shs, colors_precomp,
+                      quick_weights, quick_indices, dev=dev,
+                      stage_events=stage_events)
+    with torch.no_grad():
+        rgb_t, raw, nrm2, t_t = blend.blend_tiles_query(
+            b.g, b.start, b.count, b.rows, to_f32(bg, dev).contiguous(),
+            grid_x, grid_y, quick_weights.shape[1], phi.contiguous(),
+            gram.contiguous())
+        mark_stage(stage_events, "blend")
+        rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
+        final_t = rasterize_tiles.tiles_to_image(
+            t_t[..., None], grid_x, grid_y, H, W)[0]
+        mark_stage(stage_events, "assemble")
+    return rgb, raw, nrm2, final_t, b.proj.radius, b.total, b.live_total

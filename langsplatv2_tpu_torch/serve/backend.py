@@ -1,0 +1,493 @@
+"""Interactive render server (port of langsplatv2_tpu/serve/backend.py).
+
+The JSON request protocol of the reference `backend_renderer.py` ({c2w,
+width, height, fov_y, prompt, threshold, show_heatmap} -> JPEG bytes),
+served over ZMQ: REQ/REP (`run`) or a pipelined ROUTER (`run_pipelined`).
+A request renders the merged quick model at the fast16 serving precision
+(K1, K2's fast16 mode with a bf16 map), computes the Gram-space similarity
+to the prompt (`_query_compose`) and, with compose="device", normalizes it,
+colours it with an analytic JET ramp, blends it 50/50 with the render and
+quantizes to uint8 on the card, so the host reads H*W*3 bytes. A pose
+cache replays an unchanged pose's blend output through the query tail
+alone, and temporal reuse (ops/temporal.py) renders nearby poses against a
+frozen capped binning.
+
+The JAX package compiles one function per request geometry; here every
+request runs eagerly, and the per-key "frame functions" are plain methods.
+`cache_hits` counts as there: "pose" (pose-cache hit), "jpeg" (a
+byte-identical request answered with the last JPEG), "miss" (a full frame),
+"steady" and "rebin" (temporal frames). `dispatch_request` enqueues the
+request's work on the card and returns a `PendingFrame` without reading
+the frame back, but its host-to-card copies (the camera matrices, a few
+constants) are synchronous and wait for the work queued before them, so
+frame N+1's dispatch overlaps little of frame N; `chip_smoke.py` phase 13
+times dispatch and finalize apart.
+
+`cv2` (host compose, JPEG) and `zmq` are imported where they are used; a
+server driven in process with compose="device" needs neither.
+"""
+from __future__ import annotations
+
+import json
+import math
+import traceback
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..eval.openclip import OpenCLIPNetwork
+from ..models.gaussians import GaussianModel
+from ..models.renderer import render
+from ..ops import rasterize_tiles, temporal
+from ..ops.query import round_bf16
+from ..ops.rasterize import RasterizeSettings
+from ..utils.camera_math import get_projection_matrix
+
+
+def apply_langsplat_normalization(similarity: torch.Tensor) -> torch.Tensor:
+    """Highlight the top half of the dynamic range (reference
+    backend_renderer.py:38-55)."""
+    raw_min, raw_max = similarity.min(), similarity.max()
+    similarity = (similarity - raw_min) / (raw_max - raw_min + 1e-9)
+    return torch.clamp(similarity * 2 - 1, 0, 1)
+
+
+def jet_colormap(x: torch.Tensor) -> torch.Tensor:
+    """The analytic JET ramp (x in [0, 1] -> [..., 3] RGB), cv2's
+    COLORMAP_JET up to its 256-entry table."""
+    v = torch.clamp(x, 0.0, 1.0)
+    return torch.stack([torch.clamp(1.5 - torch.abs(4.0 * v - c), 0.0, 1.0)
+                        for c in (3.0, 2.0, 1.0)], dim=-1)
+
+
+@contextmanager
+def _no_tf32_matmul():
+    """The query's products take bf16 operands widened to f32, so they are
+    exact in f32 only without TF32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@dataclass
+class PendingFrame:
+    """A dispatched (not yet read back) frame."""
+    rgb: Any                      # [H, W, 3] f32 (or u8 composited)
+    sim: Any = None               # [H, W] f32 or None
+    composited: bool = False      # True: rgb already has the heatmap baked
+    threshold: float = 0.22
+
+
+class BackendRenderer:
+    """ZMQ server around a merged quick-render model, on `device` (CUDA
+    unless "cpu" is asked for; the model must live there)."""
+
+    def __init__(self, model: GaussianModel, *,
+                 zmq_port: int = 5555,
+                 background=(0.0, 0.0, 0.0),
+                 clip_model: OpenCLIPNetwork | None = None,
+                 znear: float = 0.01, zfar: float = 100.0,
+                 max_entries: int = 2 ** 21, tile_cap: int = 1024,
+                 bf16_cells: bool = False,
+                 tile_budget: float = 0.0, tile_budget_cap: int = 128,
+                 tile_budget_subdiv: int = 2,
+                 compose: str = "host",
+                 pose_cache: bool = True,
+                 temporal_reuse_px: float = 0.0,
+                 reuse_zref: float = 2.0,
+                 device=None):
+        self.device = resolve_device(device)
+        if model.xyz.device.type != self.device.type:
+            raise ValueError(f"the model is on {model.xyz.device}, the "
+                             f"server on {self.device}")
+        if bf16_cells:
+            raise NotImplementedError(
+                "bf16_cells belongs to a later slice of the port: ROADMAP.md "
+                "Queue 2, K2's bf16_cells")
+        if compose not in ("host", "device"):
+            raise ValueError(f"compose must be 'host' or 'device', not "
+                             f"{compose!r}")
+        if temporal_reuse_px > 0.0 and tile_budget <= 0.0:
+            raise ValueError(
+                "temporal_reuse_px needs the budget-capped serving mode "
+                "(tile_budget > 0)")
+        self.model = model
+        self.levels, self.codes = model.codebooks.shape[:2]   # L, K
+        self.background = torch.tensor(background, dtype=torch.float32,
+                                       device=self.device)
+        self.clip_model = clip_model or OpenCLIPNetwork(device=self.device)
+        self.znear, self.zfar = znear, zfar
+        self.max_entries, self.tile_cap = max_entries, tile_cap
+        self.tile_budget = tile_budget
+        self.tile_budget_cap = tile_budget_cap
+        self.tile_budget_subdiv = tile_budget_subdiv
+        # "host": cv2 JET + blend on the host (the reference's images);
+        # "device": normalization, analytic JET, blend and uint8 on the card.
+        self.compose = compose
+        self.current_prompt = ""
+        self.zmq_port = zmq_port
+        self._settings_cache: dict[tuple, RasterizeSettings] = {}
+        self._prompt_phi: dict[str, torch.Tensor] = {}
+        self._gram = None
+        self.context = self.socket = None
+        self._pool = None
+        # The pose cache: the last pose's rgb and bf16 weight map on the
+        # card; a request at the same pose (another prompt or threshold)
+        # replays them through the query and compose tail only.
+        self.pose_cache_enabled = pose_cache
+        self._pose_key: tuple | None = None   # (c2w bytes, w, h, fovy, hm)
+        self._pose_entry: dict[str, Any] | None = None
+        self._jpeg_key: bytes | None = None
+        self._jpeg_bytes: bytes | None = None
+        # Temporal binning reuse: steady frames while the estimated image
+        # motion since the bin pose stays within temporal_reuse_px; 0 turns
+        # it off (every frame bins afresh).
+        self.temporal_reuse_px = temporal_reuse_px
+        self.reuse_zref = reuse_zref
+        self._tc_cache: temporal.BinCache | None = None
+        self._tc_c2w: np.ndarray | None = None    # bin pose
+        self._tc_key: tuple | None = None          # (w, h, fovy, heatmap)
+        self.cache_hits = {"pose": 0, "jpeg": 0, "miss": 0,
+                           "steady": 0, "rebin": 0}
+
+    # -- camera (reference backend_renderer.py:130-159) --
+    def _camera(self, c2w: np.ndarray, width: int, height: int, fov_y: float):
+        fov_x = 2 * np.arctan(np.tan(fov_y / 2) * (width / height))
+        w2c = np.linalg.inv(c2w)
+        view = w2c.T.astype(np.float32)
+        proj = get_projection_matrix(self.znear, self.zfar, fov_x, fov_y).T
+        full = (view @ proj).astype(np.float32)
+        campos = c2w[:3, 3].astype(np.float32)
+        key = (width, height, round(fov_x, 9), round(fov_y, 9))
+        if key not in self._settings_cache:
+            # The fast16 serving precision. JAX also sets tile_batch=32,
+            # which only its reference rasterizer reads; the port leaves it
+            # at its default (no ported path reads it).
+            self._settings_cache[key] = RasterizeSettings(
+                image_height=height, image_width=width,
+                tanfovx=math.tan(fov_x / 2), tanfovy=math.tan(fov_y / 2),
+                sh_degree=self.model.active_sh_degree,
+                max_entries=self.max_entries, tile_cap=self.tile_cap,
+                precision="bf16", tile_budget=self.tile_budget,
+                tile_budget_cap=self.tile_budget_cap,
+                tile_budget_subdiv=self.tile_budget_subdiv)
+        return self._settings_cache[key], view, full, campos
+
+    # -- prompt constants (cached per prompt string) --
+    def _phi_gram(self, prompt: str):
+        """phi [L, K] (the codebooks folded into the normalized prompt
+        embedding) and the cross-level Gram [L, L, K, K]."""
+        cb = self.model.codebooks
+        with _no_tf32_matmul():
+            if prompt not in self._prompt_phi:
+                text = self.clip_model.encode_text([prompt])
+                text = text / torch.linalg.norm(text, dim=-1, keepdim=True)
+                self._prompt_phi[prompt] = torch.einsum("lkd,d->lk", cb,
+                                                        text[0])
+            if self._gram is None:
+                self._gram = torch.einsum("lkd,jmd->ljkm", cb, cb)
+        return self._prompt_phi[prompt], self._gram
+
+    # -- query + compose tail (the full frame and pose-cache hits) --
+    @staticmethod
+    def _query_compose(rgb, wm16, phi, gram, threshold, L, K, compose_dev):
+        """rgb [H, W, 3] f32, the bf16 weight map [L*K, H, W] and
+        `_phi_gram`'s phi [L, K] and gram [L, L, K, K] -> (the composited
+        u8 image, None) with compose_dev, else (rgb, sim [H, W]).
+        The reference sums the per-level L2-normalized features and
+        normalizes the sum against the text embedding; with f_l = C_l^T
+        wm_l that is s_l^2 = <wm_l, G_ll wm_l> and |sum_l f_l / s_l|^2 =
+        <wms, G wms> with wms = wm_l / s_l. The products take bf16 operands
+        (the map, wms rounded, the Gram blocks, phi) with f32 sums, as the
+        JAX einsums with preferred_element_type=f32."""
+        h, w = wm16.shape[1:]
+        lk = L * K
+        wm = wm16.reshape(lk, h * w).float()
+        # gram [L, L, K, K] as [L*K, L*K] (block l, j = gram[l, j]) and its
+        # diagonal blocks.
+        gf = round_bf16(gram).permute(0, 2, 1, 3).reshape(lk, lk)
+        gd = torch.block_diag(*round_bf16(
+            gram.diagonal(dim1=0, dim2=1).permute(2, 0, 1)))
+        with _no_tf32_matmul():
+            wg_d = gd.T @ wm                                   # [LK, P]
+            s2 = (wg_d * wm).reshape(L, K, h * w).sum(dim=1)   # [L, P]
+            s = torch.sqrt(torch.clamp(s2, min=0.0)) + 1e-10
+            wms = (wm.reshape(L, K, h * w) / s[:, None, :]).reshape(lk, h * w)
+            wg_f = gf.T @ round_bf16(wms)
+        nrm2 = (wg_f * wms).sum(dim=0)                         # [P]
+        num = (round_bf16(phi).reshape(lk, 1) * wms).sum(dim=0)
+        sim = (num / (torch.sqrt(torch.clamp(nrm2, min=0.0)) + 1e-10)
+               ).reshape(h, w)
+        if not compose_dev:
+            return rgb, sim
+        raw_max, raw_min = sim.max(), sim.min()
+        simn = torch.clamp((sim - raw_min) / (raw_max - raw_min + 1e-9) * 2
+                           - 1, 0, 1)
+        simn = torch.where((raw_max < threshold) | (raw_max - raw_min < 0.02),
+                           0.0, simn)
+        img = torch.clamp(rgb * 0.5 + jet_colormap(simn) * 0.5, 0.0, 1.0)
+        return (img * 255.0 + 0.5).to(torch.uint8), None
+
+    # -- a full frame (one request's render, query and compose) --
+    def _frame(self, settings, heatmap, view, full, campos, phi, gram,
+               threshold):
+        if not heatmap:
+            out = render(settings, self.model, view, full, campos,
+                         self.background, device=self.device)
+            rgb = out.render.permute(1, 2, 0)
+            return rgb, None, rgb, None
+        out = render(settings, self.model, view, full, campos,
+                     self.background, quick_render=True, device=self.device)
+        rgb = out.render.permute(1, 2, 0)
+        wm16 = out.language_feature_weight_map.to(torch.bfloat16)
+        vis, sim = self._query_compose(rgb, wm16, phi, gram, threshold,
+                                       self.levels, self.codes,
+                                       self.compose == "device")
+        return vis, sim, rgb, wm16
+
+    # -- temporal frames (ops/temporal.py) --
+    def _steady_frame(self, settings, heatmap, cache, view, full, phi, gram,
+                      threshold):
+        rgb_t, feat_t, _ = temporal.rasterize_quick_steady(
+            settings, cache, view, full, self.background,
+            quick_channels=self.levels * self.codes,
+            topk=int(self.model.quick_weights.shape[1]))
+        H, W = settings.image_height, settings.image_width
+        gx, gy = settings.grid_x, settings.grid_y
+        rgb = rasterize_tiles.tiles_to_image(rgb_t, gx, gy, H, W).permute(
+            1, 2, 0)
+        if not heatmap:
+            return rgb, None, rgb, None
+        wm16 = rasterize_tiles.tiles_to_image(feat_t.to(torch.bfloat16), gx,
+                                              gy, H, W)
+        vis, sim = self._query_compose(rgb, wm16, phi, gram, threshold,
+                                       self.levels, self.codes,
+                                       self.compose == "device")
+        return vis, sim, rgb, wm16
+
+    def _tc_dispatch(self, settings, heatmap, c2w, width, height, fov_y,
+                     view, full, campos, phi, gram, threshold):
+        """A steady frame when the estimated image motion since the bin
+        pose is within temporal_reuse_px, else bin afresh at this pose and
+        freeze the binning."""
+        geo_key = (width, height, round(fov_y, 9), heatmap)
+        fov_x = 2 * np.arctan(np.tan(fov_y / 2) * (width / height))
+        if (self._tc_cache is not None and self._tc_key == geo_key
+                and temporal.motion_px(self._tc_c2w, c2w, width, fov_x,
+                                       self.reuse_zref)
+                <= self.temporal_reuse_px):
+            self.cache_hits["steady"] += 1
+            return self._steady_frame(settings, heatmap, self._tc_cache,
+                                      view, full, phi, gram, threshold)
+        self.cache_hits["rebin"] += 1
+        m = self.model
+        self._tc_cache = temporal.quick_bin_cache(
+            settings, m.xyz, m.get_opacity(), view, full, campos,
+            scales=m.get_scaling(), rotations=m.get_rotation(),
+            shs=m.get_features(), quick_weights=m.quick_weights,
+            quick_indices=m.quick_indices, device=self.device)
+        self._tc_c2w = np.array(c2w, np.float32)
+        self._tc_key = geo_key
+        # The bin frame is the steady frame at its own pose.
+        return self._steady_frame(settings, heatmap, self._tc_cache, view,
+                                  full, phi, gram, threshold)
+
+    # -- dispatch / finalize (the double-buffering seam) --
+    def dispatch_request(self, request: dict) -> PendingFrame:
+        """Enqueue one request's work on the card; the frame is read back
+        by `finalize_frame`."""
+        c2w = np.array(request["c2w"], np.float32)
+        width, height = int(request["width"]), int(request["height"])
+        fov_y = float(request["fov_y"])
+        prompt = request.get("prompt", "")
+        threshold = float(request.get("threshold", 0.22))
+        show_heatmap = bool(request.get("show_heatmap", False))
+
+        if prompt and prompt != self.current_prompt:
+            self.clip_model.set_positives([prompt])
+            self.current_prompt = prompt
+
+        heatmap = bool(show_heatmap and self.current_prompt)
+        settings, view, full, campos = self._camera(c2w, width, height, fov_y)
+        phi = gram = None
+        if heatmap:
+            phi, gram = self._phi_gram(self.current_prompt)
+        composited = heatmap and self.compose == "device"
+
+        with torch.no_grad():
+            pose_key = (c2w.tobytes(), width, height, round(fov_y, 9),
+                        heatmap)
+            if (self.pose_cache_enabled and pose_key == self._pose_key
+                    and self._pose_entry is not None):
+                # Same pose (the prompt or threshold may differ): replay the
+                # cached blend output through the query and compose tail.
+                self.cache_hits["pose"] += 1
+                entry = self._pose_entry
+                if not heatmap:
+                    rgb, sim = entry["rgb"], None
+                else:
+                    rgb, sim = self._query_compose(
+                        entry["rgb"], entry["wm16"], phi, gram, threshold,
+                        self.levels, self.codes, self.compose == "device")
+                return PendingFrame(rgb=rgb, sim=sim, composited=composited,
+                                    threshold=threshold)
+
+            if self.temporal_reuse_px > 0.0:
+                vis, sim, raw_rgb, wm16 = self._tc_dispatch(
+                    settings, heatmap, c2w, width, height, fov_y, view, full,
+                    campos, phi, gram, threshold)
+            else:
+                self.cache_hits["miss"] += 1
+                vis, sim, raw_rgb, wm16 = self._frame(
+                    settings, heatmap, view, full, campos, phi, gram,
+                    threshold)
+        if self.pose_cache_enabled:
+            self._pose_key = pose_key
+            self._pose_entry = {"rgb": raw_rgb, "wm16": wm16}
+        return PendingFrame(rgb=vis, sim=sim, composited=composited,
+                            threshold=threshold)
+
+    def finalize_frame(self, pending: PendingFrame,
+                       as_uint8: bool = False) -> np.ndarray:
+        """Read the frame back: the [H, W, 3] image, float in [0, 1] or
+        uint8 with as_uint8."""
+        rgb = pending.rgb.cpu().numpy()
+        if pending.composited:
+            return rgb if as_uint8 else rgb.astype(np.float32) / 255.0
+        if pending.sim is None:
+            final_img = np.clip(rgb, 0, 1)
+        else:
+            sim = pending.sim
+            raw_max = sim.max()
+            range_val = raw_max - sim.min()
+            if raw_max < pending.threshold or range_val < 0.02:
+                sim = torch.zeros_like(sim)
+            else:
+                sim = apply_langsplat_normalization(sim)
+            import cv2
+
+            heat = cv2.applyColorMap(
+                (sim.cpu().numpy() * 255).astype(np.uint8), cv2.COLORMAP_JET)
+            heat = cv2.cvtColor(heat, cv2.COLOR_BGR2RGB) / 255.0
+            final_img = np.clip(rgb * 0.5 + heat * 0.5, 0, 1)
+        if as_uint8:
+            return (final_img * 255).astype(np.uint8)
+        return final_img
+
+    def render_request(self, request: dict) -> np.ndarray:
+        """One request dict -> [H, W, 3] float image in [0, 1]."""
+        return self.finalize_frame(self.dispatch_request(request))
+
+    @staticmethod
+    def _encode_jpeg(img_u8: np.ndarray) -> bytes:
+        import cv2
+
+        _, buffer = cv2.imencode(
+            ".jpg", cv2.cvtColor(img_u8, cv2.COLOR_RGB2BGR))
+        return buffer.tobytes()
+
+    def run(self):
+        """The reference's REQ/REP loop: one frame in flight."""
+        import zmq
+
+        self.context = zmq.Context()
+        self.socket = self.context.socket(zmq.REP)
+        self.socket.bind(f"tcp://*:{self.zmq_port}")
+        print(f"Backend Renderer listening on port {self.zmq_port}")
+
+        while True:
+            try:
+                message = self.socket.recv()
+                # A byte-identical request: resend the last JPEG.
+                if (self.pose_cache_enabled and message == self._jpeg_key
+                        and self._jpeg_bytes is not None):
+                    self.cache_hits["jpeg"] += 1
+                    self.socket.send(self._jpeg_bytes)
+                    continue
+                request = json.loads(message)
+                img = self.finalize_frame(self.dispatch_request(request),
+                                          as_uint8=True)
+                jpeg = self._encode_jpeg(img)
+                if self.pose_cache_enabled:
+                    self._jpeg_key, self._jpeg_bytes = message, jpeg
+                self.socket.send(jpeg)
+            except KeyboardInterrupt:
+                break
+            except Exception:
+                traceback.print_exc()
+                self.socket.send(b"ERROR")
+
+    def _finalize_pool(self):
+        """One worker thread for the read-back and the JPEG encode, so the
+        serving loop dispatches frame N+1 while frame N is read back; one
+        worker keeps the frames in order."""
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="lsv2-finalize")
+        return self._pool
+
+    def finalize_async(self, pending: PendingFrame):
+        """Submit finalize + encode to the worker thread; a Future of the
+        JPEG bytes."""
+        def work():
+            img = self.finalize_frame(pending, as_uint8=True)
+            return self._encode_jpeg(img)
+
+        return self._finalize_pool().submit(work)
+
+    def run_pipelined(self, depth: int = 2):
+        """A ROUTER loop with up to `depth` requests in flight (clients:
+        serve.frontend.PipelinedClient); the reply order is the request
+        order."""
+        import zmq
+
+        self.context = zmq.Context()
+        self.socket = self.context.socket(zmq.ROUTER)
+        self.socket.bind(f"tcp://*:{self.zmq_port}")
+        print(f"Backend Renderer (pipelined x{depth}) on {self.zmq_port}")
+
+        inflight: list[tuple[bytes, Any]] = []   # (ident, Future|bytes|None)
+        while True:
+            try:
+                # Reply with the oldest frame when the pipeline is full, or
+                # when nothing new waits.
+                if inflight and (len(inflight) >= depth
+                                 or not self.socket.poll(0)):
+                    ident, item = inflight.pop(0)
+                    if item is None:
+                        self.socket.send_multipart([ident, b"", b"ERROR"])
+                    elif isinstance(item, bytes):      # JPEG-cache hit
+                        self.socket.send_multipart([ident, b"", item])
+                    else:                              # (future, message)
+                        fut, message = item
+                        jpeg = fut.result()
+                        if self.pose_cache_enabled:
+                            self._jpeg_key = message
+                            self._jpeg_bytes = jpeg
+                        self.socket.send_multipart([ident, b"", jpeg])
+                    continue
+                if self.socket.poll(100 if inflight else None) == 0:
+                    continue
+                ident, _empty, message = self.socket.recv_multipart()
+                if (self.pose_cache_enabled and message == self._jpeg_key
+                        and self._jpeg_bytes is not None):
+                    self.cache_hits["jpeg"] += 1
+                    inflight.append((ident, self._jpeg_bytes))
+                    continue
+                try:
+                    pf = self.dispatch_request(json.loads(message))
+                    inflight.append(
+                        (ident, (self.finalize_async(pf), message)))
+                except Exception:
+                    traceback.print_exc()
+                    inflight.append((ident, None))
+            except KeyboardInterrupt:
+                break

@@ -230,3 +230,73 @@ def test_feature_bwd_topk_kernel_matches_plain(cuda, t_budget, cap):
     dead = (torch.arange(cap, device=cuda)[None, :]
             >= kept[:, None]).reshape(-1)
     assert float(out[dead].abs().max()) == 0.0
+
+
+def _fast16_case(dev):
+    proj, ops, gx, gy = _case(dev)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    qw, qi = quick_pairs(ops.shape[0])
+    qw = torch.as_tensor(qw, device=dev)
+    qi = torch.as_tensor(qi.astype(np.int32), device=dev)
+    return proj, ops, qw, qi, g, start, count, gx, gy
+
+
+@pytest.mark.parametrize("pq", [1, 5, 16])
+def test_fused_query_kernel_matches_plain(cuda, pq):
+    """K2q against its plain version, with tile 0 emptied: rgb and final T
+    atol 3e-5, raw and nrm2 within 1e-5 of their largest (bf16 products,
+    exact in f32, summed in another order)."""
+    proj, ops, qw, qi, g, start, count, gx, gy = _fast16_case(cuda)
+    count = count.clone()
+    count[0] = 0
+    rows = blend.pack_fast16_rows(proj.xy, proj.conic, ops, proj.rgb, qw, qi)
+    gen = torch.Generator(device=cuda).manual_seed(pq)
+    cb = torch.randn(3, 64, 512, device=cuda, generator=gen)
+    phr = torch.randn(pq, 512, device=cuda, generator=gen)
+    phi = torch.einsum("lkd,pd->lkp", cb, phr).contiguous()
+    gram = torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    args = (g, start, count, rows, bg, gx)
+    before = blend.blend_tiles_query.launches
+    out = blend.blend_tiles_query(*args, gy, 12, phi, gram)
+    assert blend.blend_tiles_query.launches == before + 1
+    ref = blend.blend_tiles_query_plain(*args, 12, phi, gram)
+    assert out[1].shape == (gx * gy, 256, 3 * pq)
+    for i in (0, 3):
+        torch.testing.assert_close(out[i], ref[i], atol=3e-5, rtol=0)
+    for i in (1, 2):
+        scale = float(ref[i].abs().max())
+        assert scale > 0
+        torch.testing.assert_close(out[i] / scale, ref[i] / scale,
+                                   atol=1e-5, rtol=0)
+    assert float(out[1][0].abs().max()) == 0.0       # the empty tile
+    assert bool((out[3][0] == 1.0).all())
+
+
+def test_blend_kernels_skip_non_finite_rows(cuda):
+    """K2 (f32 and fast16) on rows whose xy or conic is NaN or +-inf, as a
+    re-projected steady-frame entry near depth 0 may have: the kernel skips
+    a pair whose power is NaN, as its plain version does (atol 3e-5)."""
+    proj, ops, qw, qi, g, start, count, gx, gy = _fast16_case(cuda)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    n = geom.shape[0]
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                            device=cuda)
+    bad = torch.arange(0, n, 7, device=cuda)
+    field = bad % 5                                 # x y ca cb cc
+    geom[bad, field] = specials[bad % 3]
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    out = blend.blend_tiles(g, start, count, geom, bg, gx, gy, qw, qi, 192)
+    ref = blend.blend_tiles_plain(g, start, count, geom, bg, gx, qw, qi, 192)
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    rows = blend.pack_fast16_rows(geom[:, 0:2], geom[:, 2:5], geom[:, 5],
+                                  geom[:, 6:9], qw, qi)
+    args = (g, start, count, rows, bg, gx)
+    out = blend.blend_tiles_fast16(*args, gy, 12, 192, feat_bf16=False)
+    ref = blend.blend_tiles_fast16_plain(*args, 12, 192, False)
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)

@@ -227,7 +227,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     (dict(impl="xla"), {}),
     ({}, dict(features=np.zeros((4, 64), np.float32))),
     ({}, dict(features=np.zeros((4, 64), np.float32), quick_train=True)),
-    ({}, dict(cov3d_precomp=np.zeros((4, 6), np.float32))),
+    (dict(tile_batch=32), {}),
     (dict(tile_batch=8), {}),
     (dict(bf16_cells=True), {}),
     (dict(bf16_cells=True, precision="bf16"),

@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
                                                      get_world_to_view)
@@ -74,3 +75,10 @@ def model_fields(n: int, seed: int = 0, levels: int = 3, k: int = 64,
         quick_weights=qw,
         quick_indices=qi,
     )
+
+
+def within_one_bf16_ulp(a, b, slack):
+    """|a - b| <= one bf16 ulp of b + slack, elementwise."""
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30))) - 7)
+    return bool(((a - b).abs() <= ulp + slack).all())
