@@ -100,10 +100,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    (kept equal, rgb atol 1e-6); prints the relevancy error and mask IoU of
    fused steady frames against fresh fused frames at 1-16 px, and holds
    K2q against its plain version on one of them.
+14. dense features (K2's dense mode, the dense VJP): (a) on a reduced
+   scene (50k Gaussians, 272x480) K2 dense against its plain version at
+   D = 64, 192 and 256 (two channel groups), atol 3e-5, and K4 at C = 192
+   (1e-5 of its largest); (b) on phase 7's training scene,
+   get_render_weights(4) -> rasterize(features=..., impl="pallas") and the
+   backward of <map, seeded cotangent> for 20 steps, the launch counters
+   zeroed just before and read just after (K1, K2 dense and K4 on every
+   step), d(features) on each Gaussian's top-4 against the quick_train
+   route's d(quick_weights) (1e-5 of the largest), K2 dense and K4 on one
+   step's inputs timed beside their bounds; (c) on phase 4's scene at both
+   loads, the dense map of the scattered quick pairs (D = 192) against the
+   f32 quick frame (1e-5), K2 dense timed;
+15. bf16 cell math on phase 10's scene and budgets: phases 10's and 12's
+   frames with bf16_cells at both loads, exact and capped, 5 each, counted
+   (K1, fast16 K2, K2q, bf16 K3 on every frame); relevancy mask IoU >= 0.95
+   against the f32-cell frames; fast16 K2 and K2q with bf16 cells against
+   their plain versions on each frame's own inputs at the fast16 contract
+   (phase 10's and 12's limits), and each output of the cells further from
+   the f32 cells' than ten times that limit, timed; phase 13's requests
+   through BackendRenderer(bf16_cells=True);
+16. the cascade binner: K8 on a reduced scene (phase 3's) against its plain
+   version and the sort binning's segments (equal); at both loads of phase
+   4's scene, 5 cascade frames each, counted (K8, K2 and K3 on every frame,
+   K1 never), each equal to phase 4's frame bit for bit, K8 against its
+   plain version and the sort segments (equal) and timed beside the sort
+   stage (K1 + key sort), K2 on its segments timed, and an overflow probe
+   (budget half the kept total: the flag set, the total within it).
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
-phases 3, 5, 8 and 9; for K4 and K6 of phases 6 and 7; for K7 of phases 8
-and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for bf16
-K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13) and, last,
+phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
+phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
+bf16 K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13; for
+K2 dense of phase 14, for the bf16-cell modes of phase 15, for K8 (entries
+that differ, 0) and K2 on its segments of phase 16) and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -126,7 +155,7 @@ from langsplatv2_tpu_torch.models.gaussians import (create_from_pcd,
                                                     from_numpy_params,
                                                     init_language_features)
 from langsplatv2_tpu_torch.models.renderer import make_settings, render
-from langsplatv2_tpu_torch.ops import (blend, expand, gram, kernels,
+from langsplatv2_tpu_torch.ops import (blend, cascade, expand, gram, kernels,
                                        projection, query, rasterize_tiles,
                                        rgb_train, temporal, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
@@ -180,6 +209,19 @@ KERNELS = {
                "langsplatv2_tpu/ops/pallas_query.py:92"),
     "K2q": ("blend_tiles_query", "langsplatv2_tpu_torch/csrc/blend.cu",
             "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K2dense": ("blend_tiles_dense", "langsplatv2_tpu_torch/csrc/blend.cu",
+                "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K2f16cells": ("blend_tiles_fast16[bf16_cells]",
+                   "langsplatv2_tpu_torch/csrc/blend.cu",
+                   "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K2qcells": ("blend_tiles_query[bf16_cells]",
+                 "langsplatv2_tpu_torch/csrc/blend.cu",
+                 "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K8": ("cascade_binning", "langsplatv2_tpu_torch/csrc/cascade.cu",
+           "langsplatv2_tpu/ops/pallas_cascade.py:376"),
+    "K2comb": ("blend_tiles[cascade segments]",
+               "langsplatv2_tpu_torch/csrc/blend.cu",
+               "langsplatv2_tpu/ops/pallas_blend.py:695"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -221,6 +263,22 @@ SERVE_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
                   "K2q": blend.blend_tiles_query,
                   "K3": query.query_map_tiles,
                   "K3bf16": query.query_map_tiles_bf16}
+# Phases 14-16: dense features, bf16 cell math, the cascade binner.
+DENSE_WRAPPERS = {"K1": expand.expand_entries,
+                  "K2dense": blend.blend_tiles_dense,
+                  "K4": train.feature_grads}
+DENSE_WIDTHS = (64, 192, 256)          # 256: two channel groups
+CELLS_WRAPPERS = {"K1": expand.expand_entries,
+                  "K2f16": blend.blend_tiles_fast16,
+                  "K2q": blend.blend_tiles_query,
+                  "K3bf16": query.query_map_tiles_bf16}
+# bf16 cells: the map (K2q: the scores, of their largest) must differ
+# from the f32 cells' by more than this many times the kernel-vs-plain
+# limit, or the kernel did not run the cell math.
+CELLS_EFFECT = 10.0
+CASCADE_WRAPPERS = {"K1": expand.expand_entries,
+                    "K8": cascade.cascade_binning, "K2": blend.blend_tiles,
+                    "K3": query.query_map_tiles}
 SERVE_LOAD = "986x728"                 # the server's load (bench.py:1013)
 SERVE_REQUESTS = 24
 REUSE_PX = 4.0
@@ -1276,28 +1334,40 @@ def fast16_inputs(model, s, view, pm, dev) -> dict:
                 distinct=int(torch.unique(ids).numel()))
 
 
-def check_fast16(x, s, timed: bool) -> dict:
-    """fast16 K2 on one frame's inputs against its plain version: outputs
-    before the bf16 rounding (feat_bf16 off) atol 3e-5; the bf16 tiles and
-    rounded colour within one bf16 ulp of the plain version's, final T
-    atol 3e-5. With `timed`, its time (feat_bf16 on, as served), the plain
-    version's and its bound for this data."""
+def check_fast16(x, s, timed: bool, cells: bool = False) -> dict:
+    """fast16 K2 (level bands on, as the frames run it) on one frame's
+    inputs against its plain version: outputs before the bf16 rounding
+    (feat_bf16 off) atol 3e-5; the bf16 tiles and rounded colour within
+    one bf16 ulp of the plain version's, final T atol 3e-5. With `cells`
+    (bf16 cell math) the same limits, and the map further from the f32
+    cells' map than CELLS_EFFECT times 3e-5. With `timed`, its time
+    (feat_bf16 on, as served), the plain version's and its bound for this
+    data."""
     gx, gy = s.grid_x, s.grid_y
     args = (x["g"], x["start"], x["count"], x["rows"], x["bg"], gx)
-    out = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, False)
-    ref = blend.blend_tiles_fast16_plain(*args, L * TOPK, L * K, False)
+    out = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, False,
+                                   cells_bf16=cells)
+    ref = blend.blend_tiles_fast16_plain(*args, L * TOPK, L * K, False,
+                                         cells_bf16=cells)
     err = max_diff(zip(out, ref))
-    if not err <= 3e-5:
-        fail(f"fast16 K2 (f32 outputs) differs from its plain version by "
-             f"{err} (atol 3e-5)")
+    r = dict(f32_out_err=err)
+    if cells:
+        f32 = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, False)
+        r["vs_f32_cells"] = float((out[1] - f32[1]).abs().max())
+        del f32
+    if not (err <= 3e-5 and (not cells
+                             or r["vs_f32_cells"] > CELLS_EFFECT * 3e-5)):
+        fail(f"fast16 K2 (f32 outputs, cells {cells}) differs from its "
+             f"plain version by {err} (atol 3e-5), or the cells from the "
+             f"f32 cells by only {r.get('vs_f32_cells')}")
     del out, ref
     stats = torch.zeros(2, dtype=torch.int64, device=x["g"].device)
     k2 = lambda: blend.blend_tiles_fast16(  # noqa: E731
-        *args, gy, L * TOPK, L * K, True)
+        *args, gy, L * TOPK, L * K, True, cells_bf16=cells)
     k2_plain = lambda: blend.blend_tiles_fast16_plain(  # noqa: E731
-        *args, L * TOPK, L * K, True)
+        *args, L * TOPK, L * K, True, cells_bf16=cells)
     out = blend.blend_tiles_fast16(*args, gy, L * TOPK, L * K, True,
-                                   stats=stats)
+                                   stats=stats, cells_bf16=cells)
     ref = k2_plain()
     ulps = 0.0
     for a, b in zip(out[:2], ref[:2]):
@@ -1307,9 +1377,9 @@ def check_fast16(x, s, timed: bool) -> dict:
         ulps = max(ulps, float(((a - b).abs() / ulp).max()))
     t_err = float((out[2] - ref[2]).abs().max())
     if not (ulps <= 1.0 and t_err <= 3e-5):
-        fail(f"fast16 K2 (bf16 outputs) differs from its plain version: "
-             f"{ulps} ulp, final T {t_err}")
-    r = dict(max_abs_err=err, bf16_ulps=ulps, t_err=t_err,
+        fail(f"fast16 K2 (bf16 outputs, cells {cells}) differs from its "
+             f"plain version: {ulps} ulp, final T {t_err}")
+    r.update(max_abs_err=max(err, t_err), bf16_ulps=ulps, t_err=t_err,
              pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]),
              distinct_gaussians=x["distinct"])
     del out, ref
@@ -2130,6 +2200,564 @@ def gram_inputs(model, cam, s, dev):
             torch.ones((), device=dev))
 
 
+# ------------------------------------------------ phase 14: dense features
+
+def dense_inputs(model, s, view, pm, campos, dev) -> dict:
+    """What K2's dense mode gets in a dense frame of settings `s` (the
+    calls of rasterize(features=...) with impl="pallas": the preprocess,
+    the sort binning without the live clamp, the f32 state)."""
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    with torch.no_grad():
+        op = model.get_opacity()[:, 0].contiguous()
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(view), T(pm), T(campos),
+            s.tanfovx, s.tanfovy, s.image_width, s.image_height,
+            model.active_sh_degree, opacities=op)
+        g, start, count, total, _ = sorted_binning(
+            s._replace(live_entries=0), proj, op)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+    covered = int(count.sum())
+    return dict(g=g, start=start, count=count, geom=geom, total=int(total),
+                covered=covered, bg=torch.zeros(3, device=dev),
+                distinct=int(torch.unique(g[:covered]).numel()))
+
+
+def image_to_tiles(img, grid_x: int, grid_y: int):
+    """[C, H, W] -> [T, 256, C] row-major tiles, zero past the image (the
+    inverse of rasterize_tiles.tiles_to_image: the map's cotangent as K4
+    reads it)."""
+    c, h, w = img.shape
+    pad = torch.zeros((c, grid_y * 16, grid_x * 16), device=img.device)
+    pad[:, :h, :w] = img
+    return pad.reshape(c, grid_y, 16, grid_x, 16).permute(
+        1, 3, 2, 4, 0).reshape(grid_x * grid_y, 256, c).contiguous()
+
+
+def dense_bound(x, n_tiles: int, d: int, n_eval: int,
+                n_inc: int) -> tuple[float, str]:
+    """K2 dense: g ids and ranges, a distinct Gaussian's 36-byte state and
+    D-float row, rgb, the [T, 256, D] map and T written; 14 operations an
+    evaluated pair, 3 + 2 (3 + D) an included one."""
+    return bound(x["covered"] * 4 + n_tiles * 8
+                 + x["distinct"] * (36 + 4 * d)
+                 + n_tiles * 256 * (3 + d + 1) * 4,
+                 n_eval * BLEND_ALPHA_FLOPS + n_inc * (3 + 2 * (3 + d)))
+
+
+def check_dense(x, gx: int, gy: int, feats, timed: bool) -> dict:
+    """K2 dense against its plain version (atol 3e-5); with `timed`, its
+    time, the plain version's and its bound."""
+    args = (x["g"], x["start"], x["count"], x["geom"])
+    stats = torch.zeros(2, dtype=torch.int64, device=feats.device)
+    out = blend.blend_tiles_dense(*args, feats, x["bg"], gx, gy, stats=stats)
+    ref = blend.blend_tiles_dense_plain(*args, feats, x["bg"], gx)
+    r = dict(max_abs_err=max_diff(zip(out, ref)), channels=feats.shape[1],
+             groups=len(blend.dense_groups(feats.shape[1])),
+             pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]))
+    del out, ref
+    if not r["max_abs_err"] <= 3e-5:
+        fail(f"K2 dense differs from its plain version: {r}")
+    if timed:
+        r["ms"] = cuda_ms(lambda: blend.blend_tiles_dense(
+            *args, feats, x["bg"], gx, gy), 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: blend.blend_tiles_dense_plain(
+            *args, feats, x["bg"], gx), 1)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = dense_bound(
+            x, gx * gy, feats.shape[1], r["pairs_evaluated"],
+            r["pairs_included"])
+    return r
+
+
+def check_k4_dense(x, gx: int, gy: int, cot, timed: bool) -> dict:
+    """K4 on a dense cotangent against its plain version (1e-5 of the
+    largest); with `timed`, its time, the plain version's and its bound
+    (counted as phase 7 counts K4's)."""
+    args = (x["g"], x["start"], x["count"], x["geom"], cot)
+    out = train.feature_grads(*args, gx, gy)
+    ref = train.feature_grads_plain(*args, gx)
+    err = normalized_err(out, ref)
+    r = dict(max_abs_err=err[0], rel_err=err[1], channels=cot.shape[2])
+    del out, ref
+    if not err[1] <= 1e-5:
+        fail(f"K4 at C = {cot.shape[2]} differs from its plain version: {r}")
+    if timed:
+        c = cot.shape[2]
+        stats = torch.zeros(2, dtype=torch.int64, device=cot.device)
+        blend.blend_tiles(x["g"], x["start"], x["count"], x["geom"],
+                          x["bg"], gx, gy, stats=stats)
+        r["ms"] = cuda_ms(lambda: train.feature_grads(*args, gx, gy), 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: train.feature_grads_plain(*args, gx),
+                                1)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = bound(
+            x["covered"] * 4 + gx * gy * 8 + x["distinct"] * 24
+            + cot.numel() * 4 + x["covered"] * c * 4,
+            int(stats[0]) * BLEND_ALPHA_FLOPS + int(stats[1]) * (3 + 2 * c),
+            F32_TENSOR_FLOPS)
+    return r
+
+
+def dense_path(dev) -> dict:
+    """Phase 14 (a) and (b): K2 dense and K4 on a reduced scene, then the
+    dense feature step on phase 7's training scene."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    model, _ = train_scene(50_000, 1, dev)
+    cam = train_cameras("small", (0.0,), 272, 480)[0]
+    s = make_settings(cam, 0, 1.0, 1 << 20, impl="pallas")
+    x = dense_inputs(model, s, cam.world_view_transform,
+                     cam.full_proj_transform, cam.camera_center, dev)
+    reduced = {}
+    for d in DENSE_WIDTHS:
+        feats = torch.rand(model.xyz.shape[0], d, device=dev, generator=gen)
+        reduced[d] = check_dense(x, s.grid_x, s.grid_y, feats, timed=False)
+    cot = torch.randn(s.grid_x * s.grid_y, 256, 192, device=dev,
+                      generator=gen)
+    reduced["K4 C=192"] = check_k4_dense(x, s.grid_x, s.grid_y, cot, False)
+    log(f"reduced dense: {reduced}")
+    del model, x, cot
+
+    model, _ = train_scene(TRAIN_N, 0, dev)
+    model.language_logits.requires_grad_(True)
+    cams = train_cameras("cam", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W)
+    max_entries = 2 ** 21
+    settings = [make_settings(c, 0, 1.0, max_entries, impl="pallas")
+                for c in cams]
+    cots = [torch.randn(TRAIN_K, TRAIN_H, TRAIN_W, device=dev, generator=gen)
+            for _ in cams]
+    zero3 = np.zeros(3, np.float32)
+
+    def step(i, features=None):
+        c, si = cams[i % len(cams)], settings[i % len(cams)]
+        w = model.get_render_weights(TRAIN_TOPK) if features is None \
+            else features
+        out = rasterize(si, model.xyz, model.get_opacity(),
+                        c.world_view_transform, c.full_proj_transform,
+                        c.camera_center, zero3, scales=model.get_scaling(),
+                        rotations=model.get_rotation(),
+                        shs=model.get_features(), features=w, device=dev)
+        loss = (out.feature_map * cots[i % len(cams)]).sum()
+        loss.backward()
+        return out, loss
+
+    step_ms, totals = [], []
+    zero_counts(DENSE_WRAPPERS)
+    for i in range(TRAIN_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, loss = step(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        totals.append(int(out.total_entries))
+        if not (math.isfinite(float(loss.detach()))
+                and bool(torch.isfinite(model.language_logits.grad).all())):
+            fail(f"dense step {i}: non-finite loss or gradient")
+        model.language_logits.grad = None
+    launches = read_counts(DENSE_WRAPPERS)
+    log(f"dense feature steps: {TRAIN_ITERS} at {TRAIN_H}x{TRAIN_W}, median "
+        f"{statistics.median(step_ms):.3f} ms (host clock); launches "
+        f"{launches}; total_entries {max(totals)} of {max_entries}")
+    if not all(v == TRAIN_ITERS for v in launches.values()):
+        fail(f"a kernel of the dense step missed a step: {launches}")
+    if max(totals) >= max_entries:
+        fail("a dense step saturated its entry budget")
+
+    # One step's d(features), projected on each Gaussian's top-4, against
+    # the quick_train route's d(quick_weights) on the same camera.
+    w = model.get_render_weights(TRAIN_TOPK).detach().requires_grad_(True)
+    step(0, w)
+    qw, qi = model.get_weights_and_indices(TRAIN_TOPK)
+    qw = qw.detach().contiguous().requires_grad_(True)
+    c = cams[0]
+    out_q = rasterize(settings[0], model.xyz, model.get_opacity(),
+                      c.world_view_transform, c.full_proj_transform,
+                      c.camera_center, zero3, scales=model.get_scaling(),
+                      rotations=model.get_rotation(),
+                      shs=model.get_features(), quick_weights=qw,
+                      quick_indices=qi, quick_channels=TRAIN_K,
+                      quick_train=True, device=dev)
+    (out_q.feature_map * cots[0]).sum().backward()
+    vs_quick = normalized_err(w.grad.gather(1, qi.long()), qw.grad)
+    log(f"dense d(features) on the top-4 vs quick_train d(quick_weights): "
+        f"{vs_quick}")
+    if not vs_quick[1] <= 1e-5:
+        fail(f"the dense gradient differs from the quick route's: "
+             f"{vs_quick}")
+    x = dense_inputs(model, settings[0], c.world_view_transform,
+                     c.full_proj_transform, c.camera_center, dev)
+    k2 = check_dense(x, settings[0].grid_x, settings[0].grid_y,
+                     w.detach().contiguous(), timed=True)
+    k4 = check_k4_dense(x, settings[0].grid_x, settings[0].grid_y,
+                        image_to_tiles(cots[0], settings[0].grid_x,
+                                       settings[0].grid_y), timed=True)
+    for k, v in (("K2dense", k2), ("K4", k4)):
+        log(f"dense step {k}: " + ", ".join(f"{a} {b!r}"
+                                            for a, b in v.items()))
+    return dict(reduced=reduced, step_ms_median=statistics.median(step_ms),
+                step_ms=step_ms, launches=launches, vs_quick=vs_quick,
+                kernels={"K2dense": k2, "K4": k4})
+
+
+def dense_serving(model, plans, dev) -> dict:
+    """Phase 14 (c): at both loads, the dense map of the scattered quick
+    pairs (D = 192, impl="pallas") against the f32 quick frame (1e-5),
+    and K2 dense timed at D = 192 beside its bound."""
+    zero3 = np.zeros(3, np.float32)
+    n = model.xyz.shape[0]
+    feats = torch.zeros(n, L * K, device=dev).scatter_add_(
+        1, model.quick_indices.long(), model.quick_weights)
+    res = {}
+    for name, (s, view, pm) in plans.items():
+        common = dict(scales=model.get_scaling(),
+                      rotations=model.get_rotation(),
+                      shs=model.get_features(), device=dev)
+        with torch.no_grad():
+            sa = s._replace(assemble=True)
+            dense = rasterize(sa._replace(impl="pallas"), model.xyz,
+                              model.get_opacity(), view, pm, zero3, zero3,
+                              features=feats, **common)
+            quick = rasterize(sa, model.xyz, model.get_opacity(), view, pm,
+                              zero3, zero3, quick_weights=model.quick_weights,
+                              quick_indices=model.quick_indices,
+                              quick_channels=L * K, **common)
+            err = max_diff([(dense.feature_map, quick.feature_map),
+                            (dense.rgb, quick.rgb),
+                            (dense.final_transmittance,
+                             quick.final_transmittance)])
+        del dense, quick
+        if not err <= 1e-5:
+            fail(f"{name}: the dense map of the quick pairs differs from the "
+                 f"quick frame by {err}")
+        x = dense_inputs(model, s, view, pm, zero3, dev)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        args = (x["g"], x["start"], x["count"], x["geom"], feats, x["bg"],
+                s.grid_x, s.grid_y)
+        blend.blend_tiles_dense(*args, stats=stats)
+        r = dict(vs_quick_frame=err, ms=cuda_ms(
+            lambda: blend.blend_tiles_dense(*args), 3)[0])
+        r["bound_ms"], r["bound_by"] = dense_bound(
+            x, s.grid_x * s.grid_y, L * K, int(stats[0]), int(stats[1]))
+        res[name] = r
+        log(f"{name} dense D=192: {r}")
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------- phase 15: bf16 cell math
+
+def check_query_cells(x, s, consts, timed: bool) -> dict:
+    """K2q with bf16 cells against its plain version at K2q's limits (rgb
+    and T atol 3e-5, raw and nrm2 1e-5 of their largest), and its raw
+    scores further from the f32 cells' than CELLS_EFFECT times 1e-5 of
+    their largest; with `timed`, its time, the plain version's and its
+    bound (K2q's)."""
+    gx, gy = s.grid_x, s.grid_y
+    phi, gram = consts
+    seg = (x["g"], x["start"], x["count"], x["rows"], x["bg"])
+    stats = torch.zeros(2, dtype=torch.int64, device=x["g"].device)
+    out = blend.blend_tiles_query(*seg, gx, gy, L * TOPK, phi, gram,
+                                  stats=stats, cells_bf16=True)
+    ref = blend.blend_tiles_query_plain(*seg, gx, L * TOPK, phi, gram,
+                                        cells_bf16=True)
+    f32 = blend.blend_tiles_query(*seg, gx, gy, L * TOPK, phi, gram)
+    r = dict(max_abs_err=max_diff(zip(out, ref)),
+             rgb_t_err=max(float((out[i] - ref[i]).abs().max())
+                           for i in (0, 3)),
+             raw_nrm2_rel=max(normalized_err(out[i], ref[i])[1]
+                              for i in (1, 2)),
+             vs_f32_cells_rel=normalized_err(out[1], f32[1])[1],
+             pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]))
+    del out, ref, f32
+    if not (r["rgb_t_err"] <= 3e-5 and r["raw_nrm2_rel"] <= 1e-5
+            and r["vs_f32_cells_rel"] > CELLS_EFFECT * 1e-5):
+        fail(f"K2q with bf16 cells differs from its plain version, or its "
+             f"scores too little from the f32 cells': {r}")
+    if timed:
+        r["ms"] = cuda_ms(lambda: blend.blend_tiles_query(
+            *seg, gx, gy, L * TOPK, phi, gram, cells_bf16=True), 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: blend.blend_tiles_query_plain(
+            *seg, gx, L * TOPK, phi, gram, cells_bf16=True), 1)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = query_bound(
+            x, gx * gy, phi.shape[2], r["pairs_evaluated"],
+            r["pairs_included"])
+    return r
+
+
+def bf16_cells_serving(model, clip, consts, plans, ref_ms, dev) -> dict:
+    """Phase 15: phase 10's and 12's frames with bf16_cells at both loads,
+    exact and capped (counted), each against its f32-cell frame
+    (relevancy mask IoU >= 0.95), fast16 K2 and K2q with bf16 cells
+    against their plain versions on each frame's own inputs, and one
+    server run of phase 13's requests with bf16_cells."""
+    zero_counts(CELLS_WRAPPERS)
+    runs = {}
+    for name, (s, view, pm) in plans.items():
+        for variant, sv in bf16_variants(s).items():
+            sc = sv._replace(bf16_cells=True)
+            times = {"frame": [], "fused": []}
+            for _ in range(FRAMES):
+                for kind, fn in (("frame", frame), ("fused", query_frame)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, _ = fn(model, sc, view, pm, clip, consts, dev)
+                    torch.cuda.synchronize()
+                    times[kind].append((time.perf_counter() - t0) * 1e3)
+                    if kind == "frame":
+                        wm = out.language_feature_weight_map
+                    else:
+                        fused = out
+            runs[name, variant] = (sv, wm, fused[1], fused[2], times)
+    launches = read_counts(CELLS_WRAPPERS)
+    n = FRAMES * len(runs)
+    log(f"launches on the bf16-cell frames ({n} + {n} fused): {launches}")
+    if not (launches["K1"] == 2 * n and launches["K2f16"] == n
+            and launches["K2q"] == n and launches["K3bf16"] == n):
+        fail(f"a kernel of the bf16-cell frames missed a frame: {launches}")
+
+    results = {}
+    for (name, variant), (sv, wm, raw, nrm2, times) in runs.items():
+        s, view, pm = plans[name]
+        with torch.no_grad():
+            ref_out, _ = frame(model, sv, view, pm, clip, consts, dev)
+            ref_q, _ = query_frame(model, sv, view, pm, clip, consts, dev)
+        masks = [relevancy_mask(*query.query_map_tiles(m, *consts))
+                 for m in (wm, ref_out.language_feature_weight_map)]
+        fmasks = [relevancy_mask(raw, nrm2), relevancy_mask(ref_q[1],
+                                                            ref_q[2])]
+        iou = [int((a & b).sum()) / int((a | b).sum())
+               if bool((a | b).any()) else 1.0 for a, b in (masks, fmasks)]
+        del masks, fmasks, ref_out, ref_q
+        if not (min(iou) >= 0.95 and bool(torch.isfinite(
+                wm.float()).all()) and bool(torch.isfinite(raw).all())):
+            fail(f"{name} {variant}: bf16 cells IoU {iou} below 0.95 or "
+                 "non-finite outputs")
+        x = fast16_inputs(model, sv, view, pm, dev)
+        timed = variant == "exact"
+        r = dict(frame_ms_median=statistics.median(times["frame"]),
+                 fused_ms_median=statistics.median(times["fused"]),
+                 f32_cells_frame_ms=ref_ms[name][variant],
+                 relevancy_iou=iou[0], fused_relevancy_iou=iou[1],
+                 K2f16cells=check_fast16(x, sv, timed, cells=True),
+                 K2qcells=check_query_cells(x, sv, consts, timed))
+        results.setdefault(name, {})[variant] = r
+        del x
+        log(f"{name} bf16 cells {variant}: frame "
+            f"{r['frame_ms_median']:.3f} ms, fused {r['fused_ms_median']:.3f}"
+            f" ms (f32 cells: {r['f32_cells_frame_ms']}); IoU {iou}")
+        for k in ("K2f16cells", "K2qcells"):
+            log(f"{name} bf16 cells {variant} {k}: " + ", ".join(
+                f"{a} {b!r}" for a, b in r[k].items()))
+        torch.cuda.empty_cache()
+    del runs
+
+    s_load = plans[SERVE_LOAD][0]
+    h, w = s_load.image_height, s_load.image_width
+    fovy = math.radians(60)
+    fovx = 2 * math.atan(math.tan(fovy / 2) * w / h)
+    backend = BackendRenderer(
+        model, clip_model=OpenCLIPNetwork("hash", device=dev),
+        max_entries=s_load.max_entries, compose="device", bf16_cells=True,
+        tile_budget=CAPPED["tile_budget"], tile_budget_cap=CAPPED["cap"],
+        tile_budget_subdiv=CAPPED["subdiv"], temporal_reuse_px=REUSE_PX,
+        reuse_zref=2.0, device=dev)
+    _, server = serve_path(backend, w, h, fovx, fovy, s_load.max_entries)
+    log(f"server with bf16 cells: steady {server['steady_ms_median']:.3f} "
+        f"ms, rebin {server['rebin_ms_median']:.3f} ms")
+    del backend
+    return dict(loads=results, launches=launches, server=server)
+
+
+# ------------------------------------------- phase 16: the cascade binner
+
+def sort_segments(proj, op, gx: int, gy: int, max_entries: int):
+    """The sort path's binning without the live clamp: K1, the key sort."""
+    tile, depth, gauss, _ = expand.expand_entries(proj, op, gx, gy,
+                                                  max_entries)
+    return expand.sort_entries(tile, depth, gauss, gx * gy)
+
+
+def segments_differ(casc, sort) -> int:
+    """Entries whose Gaussian differs between two binnings' segments,
+    tile by tile (counts must be equal first)."""
+    (g, start, count), (g_s, start_s, count_s) = casc, sort
+    if not torch.equal(count, count_s):
+        return -1
+    n = int(count.sum())
+    tile = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=g.device), count.long())
+    rank = torch.arange(n, device=g.device) - (torch.cumsum(
+        count, 0) - count).long()[tile]
+    return int((g[start.long()[tile] + rank]
+                != g_s[start_s.long()[tile] + rank]).sum())
+
+
+def k8_bound(proj, total: int, n_tiles: int) -> tuple[float, str]:
+    """K8: the depth sort (a key read, an id written a Gaussian), level 0
+    (ids, rects and tile counts read, an id a tile row written), level 1
+    (those ids read, rect and cull state gathered, the kept ids written),
+    the ranges; the cull's operations once a (Gaussian, tile) pair of the
+    rects."""
+    n = proj.xy.shape[0]
+    alive = proj.tiles_touched > 0
+    rows = int((proj.rect_max[:, 1] - proj.rect_min[:, 1])[alive].sum())
+    pairs = int(proj.tiles_touched.sum())
+    return bound(n * 8 + n * 24 + rows * 4 + rows * (4 + 16 + 24)
+                 + total * 4 + n_tiles * 8, pairs * CULL_FLOPS)
+
+
+def check_k8(proj, op, gx: int, gy: int, budget: int, timed: bool) -> dict:
+    """K8 against its plain version (every output equal) and the sort
+    path's segments (equal); with `timed`, K8's time, the plain
+    version's, the sort stage's (K1 + the key sort) and its bound."""
+    out = cascade.cascade_binning(proj, op, gx, gy, budget)
+    ref = cascade.cascade_binning_plain(proj, op, gx, gy, budget, 255.0)
+    plain_differ = sum(int((a != b).sum()) for a, b in zip(out, ref))
+    sort_differ = segments_differ(out[:3], sort_segments(proj, op, gx, gy,
+                                                         budget))
+    r = dict(max_abs_err=float(plain_differ + abs(sort_differ)),
+             plain_differ=plain_differ, sort_differ=sort_differ,
+             total=int(out[3]), overflow=bool(out[4]))
+    del ref
+    if plain_differ or sort_differ or r["overflow"]:
+        fail(f"K8 differs from its plain version or the sort binning: {r}")
+    if timed:
+        r["ms"] = cuda_ms(lambda: cascade.cascade_binning(
+            proj, op, gx, gy, budget), 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: cascade.cascade_binning_plain(
+            proj, op, gx, gy, budget, 255.0), 1)[0]
+        r["sort_stage_ms"] = cuda_ms(lambda: sort_segments(
+            proj, op, gx, gy, budget), 10)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = k8_bound(proj, r["total"], gx * gy)
+        r["device_split_us"] = device_split(lambda: cascade.cascade_binning(
+            proj, op, gx, gy, budget))
+    return r
+
+
+def device_split(fn, top: int = 12) -> dict:
+    """torch.profiler's device time of one call of `fn`, by kernel (us, the
+    `top` largest), with the sum over all its kernels and the call's wall
+    time on the host clock."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    times, launches = {}, 0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            times[e.key[:80]] = float(us)
+            launches += e.count
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return dict(kernels=dict(ranked[:top]), device_total=sum(times.values()),
+                wall=wall, launches=launches)
+
+
+def cascade_serving(model, clip, consts, plans, dev) -> dict:
+    """Phase 16: K8 on a reduced scene, then at both loads of phase 4's
+    scene: counted cascade frames, K8 against its plain version and the
+    sort binning, the cascade frame against phase 4's, K8 and K2 on its
+    segments timed, and an overflow probe."""
+    h = w = 512
+    small = from_numpy_params(bench_scene(50_000, seed=1), device=dev)
+    view, pm, tfx, tfy = bench_camera(h, w)
+    s = RasterizeSettings(h, w, tfx, tfy, 0, max_entries=1 << 20)
+    x = stage_inputs(small, s, view, pm, consts, dev)
+    reduced = check_k8(x["proj"], x["op"], s.grid_x, s.grid_y, s.max_entries,
+                       timed=False)
+    log(f"reduced K8: {reduced}")
+    del small, x
+
+    zero_counts(CASCADE_WRAPPERS)
+    frames = {}
+    for name, (s, view, pm) in plans.items():
+        sc = s._replace(binning="cascade")
+        host = []
+        for _ in range(FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, relev = frame(model, sc, view, pm, clip, consts, dev)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        frames[name] = (out, relev, host)
+    launches = read_counts(CASCADE_WRAPPERS)
+    n = FRAMES * len(plans)
+    log(f"launches on the cascade frames ({n}): {launches}")
+    if not (launches["K8"] == launches["K2"] == launches["K3"] == n
+            and launches["K1"] == 0):
+        fail(f"the cascade frames' launches are off: {launches}")
+
+    res = {}
+    for name, (s, view, pm) in plans.items():
+        out, relev, host = frames.pop(name)
+        ref, _ = frame(model, s, view, pm, clip, consts, dev)
+        same = [torch.equal(a, b) for a, b in (
+            (out.render, ref.render),
+            (out.language_feature_weight_map,
+             ref.language_feature_weight_map),
+            (out.final_transmittance, ref.final_transmittance))]
+        kept, live = int(out.total_entries), int(ref.live_total)
+        if not (all(same) and kept == live and bool(torch.isfinite(
+                relev).all())):
+            fail(f"{name}: the cascade frame is not phase 4's frame: "
+                 f"{same}, kept {kept}, live {live}")
+        del out, ref, relev
+        x = stage_inputs(model, s, view, pm, consts, dev)
+        r = dict(frame_ms_median=statistics.median(host), frame_ms=host,
+                 kept_total=kept,
+                 K8=check_k8(x["proj"], x["op"], s.grid_x, s.grid_y,
+                             s.max_entries, timed=True))
+        g, start, count, _, _ = cascade.cascade_binning(
+            x["proj"], x["op"], s.grid_x, s.grid_y, s.max_entries)
+        args = (g, start, count, x["geom"], x["bg"], s.grid_x, s.grid_y,
+                x["qw"], x["qi"], L * K)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        blend.blend_tiles(*args, stats=stats)
+        k2 = dict(ms=cuda_ms(lambda: blend.blend_tiles(*args), 10)[0],
+                  max_abs_err=max_diff(zip(
+                      blend.blend_tiles(*args),
+                      blend.blend_tiles(x["g"], x["start"], x["count"],
+                                        *args[3:]))),
+                  library_ms=None)
+        k2["plain_ms"] = cuda_ms(lambda: blend.blend_tiles_plain(
+            g, start, count, x["geom"], x["bg"], s.grid_x, x["qw"], x["qi"],
+            L * K), 1)[0]
+        n_tiles = s.grid_x * s.grid_y
+        distinct = int(torch.unique(g[:kept]).numel())
+        k2["bound_ms"], k2["bound_by"] = bound(
+            kept * 4 + n_tiles * 8 + distinct * (9 * 4 + L * TOPK * 8)
+            + n_tiles * 256 * (3 + L * K + 1) * 4,
+            int(stats[0]) * BLEND_ALPHA_FLOPS
+            + int(stats[1]) * BLEND_INCLUDE_FLOPS)
+        r["K2comb"] = k2
+        budget = kept // 2
+        probe = cascade.cascade_binning(x["proj"], x["op"], s.grid_x,
+                                        s.grid_y, budget)
+        r["overflow_probe"] = dict(budget=budget, total=int(probe[3]),
+                                   overflow=bool(probe[4]))
+        if not (r["overflow_probe"]["overflow"]
+                and 0 < r["overflow_probe"]["total"] <= budget):
+            fail(f"{name}: K8's overflow probe: {r['overflow_probe']}")
+        res[name] = r
+        log(f"{name} cascade: frame median {r['frame_ms_median']:.3f} ms, "
+            f"kept {kept}; overflow probe {r['overflow_probe']}")
+        for k in ("K8", "K2comb"):
+            log(f"{name} cascade {k}: " + ", ".join(
+                f"{a} {b!r}" for a, b in r[k].items()))
+        del x, probe, g, start, count, args
+        torch.cuda.empty_cache()
+    return dict(reduced=reduced, loads=res, launches=launches)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2173,6 +2801,13 @@ def main() -> None:
                 if v in ("exact", "capped")}
          for name, load in bf16["loads"].items()}, dev)
     server = serving_server(model, clip, consts, plans, dev)
+    dserve = dense_serving(model, plans, dev)
+    cells = bf16_cells_serving(
+        model, clip, consts, plans,
+        {name: {v: r["frame_ms_median"] for v, r in load.items()
+                if v in ("exact", "capped")}
+         for name, load in bf16["loads"].items()}, dev)
+    casc = cascade_serving(model, clip, consts, plans, dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -2183,6 +2818,8 @@ def main() -> None:
     rpath = rgb_path(dev)
     torch.cuda.empty_cache()
     cpath = capped_train_path(dev)
+    torch.cuda.empty_cache()
+    dpath = dense_path(dev)
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -2213,6 +2850,26 @@ def main() -> None:
                 err = max([err, errs["K2 non-finite rows"]]
                           + [v["max_abs_err"] for v in
                              server["K2f16_steady"].values()])
+        elif k == "K2dense":
+            r = dpath["kernels"]["K2dense"]
+            launches = dpath["launches"]["K2dense"]
+            err = max([r["max_abs_err"]]
+                      + [v["max_abs_err"] for v in dpath["reduced"].values()
+                         if "channels" in v and "groups" in v]
+                      + [v["vs_quick_frame"] for v in dserve.values()])
+        elif k in ("K2f16cells", "K2qcells"):
+            loads = cells["loads"]
+            r = loads["1080p"]["exact"][k]
+            launches = cells["launches"]["K2f16" if k == "K2f16cells"
+                                         else "K2q"]
+            err = max(v[k]["max_abs_err"] for load in loads.values()
+                      for v in load.values())
+        elif k in ("K8", "K2comb"):
+            r = casc["loads"]["1080p"][k]
+            launches = casc["launches"]["K8" if k == "K8" else "K2"]
+            err = max([v[k]["max_abs_err"] for v in casc["loads"].values()]
+                      + ([casc["reduced"]["max_abs_err"]] if k == "K8"
+                         else []))
         elif k == "K2q":
             loads = fused["loads"]
             r = loads["1080p"]["exact"][k]
@@ -2225,6 +2882,9 @@ def main() -> None:
             launches = tpath["launches"][k]
             err = max(r["max_abs_err"], train_errs[k]["max_abs_err"],
                       train_errs["wide"].get(k, 0.0))
+            if k == "K4":
+                err = max(err, dpath["kernels"]["K4"]["max_abs_err"],
+                          dpath["reduced"]["K4 C=192"]["max_abs_err"])
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=err, ms=r["ms"],
@@ -2240,7 +2900,9 @@ def main() -> None:
                        train_reduced=train_errs, train_path=tpath,
                        rgb_reduced=rgb_errs, rgb_path=rpath,
                        bf16_serving=bf16, fused_query_serving=fused,
-                       serving_server=server, capped_train_path=cpath), f,
+                       serving_server=server, capped_train_path=cpath,
+                       dense_path=dpath, dense_serving=dserve,
+                       bf16_cells_serving=cells, cascade_serving=casc), f,
                   indent=1)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

@@ -22,33 +22,11 @@
 // kernel: the entry sets agree exactly.
 #include <cuda_runtime.h>
 
+#include "cull.cuh"
+
 namespace {
 
-constexpr int kBlock = 16;  // tile side in pixels
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);  // jnp.clip / torch.clamp order
-}
-
-struct Conic {
-  float ca, cb, cc;
-  __device__ float q(float u, float v) const {
-    return ca * u * u + 2.0f * cb * u * v + cc * v * v;
-  }
-  __device__ float edge_u(float ufix, float ly, float hy) const {
-    return q(ufix, clampf(-cb * ufix / cc, ly, hy));
-  }
-  __device__ float edge_v(float vfix, float lx, float hx) const {
-    return q(clampf(-cb * vfix / ca, lx, hx), vfix);
-  }
-  // Min of q over the box [lx, hx] x [ly, hy] (mean-relative pixels).
-  __device__ float box_qmin(float lx, float hx, float ly, float hy) const {
-    const bool inside = lx <= 0.0f && 0.0f <= hx && ly <= 0.0f && 0.0f <= hy;
-    const float m = fminf(fminf(edge_u(lx, ly, hy), edge_u(hx, ly, hy)),
-                          fminf(edge_v(ly, lx, hx), edge_v(hy, lx, hx)));
-    return inside ? 0.0f : m;
-  }
-};
+using lsv2::TileCull;
 
 __global__ void expand_kernel(const float* __restrict__ xy,
                               const float* __restrict__ depth,
@@ -71,16 +49,9 @@ __global__ void expand_kernel(const float* __restrict__ xy,
   const int x0 = rect_min[2 * g], y0 = rect_min[2 * g + 1];
   const int rect_w = max(rect_max[2 * g] - x0, 1);
   const float d = depth[g];
-  Conic k{};
-  float cx = 0.f, cy = 0.f, thresh = 0.f;
-  if (exact_cull) {
-    cx = xy[2 * g];
-    cy = xy[2 * g + 1];
-    k.ca = fmaxf(conic[3 * g], 1e-12f);
-    k.cb = conic[3 * g + 1];
-    k.cc = fmaxf(conic[3 * g + 2], 1e-12f);
-    thresh = 2.0f * logf(fmaxf(opacity[g], 1e-12f) * inv_cull_alpha) + 1e-4f;
-  }
+  TileCull cull{};
+  if (exact_cull)
+    cull = TileCull::of(xy, conic, opacity, g, inv_cull_alpha);
   const long long end = base + count;
   const long long stop = end < max_entries ? end : (long long)max_entries;
   for (long long e = base; e < stop; ++e) {
@@ -88,14 +59,7 @@ __global__ void expand_kernel(const float* __restrict__ xy,
     const int ty = slot / rect_w;
     const int tx = slot - ty * rect_w;
     const int tile_x = x0 + tx, tile_y = y0 + ty;
-    bool owned = true;
-    if (exact_cull) {
-      const float lx = (float)tile_x * (float)kBlock - cx;
-      const float ly = (float)tile_y * (float)kBlock - cy;
-      const float qmin = k.box_qmin(lx, lx + (float)(kBlock - 1), ly,
-                                    ly + (float)(kBlock - 1));
-      owned = qmin <= thresh;
-    }
+    const bool owned = !exact_cull || cull.keeps(tile_x, tile_y);
     tile_out[e] = owned ? tile_y * grid_x + tile_x : sentinel;
     depth_out[e] = owned ? d : 0.0f;
     gauss_out[e] = owned ? g : 0;

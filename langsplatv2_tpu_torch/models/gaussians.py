@@ -26,7 +26,8 @@ from ..device import resolve_device
 from ..ops.knn import mean_sq_dist_3nn
 from ..utils import transforms as tf
 from ..utils.sh import rgb_to_sh
-from ..utils.sparse_codes import get_weights_and_indices
+from ..utils.sparse_codes import (get_weights_and_indices,
+                                  softmax_to_topk_soft_code)
 
 PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                 "opacity", "language_logits", "codebooks")
@@ -110,6 +111,16 @@ class GaussianModel(nn.Module):
 
     def get_features(self):
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    def get_render_weights(self, k: int):
+        """Per-layer softmax -> top-k coefficients, concatenated to
+        [C, L*K] f32 (the dense feature-phase field), differentiable in
+        the logits."""
+        L, K, _ = self.codebooks.shape
+        return torch.cat([
+            softmax_to_topk_soft_code(
+                self.language_logits[:, i * K:(i + 1) * K], k)
+            for i in range(L)], dim=-1).float()
 
     def get_weights_and_indices(self, k: int):
         """Per-layer top-k (weights, indices), each [C, L*k], indices

@@ -28,6 +28,23 @@ the Gram query of kernel K3 from the channel accumulators, so the
 and gram rounded to bf16 (the TPU kernel's MXU pass); the last factor of
 nrm2 and its band sum use the f32 accumulator. `blend_tiles_query_plain`
 is the fast16 plain blend followed by those products in torch.
+
+Level bands (`banded`, JAX's banded=True, pallas_blend.py:386-401): in the
+fast16 and query modes slot k of a row belongs to level k // (topk / L),
+L = channels / 64, and its pair is dropped unless its index lies in
+[64 l, 64 l + 64). The wrappers apply it where JAX's callers do
+(`level_banded`: channels % 64 == 0 and topk a multiple of channels / 64);
+`banded=False` turns it off, for comparisons with JAX's unbanded kernel.
+The f32 quick mode is never banded, as JAX's f32 path is not.
+
+bf16 cells (`cells_bf16`, JAX's bf16_cells, pallas_blend.py:282-299,
+:323-336, :373-385): the fast16 and query modes' alpha, transmittance and
+blend weight rounded to bf16 (csrc/blend.cu lists the rounding points);
+the plain versions round at the same points with torch's bf16 arithmetic.
+
+Dense mode (`blend_tiles_dense`, K2's mode="dense", pallas_blend.py
+:342-346): the f32 blend of each entry's own feature row F[g] (F [N, D]
+f32) into [T, 256, D], in channel groups of at most 192 a launch.
 """
 from __future__ import annotations
 
@@ -40,6 +57,8 @@ from .query import KERNEL_K, KERNEL_MAX_PQ, round_bf16
 P = BLOCK * BLOCK
 FAST16_PAIRS = 12      # (index, weight) slots of a fast16 row
 QUERY_MAX_LEVELS = 3   # fused query: 192 channels fill shared memory
+LEVEL_BAND = 64        # codebook rows a level band
+DENSE_GROUP = 192      # dense mode: channels a launch (shared accumulators)
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -55,6 +74,20 @@ def pack_gaussian_state(xy, conic, opacities, colors) -> torch.Tensor:
 
 def _bf16(x):
     return x.to(torch.bfloat16)
+
+
+def level_banded(channels: int, topk: int) -> bool:
+    """JAX's condition for the level-banded expansion
+    (ops/rasterize.py:433-434, 641-642; ops/temporal.py:210-211)."""
+    return channels % LEVEL_BAND == 0 and topk % (channels // LEVEL_BAND) == 0
+
+
+def _per_level(banded: bool, channels: int, topk: int) -> int:
+    """Slots a level band for the kernel: JAX's rule where `level_banded`
+    holds, unless `banded` is False; 0 for no bands."""
+    if not (banded and level_banded(channels, topk)):
+        return 0
+    return topk // (channels // LEVEL_BAND)
 
 
 def fast16_pose_words(xy, conic, opacities) -> torch.Tensor:
@@ -110,18 +143,23 @@ def pixel_coords(n_tiles: int, grid_x: int, device):
     return px, py
 
 
-def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x):
+def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
+                     cells_bf16: bool = False):
     """The blend's per-position loop, vectorized over tiles and pixels: for
     each depth position j of the tiles' segments yields (j, live [T] bool,
     g [T] Gaussian ids, row [T, 9] state, w [T, 256] blend weights, T
     [T, 256] transmittance after position j), with K2's exact f32 op
-    sequence. Stops once every pixel has ended (checked every 32
-    positions); later weights would all be 0."""
+    sequence, or with `cells_bf16` its bf16 cell math (the transmittance
+    exp(S), S the f32 sum of the included pairs' bf16 log1p(-alpha)). Stops
+    once every pixel has ended (checked every 32 positions); later weights
+    would all be 0."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
     px, py = pixel_coords(n_tiles, grid_x, dev)
     T = torch.ones((n_tiles, P), device=dev)
+    S = torch.zeros((n_tiles, P), device=dev)
     done = torch.zeros((n_tiles, P), dtype=torch.bool, device=dev)
+    alpha_max_b = torch.full((), ALPHA_MAX, dtype=torch.bfloat16, device=dev)
     n_max = int(tile_count.max()) if n_tiles else 0
     for j in range(n_max):
         if j % 32 == 0 and bool(done.all()):
@@ -133,34 +171,57 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x):
         dy = py - row[:, 1:2]
         ca, cb, cc, op = row[:, 2:3], row[:, 3:4], row[:, 4:5], row[:, 5:6]
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
+        if cells_bf16:
+            ab = torch.minimum(_bf16(op) * torch.exp(_bf16(power)),
+                               alpha_max_b)
+            tb = torch.exp(_bf16(S))
+            alpha, test_t = ab.float(), (tb * (1.0 - ab)).float()
+            wb = (ab * tb).float()
+            lm = _bf16(torch.log1p(-alpha)).float()
+        else:
+            alpha = torch.clamp(op * torch.exp(power), max=ALPHA_MAX)
+            test_t = T * (1.0 - alpha)
+            wb = alpha * T
         valid = (live[:, None] & ~done & (power <= 0.0)
                  & (alpha >= ALPHA_MIN))
-        test_t = T * (1.0 - alpha)
         ends = valid & (test_t < T_EPS)
         done |= ends
         inc = valid & ~ends
-        w = torch.where(inc, alpha * T, 0.0)
-        T = torch.where(inc, test_t, T)
+        w = torch.where(inc, wb, 0.0)
+        if cells_bf16:
+            S = torch.where(inc, S + lm, S)
+            T = torch.exp(S)
+        else:
+            T = torch.where(inc, test_t, T)
         yield j, live, g, row, w, T
 
 
 def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
-                      quick_weights=None, quick_indices=None, channels=0):
+                      quick_weights=None, quick_indices=None, channels=0,
+                      per_level: int = 0, cells_bf16: bool = False):
+    """`per_level` > 0: the level-band rule (a pair outside its slot's
+    band goes to a dropped extra channel); `cells_bf16`: the bf16 cells."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
     T = torch.ones((n_tiles, P), device=dev)
     acc = torch.zeros((n_tiles, P, 3), device=dev)
-    feat = (torch.zeros((n_tiles, P, channels), device=dev)
+    feat = (torch.zeros((n_tiles, P, channels + (per_level > 0)), device=dev)
             if channels else None)
     topk = quick_weights.shape[1] if channels else 0
     for _j, _live, g, row, w, T in replay_positions(
-            g_sorted, tile_start, tile_count, geom, grid_x):
+            g_sorted, tile_start, tile_count, geom, grid_x, cells_bf16):
         acc += w[..., None] * row[:, None, 6:9]
         for k in range(topk):
             src = w * quick_weights[g, k][:, None]
-            idx = quick_indices[g, k].long()[:, None, None].expand(-1, P, 1)
+            idx = quick_indices[g, k].long()
+            if per_level:
+                lo = (k // per_level) * LEVEL_BAND
+                idx = torch.where((idx >= lo) & (idx < lo + LEVEL_BAND), idx,
+                                  channels)
+            idx = idx[:, None, None].expand(-1, P, 1)
             feat.scatter_add_(2, idx, src[..., None])
+    if per_level and channels:
+        feat = feat[..., :channels].contiguous()
     rgb = acc + T[..., None] * bg
     return rgb, feat, T
 
@@ -224,14 +285,15 @@ blend_tiles.launches = 0
 
 def blend_tiles_fast16_plain(g_sorted, tile_start, tile_count, rows, bg,
                              grid_x, topk: int, channels: int,
-                             feat_bf16: bool):
-    """The f32 blend on the unpacked state with bg = 0, then the outputs:
-    with feat_bf16 the feature tiles and the background-free colour
-    rounded to bf16, then rgb = colour + T * bg."""
+                             feat_bf16: bool, banded: bool = True,
+                             cells_bf16: bool = False):
+    """The f32 blend (or its bf16 cells) on the unpacked state with bg =
+    0, then the outputs: with feat_bf16 the feature tiles and the
+    background-free colour rounded to bf16, then rgb = colour + T * bg."""
     geom, qw, qi = unpack_fast16_rows(rows, topk)
     acc, feat, T = blend_tiles_plain(
         g_sorted, tile_start, tile_count, geom, torch.zeros_like(bg), grid_x,
-        qw, qi, channels)
+        qw, qi, channels, _per_level(banded, channels, topk), cells_bf16)
     if feat_bf16:
         acc, feat = _bf16(acc).float(), _bf16(feat)
     return acc + T[..., None] * bg, feat, T
@@ -239,20 +301,24 @@ def blend_tiles_fast16_plain(g_sorted, tile_start, tile_count, rows, bg,
 
 def blend_tiles_fast16(g_sorted, tile_start, tile_count, rows, bg,
                        grid_x: int, grid_y: int, topk: int, channels: int,
-                       feat_bf16: bool = True, stats=None):
+                       feat_bf16: bool = True, stats=None, *,
+                       banded: bool = True, cells_bf16: bool = False):
     """The quick blend on fast16 rows [N, 16] (pack_fast16_rows). Returns
     (rgb [T, 256, 3] f32, feat [T, 256, channels] bf16 when feat_bf16 else
     f32, final_T [T, 256] f32). Other inputs as for `blend_tiles`;
-    channels <= 256 (u8 indices)."""
+    channels <= 256 (u8 indices). `banded`: the level-band rule where
+    `level_banded` holds (False: none, as JAX's unbanded kernel);
+    `cells_bf16`: the bf16 cell math."""
     dev = rows.device
     n_tiles = grid_x * grid_y
     if not 0 < channels <= 256:
         raise ValueError(f"fast16 rows index at most 256 channels, not "
                          f"{channels}")
+    per_level = _per_level(banded, channels, topk)
     if dev.type == "cpu":
         return blend_tiles_fast16_plain(g_sorted, tile_start, tile_count,
                                         rows, bg, grid_x, topk, channels,
-                                        feat_bf16)
+                                        feat_bf16, banded, cells_bf16)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_fast16: unsupported device {dev}")
     kernels.check_tensor(g_sorted, "g_sorted", torch.int32, (None,), dev)
@@ -276,7 +342,8 @@ def blend_tiles_fast16(g_sorted, tile_start, tile_count, rows, bg,
     kernels.launch(
         "lsv2_blend_tiles_fast16", P_(g_sorted), P_(tile_start),
         P_(tile_count), P_(rows), P_(bg), n_tiles, grid_x, topk, channels,
-        int(feat_bf16), P_(rgb), P_(feat), P_(final_t),
+        int(feat_bf16), per_level, int(cells_bf16), P_(rgb), P_(feat),
+        P_(final_t),
         P_(stats) if stats is not None else kernels.NULL,
         kernels.stream(rgb))
     blend_tiles_fast16.launches += 1
@@ -287,14 +354,16 @@ blend_tiles_fast16.launches = 0
 
 
 def blend_tiles_query_plain(g_sorted, tile_start, tile_count, rows, bg,
-                            grid_x, topk: int, phi, gram):
+                            grid_x, topk: int, phi, gram,
+                            banded: bool = True,
+                            cells_bf16: bool = False):
     """The fast16 plain blend (f32 outputs), then the query: products of
     bf16-rounded weights, phi and gram summed in f32; nrm2's last factor
     is the f32 weight."""
     L, K, PQ = phi.shape
     rgb, wm, T = blend_tiles_fast16_plain(g_sorted, tile_start, tile_count,
                                           rows, bg, grid_x, topk, L * K,
-                                          feat_bf16=False)
+                                          False, banded, cells_bf16)
     t = wm.shape[0]
     wm = wm.reshape(t * P, L, K)
     wmb = round_bf16(wm)
@@ -306,14 +375,16 @@ def blend_tiles_query_plain(g_sorted, tile_start, tile_count, rows, bg,
 
 def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
                       grid_x: int, grid_y: int, topk: int, phi, gram,
-                      stats=None):
+                      stats=None, *, banded: bool = True,
+                      cells_bf16: bool = False):
     """The quick blend on fast16 rows with the Gram query fused (K2q).
     phi [L, K, PQ] and gram [L, K, K] f32 (the prompt constants of
     eval/openclip.py); other inputs as for `blend_tiles_fast16`, with
     L*K channels. Returns (rgb [T, 256, 3], raw [T, 256, L*PQ], nrm2
     [T, 256, L], final_T [T, 256]), all f32: raw[t,p,l*PQ+q] =
     sum_k wm[l,k] phi[l,k,q], nrm2[t,p,l] = sum_k (wm_l gram_l)[k] wm[l,k].
-    On CUDA, K = 64, L <= 3 and PQ <= 16."""
+    `banded` and `cells_bf16` as for
+    `blend_tiles_fast16`. On CUDA, K = 64, L <= 3 and PQ <= 16."""
     dev = rows.device
     n_tiles = grid_x * grid_y
     L, K, PQ = phi.shape
@@ -323,9 +394,11 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
     if L * K > 256:
         raise ValueError(f"fast16 rows index at most 256 channels, not "
                          f"{L * K}")
+    per_level = _per_level(banded, L * K, topk)
     if dev.type == "cpu":
         return blend_tiles_query_plain(g_sorted, tile_start, tile_count,
-                                       rows, bg, grid_x, topk, phi, gram)
+                                       rows, bg, grid_x, topk, phi, gram,
+                                       banded, cells_bf16)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_query: unsupported device {dev}")
     if K != KERNEL_K or not (1 <= L <= QUERY_MAX_LEVELS
@@ -359,7 +432,8 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
     kernels.launch(
         "lsv2_blend_tiles_query", P_(g_sorted), P_(tile_start),
         P_(tile_count), P_(rows), P_(bg), P_(phi_b), P_(gram_b), n_tiles,
-        grid_x, topk, L, PQ, P_(rgb), P_(raw), P_(nrm2), P_(final_t),
+        grid_x, topk, L, PQ, per_level, int(cells_bf16), P_(rgb), P_(raw),
+        P_(nrm2), P_(final_t),
         P_(stats) if stats is not None else kernels.NULL,
         kernels.stream(rgb))
     blend_tiles_query.launches += 1
@@ -367,3 +441,75 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
 
 
 blend_tiles_query.launches = 0
+
+
+def blend_tiles_dense_plain(g_sorted, tile_start, tile_count, geom,
+                            features, bg, grid_x):
+    """The f32 blend of each entry's own feature row features[g] [N, D]."""
+    dev = geom.device
+    n_tiles = tile_start.shape[0]
+    T = torch.ones((n_tiles, P), device=dev)
+    acc = torch.zeros((n_tiles, P, 3), device=dev)
+    feat = torch.zeros((n_tiles, P, features.shape[1]), device=dev)
+    for _j, _live, g, row, w, T in replay_positions(
+            g_sorted, tile_start, tile_count, geom, grid_x):
+        acc += w[..., None] * row[:, None, 6:9]
+        feat += w[..., None] * features[g][:, None, :]
+    return acc + T[..., None] * bg, feat, T
+
+
+def dense_groups(channels: int) -> list[tuple[int, int]]:
+    """(first channel, width) of each dense launch: the fewest groups of
+    at most DENSE_GROUP channels, equal widths rounded up to 4."""
+    n = -(-channels // DENSE_GROUP)
+    width = min(DENSE_GROUP, -(-(-(-channels // n)) // 4) * 4)
+    return [(c0, min(width, channels - c0))
+            for c0 in range(0, channels, width)]
+
+
+def blend_tiles_dense(g_sorted, tile_start, tile_count, geom, features, bg,
+                      grid_x: int, grid_y: int, stats=None):
+    """K2's dense mode: (rgb [T, 256, 3], feat [T, 256, D], final_T
+    [T, 256]) for features [N, D] f32, any D >= 1; other inputs as for
+    `blend_tiles`. On CUDA one launch a channel group (`dense_groups`),
+    rgb and final T from the first; `stats` counts the first group's
+    pairs."""
+    dev = geom.device
+    n_tiles = grid_x * grid_y
+    n, d = features.shape
+    if d < 1:
+        raise ValueError("dense features need at least one channel")
+    if dev.type == "cpu":
+        return blend_tiles_dense_plain(g_sorted, tile_start, tile_count,
+                                       geom, features, bg, grid_x)
+    if dev.type != "cuda":
+        raise ValueError(f"blend_tiles_dense: unsupported device {dev}")
+    kernels.check_tensor(g_sorted, "g_sorted", torch.int32, (None,), dev)
+    kernels.check_tensor(tile_start, "tile_start", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(tile_count, "tile_count", torch.int32, (n_tiles,),
+                         dev)
+    kernels.check_tensor(geom, "geom", torch.float32, (n, 9), dev)
+    kernels.check_tensor(features, "features", torch.float32, (n, d), dev)
+    kernels.check_tensor(bg, "bg", torch.float32, (3,), dev)
+    if stats is not None:
+        kernels.check_tensor(stats, "stats", torch.int64, (2,), dev)
+    rgb = torch.empty((n_tiles, P, 3), device=dev)
+    feat = torch.empty((n_tiles, P, d), device=dev)
+    final_t = torch.empty((n_tiles, P), device=dev)
+    P_ = kernels.ptr
+    null = kernels.NULL
+    for c0, width in dense_groups(d):
+        first = c0 == 0
+        kernels.launch(
+            "lsv2_blend_tiles_dense", P_(g_sorted), P_(tile_start),
+            P_(tile_count), P_(geom), P_(features), P_(bg), n_tiles, grid_x,
+            d, c0, width, P_(rgb) if first else null, P_(feat),
+            P_(final_t) if first else null,
+            P_(stats) if first and stats is not None else null,
+            kernels.stream(feat))
+        blend_tiles_dense.launches += 1
+    return rgb, feat, final_t
+
+
+blend_tiles_dense.launches = 0

@@ -24,13 +24,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# expand.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu and rgb_bwd.cu
-# round every f32 op on its own (no fused multiply-add), as their plain
-# PyTorch versions do: the entry sets of K1 and the alpha / termination tests
-# of K2 then agree bit for bit, and K4, K5 and K7 replay K2's blend weights
-# exactly.
+# expand.cu, cascade.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu and
+# rgb_bwd.cu round every f32 op on its own (no fused multiply-add), as their
+# plain PyTorch versions do: the entry sets of K1 and K8 and the alpha /
+# termination tests of K2 then agree bit for bit, and K4, K5 and K7 replay
+# K2's blend weights exactly. Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
+    "cascade.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false"],
     "query.cu": [],
     "feature_bwd.cu": ["-fmad=false"],
@@ -51,11 +52,19 @@ ENTRY_POINTS = {
     # channels rgb feat final_t stats stream
     "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
     # g_sorted tile_start tile_count rows bg num_tiles grid_x topk channels
-    # out_bf16 rgb feat final_t stats stream
-    "lsv2_blend_tiles_fast16": [_P] * 5 + [_I] * 5 + [_P] * 5,
+    # out_bf16 per_level cells_bf16 rgb feat final_t stats stream
+    "lsv2_blend_tiles_fast16": [_P] * 5 + [_I] * 7 + [_P] * 5,
     # g_sorted tile_start tile_count rows bg phi gram num_tiles grid_x topk
-    # levels pq rgb raw nrm2 final_t stats stream
-    "lsv2_blend_tiles_query": [_P] * 7 + [_I] * 5 + [_P] * 6,
+    # levels pq per_level cells_bf16 rgb raw nrm2 final_t stats stream
+    "lsv2_blend_tiles_query": [_P] * 7 + [_I] * 7 + [_P] * 6,
+    # g_sorted tile_start tile_count geom feats bg num_tiles grid_x stride
+    # c0 channels rgb feat final_t stats stream
+    "lsv2_blend_tiles_dense": [_P] * 6 + [_I] * 5 + [_P] * 5,
+    # in_ids bucket_base bucket_count chunk_first buckets fan chunks level
+    # write rect_min rect_max tiles_touched xy conic opacity inv_cull_alpha
+    # counts offsets out stream
+    "lsv2_cascade_level": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_F]
+    + [_P] * 4,
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
     "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,
@@ -92,6 +101,8 @@ def _digest(nvcc: str) -> str:
     for name, flags in sorted(SOURCES.items()):
         h.update(name.encode() + " ".join(flags).encode())
         h.update((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     return h.hexdigest()
 
 

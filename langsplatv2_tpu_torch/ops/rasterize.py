@@ -28,6 +28,27 @@ query fused into the blend (K2's query mode, K2q): fast16 rows, exact or
 capped binning, and per-prompt raw scores and per-level norms out instead
 of the [T, 256, L*K] map. `cov3d_precomp` [N, 6] replaces scales and
 rotations in the preprocess (the temporal steady frames' formulation).
+The fast16 frames apply JAX's level bands (the blend wrappers take them
+where `blend.level_banded` holds) and, with
+bf16_cells (read only where precision="bf16", as in JAX), K2's bf16 cell
+math.
+
+Dense features (:244-257, `pallas_train.py::rasterize_dense_vjp`):
+`features` [N, D] is blended by K2's dense mode inside
+`ops/train.py::DenseTrainBlend`, whose backward (K4 + `index_add_`) gives
+d(features) and nothing else (the feature-phase contract). Without
+cov3d_precomp the binning is the VJP's (default cull, no live clamp);
+with it, the forward-only branch of `_rasterize_pallas` (:454-460: the
+settings' cull and live clamp). Under impl="auto" JAX differentiates the
+geometry too (its reference rasterizer), so there a geometry input that
+requires a gradient raises.
+
+binning="cascade" (:369-397) bins a frame that has no dense features and
+is not a quick_train frame with K8 (`ops/cascade.py`) and blends its
+segments with K2's f32 mode, whatever the precision and the budget fields
+say, forward only; total_entries counts the kept entries and folds the
+overflow flag in. An RGB frame takes it only under impl="pallas" (JAX
+sends it to its reference rasterizer under "auto").
 
 Options that belong to later slices of the port raise NotImplementedError
 naming their ROADMAP item; none of them falls back to another path.
@@ -39,8 +60,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import (blend, budget, expand, projection, rasterize_tiles, rgb_train,
-               train)
+from . import (blend, budget, cascade, expand, projection, rasterize_tiles,
+               rgb_train, train)
 from .projection import BLOCK
 
 
@@ -99,19 +120,18 @@ REFERENCE_RASTERIZER = "Queue 1 item 4, the differentiable reference rasterizer"
 # Fields no ported path reads yet, with the ROADMAP item that will.
 _LATER_FIELDS = {
     "tile_batch": REFERENCE_RASTERIZER,
-    "bf16_cells": "Queue 2, K2's bf16_cells",
     "pair_capacity": "Queue 1 item 12, distribution",
 }
 # Fields that no path of either package reads.
 _UNREAD_FIELDS = ("prefiltered", "debug")
 
 
-def check_slice(settings: RasterizeSettings, *, features=None) -> None:
-    """Raise for every option outside the ported slices (the sort path,
-    f32 and fast16 rows, rgb and quick modes, quick training, the capped
-    routes), and for a non-default value of a field no path reads. Fields
-    a ported route reads (tile_cap, the budget and fast16 fields) are, as
-    in JAX, not read on the other routes."""
+def check_slice(settings: RasterizeSettings) -> None:
+    """Raise for every option outside the ported slices (the sort and
+    cascade binnings, f32 and fast16 rows, rgb, quick and dense modes,
+    quick training, the capped routes), and for a non-default value of a
+    field no path reads. Fields a ported route reads (tile_cap, the budget
+    and fast16 fields) are, as in JAX, not read on the other routes."""
     defaults = RasterizeSettings._field_defaults
     for name, item in _LATER_FIELDS.items():
         if getattr(settings, name) != defaults[name]:
@@ -120,18 +140,16 @@ def check_slice(settings: RasterizeSettings, *, features=None) -> None:
         if getattr(settings, name) != defaults[name]:
             raise ValueError(f"{name} is read by no rasterizer path; leave "
                              f"it at {defaults[name]!r}")
-    if settings.binning == "cascade":
-        raise _later('binning="cascade"', "Queue 2, K8 (the cascade binner)")
     if settings.binning == "gauss":
         raise _later('binning="gauss"', "Queue 1 item 12, distribution")
-    if settings.binning != "sort":
+    if settings.binning not in ("sort", "cascade"):
         raise ValueError(f"unknown binning {settings.binning!r}")
     if settings.precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {settings.precision!r}")
     if settings.impl == "xla":
         raise _later('impl="xla"', REFERENCE_RASTERIZER)
-    if features is not None:
-        raise _later("dense features", "Queue 2, K2's dense mode")
+    if settings.impl not in ("auto", "pallas"):
+        raise ValueError(f"unknown impl {settings.impl!r}")
 
 
 def mark_stage(stage_events, name: str) -> None:
@@ -200,6 +218,28 @@ def to_f32(x, dev):
                                                   device=dev)
 
 
+def _preprocess_frozen(settings, means3d, opacities, viewmatrix,
+                       projmatrix, campos, scales, rotations, cov3d_precomp,
+                       shs, colors_precomp, dev, stage_events):
+    """The preprocess outside autograd and the [N] opacities, for the routes
+    that differentiate no geometry (fast16, dense, cascade); stage events
+    "start" and "preprocess"."""
+    with torch.no_grad():
+        op = opacities[:, 0].detach().contiguous()
+        mark_stage(stage_events, "start")
+        proj = projection.preprocess(
+            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                       colors_precomp, viewmatrix,
+                                       projmatrix, campos)),
+            settings.tanfovx, settings.tanfovy, settings.image_width,
+            settings.image_height, settings.sh_degree,
+            settings.scale_modifier, opacities=op,
+            cull_alpha=settings.cull_alpha,
+            cov3d_precomp=to_f32(cov3d_precomp, dev))
+        mark_stage(stage_events, "preprocess")
+    return projection.detach(proj), op
+
+
 class Fast16Binned(NamedTuple):
     """A fast16 frame up to its blend."""
 
@@ -227,19 +267,11 @@ def fast16_binned(settings: RasterizeSettings, means3d, opacities,
     `rasterize_quick_query` and `temporal.quick_bin_cache`; stage events
     "start" to "budget" / "sort" as `rasterize` documents them."""
     capped = settings.tile_budget > 0.0
+    proj, op = _preprocess_frozen(
+        settings, means3d, to_f32(opacities, dev), viewmatrix, projmatrix,
+        campos, scales, rotations, cov3d_precomp, shs, colors_precomp, dev,
+        stage_events)
     with torch.no_grad():
-        op = to_f32(opacities, dev)[:, 0]
-        mark_stage(stage_events, "start")
-        proj = projection.preprocess(
-            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                       colors_precomp, viewmatrix,
-                                       projmatrix, campos)),
-            settings.tanfovx, settings.tanfovy, settings.image_width,
-            settings.image_height, settings.sh_degree,
-            settings.scale_modifier, opacities=op,
-            cull_alpha=settings.cull_alpha,
-            cov3d_precomp=to_f32(cov3d_precomp, dev))
-        mark_stage(stage_events, "preprocess")
         if capped:
             g, start, count, sat_bound, total = capped_binning(
                 settings, proj, op, True, stage_events)
@@ -266,11 +298,13 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               means2d_dummy=None, *, device=None,
               stage_events: list | None = None) -> RasterizeOutput:
     """Quick mode when quick_weights/quick_indices [N, S] are given (the
-    merged-model serving path), RGB only otherwise. With quick_train the
-    feature map is differentiable in quick_weights (and in nothing else).
-    In RGB mode the image and final transmittance are differentiable in
-    means3d, scales, rotations, opacities, shs / colors_precomp and
-    `means2d_dummy` [N, 2] (the densification statistics' carrier).
+    merged-model serving path), dense mode when `features` [N, D] is (the
+    feature map differentiable in features only), RGB only otherwise. With
+    quick_train the feature map is differentiable in quick_weights (and in
+    nothing else). In RGB mode on the sort binning the image and final
+    transmittance are differentiable in means3d, scales, rotations,
+    opacities, shs / colors_precomp and `means2d_dummy` [N, 2] (the
+    densification statistics' carrier).
 
     On the capped routes max_tile_count is the tiles' saturation bound
     (> tile_budget_cap: a window was full) and live_total the kept total.
@@ -280,28 +314,57 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     ("budget": the windows and their counts, capped routes), "blend" and
     "assemble"; consecutive events time each stage."""
     quick = quick_weights is not None
+    dense = features is not None
     fast16 = quick and not quick_train and settings.precision == "bf16"
     capped = settings.tile_budget > 0.0 and not fast16 and quick \
         and quick_train and train.capped_fits(quick_weights.shape[1])
-    check_slice(settings, features=features)
+    cascaded = settings.binning == "cascade" and not dense \
+        and not (quick and quick_train)
+    check_slice(settings)
     if cov3d_precomp is None and (scales is None or rotations is None):
         raise ValueError("rasterize needs scales and rotations, or "
                          "cov3d_precomp")
-    if quick and means2d_dummy is not None:
-        raise ValueError("means2d_dummy is read in RGB mode only")
+    if dense and quick:
+        raise ValueError("features and quick_weights are exclusive modes")
+    if (quick or dense or cascaded) and means2d_dummy is not None:
+        raise ValueError("means2d_dummy is read in RGB mode on the sort "
+                         "binning only")
+    if settings.impl == "auto":
+        if dense and any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in (
+                    means3d, opacities, viewmatrix, projmatrix, campos, bg,
+                    scales, rotations, cov3d_precomp, shs, colors_precomp)):
+            raise _later('dense features with a geometry gradient under '
+                         'impl="auto"', REFERENCE_RASTERIZER)
+        if cascaded and not quick:
+            raise _later('binning="cascade" for an RGB frame under '
+                         'impl="auto"', REFERENCE_RASTERIZER)
     dev = resolve_device(device)
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
     opacities = to_f32(opacities, dev)
     bg = to_f32(bg, dev).contiguous()
+    if dense:
+        return _rasterize_dense(settings, means3d, opacities, viewmatrix,
+                                projmatrix, campos, bg, scales, rotations,
+                                cov3d_precomp, shs, colors_precomp,
+                                to_f32(features, dev), dev, stage_events)
+    if cascaded:
+        return _rasterize_cascade(settings, means3d, opacities, viewmatrix,
+                                  projmatrix, campos, bg, scales, rotations,
+                                  cov3d_precomp, shs, colors_precomp,
+                                  quick_weights, quick_indices,
+                                  quick_channels, dev, stage_events)
     if fast16:
         b = fast16_binned(settings, means3d, opacities, viewmatrix,
                           projmatrix, campos, scales, rotations,
                           cov3d_precomp, shs, colors_precomp, quick_weights,
                           quick_indices, dev=dev, stage_events=stage_events)
+        topk = quick_weights.shape[1]
         rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
-            b.g, b.start, b.count, b.rows, bg, grid_x, grid_y,
-            quick_weights.shape[1], quick_channels, settings.feat_bf16)
+            b.g, b.start, b.count, b.rows, bg, grid_x, grid_y, topk,
+            quick_channels, settings.feat_bf16,
+            cells_bf16=settings.bf16_cells)
         return _assemble(settings, rgb_t, feat_t, t_t, b.proj.radius,
                          b.max_tile_count, b.total, b.live_total,
                          stage_events)
@@ -354,6 +417,65 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
                      max_tile_count, total, live_total, stage_events)
 
 
+def _rasterize_dense(settings, means3d, opacities, viewmatrix, projmatrix,
+                     campos, bg, scales, rotations, cov3d_precomp, shs,
+                     colors_precomp, features, dev, stage_events):
+    """Dense features: K1, the sort, K2's dense mode in DenseTrainBlend.
+    Without cov3d_precomp, the custom VJP's binning (pallas_train.py
+    :462-505: default cull, no live clamp, the map always assembled, no
+    live_total); with it, `_rasterize_pallas`'s dense branch."""
+    vjp = cov3d_precomp is None
+    if vjp:
+        defaults = RasterizeSettings._field_defaults
+        settings = settings._replace(cull_alpha=defaults["cull_alpha"],
+                                     live_entries=0, assemble=True)
+    proj, op = _preprocess_frozen(
+        settings, means3d, opacities, viewmatrix, projmatrix, campos, scales,
+        rotations, cov3d_precomp, shs, colors_precomp, dev, stage_events)
+    with torch.no_grad():
+        g_sorted, tile_start, tile_count, total, live_total = \
+            sorted_binning(settings, proj, op, stage_events)
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+    mark_stage(stage_events, "sort")
+    rgb_t, feat_t, t_t = train.DenseTrainBlend.apply(
+        features.contiguous(), g_sorted, tile_start, tile_count, geom, bg,
+        settings.grid_x, settings.grid_y)
+    return _assemble(settings, rgb_t, feat_t, t_t, proj.radius,
+                     tile_count.max(), total, None if vjp else live_total,
+                     stage_events)
+
+
+def _rasterize_cascade(settings, means3d, opacities, viewmatrix, projmatrix,
+                       campos, bg, scales, rotations, cov3d_precomp, shs,
+                       colors_precomp, quick_weights, quick_indices,
+                       quick_channels, dev, stage_events):
+    """binning="cascade" (`_rasterize_pallas` :369-397): K8's segments
+    blended by K2's f32 mode (rgb or quick), forward only. JAX's cascade
+    culls at alpha 1/255 whatever cull_alpha says (the rects follow it)."""
+    proj, op = _preprocess_frozen(
+        settings, means3d, opacities, viewmatrix, projmatrix, campos, scales,
+        rotations, cov3d_precomp, shs, colors_precomp, dev, stage_events)
+    with torch.no_grad():
+        g, start, count, total, overflow = cascade.cascade_binning(
+            proj, op, settings.grid_x, settings.grid_y, settings.max_entries,
+            inv_cull_alpha=255.0)
+        total = torch.where(overflow, torch.clamp(
+            total, min=settings.max_entries), total)
+        mark_stage(stage_events, "sort")
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
+        if quick_weights is None:
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g, start, count, geom, bg, settings.grid_x, settings.grid_y)
+        else:
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g, start, count, geom, bg, settings.grid_x, settings.grid_y,
+                to_f32(quick_weights, dev).contiguous(),
+                torch.as_tensor(quick_indices, device=dev).to(
+                    torch.int32).contiguous(), quick_channels)
+    return _assemble(settings, rgb_t, feat_t, t_t, proj.radius, count.max(),
+                     total, None, stage_events)
+
+
 def _assemble(settings, rgb_t, feat_t, t_t, radii, max_tile_count, total,
               live_total, stage_events) -> RasterizeOutput:
     """The quick modes' tail: the tiles to images (the feature map only
@@ -362,7 +484,7 @@ def _assemble(settings, rgb_t, feat_t, t_t, radii, max_tile_count, total,
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
     rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
-    if settings.assemble:
+    if settings.assemble and feat_t is not None:
         feat_t = rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
     final_t = rasterize_tiles.tiles_to_image(
         t_t[..., None], grid_x, grid_y, H, W)[0]
@@ -402,10 +524,11 @@ def rasterize_quick_query(settings: RasterizeSettings, means3d, opacities,
                       quick_weights, quick_indices, dev=dev,
                       stage_events=stage_events)
     with torch.no_grad():
+        topk = quick_weights.shape[1]
         rgb_t, raw, nrm2, t_t = blend.blend_tiles_query(
             b.g, b.start, b.count, b.rows, to_f32(bg, dev).contiguous(),
-            grid_x, grid_y, quick_weights.shape[1], phi.contiguous(),
-            gram.contiguous())
+            grid_x, grid_y, topk, phi.contiguous(), gram.contiguous(),
+            cells_bf16=settings.bf16_cells)
         mark_stage(stage_events, "blend")
         rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
         final_t = rasterize_tiles.tiles_to_image(

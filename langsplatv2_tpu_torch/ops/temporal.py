@@ -144,10 +144,12 @@ def rasterize_quick_steady(settings: RasterizeSettings, cache: BinCache,
                 g, starts, cache.kept, rows, bg, settings.grid_x,
                 settings.grid_y, topk,
                 torch.as_tensor(phi, dtype=torch.float32, device=dev),
-                torch.as_tensor(gram, dtype=torch.float32, device=dev))
+                torch.as_tensor(gram, dtype=torch.float32, device=dev),
+                cells_bf16=settings.bf16_cells)
         return blend.blend_tiles_fast16(
             g, starts, cache.kept, rows, bg, settings.grid_x, settings.grid_y,
-            topk, quick_channels, settings.feat_bf16)
+            topk, quick_channels, settings.feat_bf16,
+            cells_bf16=settings.bf16_cells)
 
 
 def motion_px(c2w0, c2w1, image_width: int, fovx: float,

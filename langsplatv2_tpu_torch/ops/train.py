@@ -28,6 +28,13 @@ tile's window of `cap` slots (ops/budget.py). Its backward projects first:
 
 `feature_grads_topk` launches csrc/feature_bwd_topk.cu on CUDA tensors and
 runs `feature_grads_topk_plain` on CPU tensors.
+
+Dense features (`DenseTrainBlend`, the custom VJP of pallas_train.py
+:459-570): K2's dense mode forward; backward K4 on the [T, 256, D]
+cotangent (rows of entries no tile blends are 0, as JAX masks entries past
+the tiles' ranges, :554-557) and an `index_add_` by g_sorted into
+d(features) [N, D]. Every other input gets no gradient (JAX's contract:
+zero, :519-522).
 """
 from __future__ import annotations
 
@@ -182,3 +189,32 @@ class QuickTrainBlend(torch.autograd.Function):
         dfeat = feature_grads(g_sorted, tile_start, tile_count, geom,
                               g_feat.contiguous(), *ctx.grid)
         return (reduce_to_gaussians(dfeat, g_sorted, quick_indices),) + none
+
+
+class DenseTrainBlend(torch.autograd.Function):
+    """K2's dense blend whose only gradient is d(features) [N, D], through
+    K4 and an index_add_ (the feature-phase contract of
+    pallas_train.py:519-522: geometry and binning state get none)."""
+
+    @staticmethod
+    def forward(ctx, features, g_sorted, tile_start, tile_count, geom, bg,
+                grid_x, grid_y):
+        rgb_t, feat_t, t_t = blend.blend_tiles_dense(
+            g_sorted, tile_start, tile_count, geom, features, bg, grid_x,
+            grid_y)
+        ctx.save_for_backward(g_sorted, tile_start, tile_count, geom)
+        ctx.grid = (grid_x, grid_y)
+        ctx.n = features.shape[0]
+        ctx.mark_non_differentiable(rgb_t, t_t)
+        return rgb_t, feat_t, t_t
+
+    @staticmethod
+    def backward(ctx, _g_rgb, g_feat, _g_t):
+        none = (None,) * 7
+        if g_feat is None:
+            return (None,) + none
+        g_sorted, tile_start, tile_count, geom = ctx.saved_tensors
+        dfeat = feature_grads(g_sorted, tile_start, tile_count, geom,
+                              g_feat.contiguous(), *ctx.grid)
+        d_features = torch.zeros((ctx.n, dfeat.shape[1]), device=dfeat.device)
+        return (d_features.index_add_(0, g_sorted.long(), dfeat),) + none

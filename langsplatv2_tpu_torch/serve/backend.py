@@ -4,7 +4,8 @@ The JSON request protocol of the reference `backend_renderer.py` ({c2w,
 width, height, fov_y, prompt, threshold, show_heatmap} -> JPEG bytes),
 served over ZMQ: REQ/REP (`run`) or a pipelined ROUTER (`run_pipelined`).
 A request renders the merged quick model at the fast16 serving precision
-(K1, K2's fast16 mode with a bf16 map), computes the Gram-space similarity
+(K1, K2's fast16 mode with a bf16 map; bf16_cells=True runs its cell
+math in bf16, as JAX's option does), computes the Gram-space similarity
 to the prompt (`_query_compose`) and, with compose="device", normalizes it,
 colours it with an analytic JET ramp, blends it 50/50 with the render and
 quantizes to uint8 on the card, so the host reads H*W*3 bytes. A pose
@@ -107,10 +108,6 @@ class BackendRenderer:
         if model.xyz.device.type != self.device.type:
             raise ValueError(f"the model is on {model.xyz.device}, the "
                              f"server on {self.device}")
-        if bf16_cells:
-            raise NotImplementedError(
-                "bf16_cells belongs to a later slice of the port: ROADMAP.md "
-                "Queue 2, K2's bf16_cells")
         if compose not in ("host", "device"):
             raise ValueError(f"compose must be 'host' or 'device', not "
                              f"{compose!r}")
@@ -125,6 +122,7 @@ class BackendRenderer:
         self.clip_model = clip_model or OpenCLIPNetwork(device=self.device)
         self.znear, self.zfar = znear, zfar
         self.max_entries, self.tile_cap = max_entries, tile_cap
+        self.bf16_cells = bf16_cells
         self.tile_budget = tile_budget
         self.tile_budget_cap = tile_budget_cap
         self.tile_budget_subdiv = tile_budget_subdiv
@@ -175,7 +173,8 @@ class BackendRenderer:
                 tanfovx=math.tan(fov_x / 2), tanfovy=math.tan(fov_y / 2),
                 sh_degree=self.model.active_sh_degree,
                 max_entries=self.max_entries, tile_cap=self.tile_cap,
-                precision="bf16", tile_budget=self.tile_budget,
+                precision="bf16", bf16_cells=self.bf16_cells,
+                tile_budget=self.tile_budget,
                 tile_budget_cap=self.tile_budget_cap,
                 tile_budget_subdiv=self.tile_budget_subdiv)
         return self._settings_cache[key], view, full, campos

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from langsplatv2_tpu_torch.ops import blend, expand, query
+from langsplatv2_tpu_torch.ops import blend, cascade, expand, query, train
 from langsplatv2_tpu_torch.ops import projection
 
 from torch_port_fixtures import camera, quick_pairs, scene
@@ -300,3 +300,138 @@ def test_blend_kernels_skip_non_finite_rows(cuda):
     for a, b in zip(out, ref):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+
+
+def test_band_rule_on_the_card(cuda):
+    """F1's smallest input (one tile, one Gaussian at (8, 8), slot 0 of
+    level 0 at index 100): fast16 K2 and K2q drop the out-of-band pair by
+    default, as their plain versions and JAX's banded kernel do; with
+    banded=False (JAX's unbanded kernel) fast16 K2 puts 0.5 * bf16(0.7)
+    there."""
+    T = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    qi = T([[100] + [64 * (j // 4) + j for j in range(1, 12)]]).int()
+    qw = T([[0.7] + [0.3 / 11] * 11])
+    rows = blend.pack_fast16_rows(T([[8.0, 8.0]]), T([[0.05, 0.0, 0.05]]),
+                                  T([0.5]), T([[0.2, 0.4, 0.6]]), qw, qi)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    args = (one, one, one + 1, rows, torch.zeros(3, device=cuda), 1)
+    centre = 8 * 16 + 8
+    out = blend.blend_tiles_fast16(*args, 1, 12, 192, False)
+    ref = blend.blend_tiles_fast16_plain(*args, 12, 192, False)
+    assert float(out[1][0, centre, 100]) == 0.0
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    off = blend.blend_tiles_fast16(*args, 1, 12, 192, False, banded=False)
+    assert abs(float(off[1][0, centre, 100]) - 0.5 * 0.69921875) < 1e-6
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    phi = torch.randn(3, 64, 2, device=cuda, generator=gen)
+    gram = torch.eye(64, device=cuda).repeat(3, 1, 1)
+    q = blend.blend_tiles_query(*args, 1, 12, phi, gram)
+    q_ref = blend.blend_tiles_query_plain(*args, 12, phi, gram)
+    for a, b in zip(q, q_ref):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["fast16", "query"])
+def test_bf16_cell_kernels_match_plain(cuda, fused):
+    """fast16 K2 and K2q with bf16 cells against their plain versions at
+    the fast16 contract: f32 outputs atol 3e-5 (K2q: rgb and T atol 3e-5,
+    raw and nrm2 1e-5 of their largest). The map (K2q: the scores) must
+    differ from the f32 cells' by more than ten times that limit, so that
+    a kernel that skipped the bf16 cell math fails."""
+    proj, ops, qw, qi, g, start, count, gx, gy = _fast16_case(cuda)
+    rows = blend.pack_fast16_rows(proj.xy, proj.conic, ops, proj.rgb, qw, qi)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    args = (g, start, count, rows, bg, gx)
+    if fused:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        cb = torch.randn(3, 64, 64, device=cuda, generator=gen)
+        phi = torch.einsum("lkd,pd->lkp", cb, torch.randn(
+            5, 64, device=cuda, generator=gen)).contiguous()
+        gram = torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+        out = blend.blend_tiles_query(*args, gy, 12, phi, gram,
+                                      cells_bf16=True)
+        ref = blend.blend_tiles_query_plain(*args, 12, phi, gram,
+                                            cells_bf16=True)
+        f32 = blend.blend_tiles_query(*args, gy, 12, phi, gram)
+        for i in (0, 3):
+            torch.testing.assert_close(out[i], ref[i], atol=3e-5, rtol=0)
+        for i in (1, 2):
+            scale = float(ref[i].abs().max())
+            assert float((out[i] - ref[i]).abs().max()) <= 1e-5 * scale
+        scale = float(f32[1].abs().max())
+        assert float((out[1] - f32[1]).abs().max()) > 1e-4 * scale
+    else:
+        out = blend.blend_tiles_fast16(*args, gy, 12, 192, False,
+                                       cells_bf16=True)
+        ref = blend.blend_tiles_fast16_plain(*args, 12, 192, False,
+                                             cells_bf16=True)
+        f32 = blend.blend_tiles_fast16(*args, gy, 12, 192, False)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+        assert float((out[1] - f32[1]).abs().max()) > 3e-4
+
+
+@pytest.mark.parametrize("d", [64, 192, 256])
+def test_dense_kernel_matches_plain(cuda, d):
+    """K2's dense mode against its plain version (atol 3e-5; D = 256 runs
+    as two channel groups), and the dense VJP's d(features) (K4 on the
+    dense cotangent, index_add_) against the plain chain (1e-5 of the
+    largest)."""
+    proj, ops, gx, gy = _case(cuda)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    feats = torch.rand(ops.shape[0], d, device=cuda, generator=gen)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    before = blend.blend_tiles_dense.launches
+    out = blend.blend_tiles_dense(g, start, count, geom, feats, bg, gx, gy)
+    assert blend.blend_tiles_dense.launches == before + len(
+        blend.dense_groups(d))
+    ref = blend.blend_tiles_dense_plain(g, start, count, geom, feats, bg, gx)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    f = feats.clone().requires_grad_(True)
+    cot = torch.randn(gx * gy, 256, d, device=cuda, generator=gen)
+    _, feat_t, _ = train.DenseTrainBlend.apply(f, g, start, count, geom, bg,
+                                               gx, gy)
+    (feat_t * cot).sum().backward()
+    dfeat = train.feature_grads_plain(g, start, count, geom, cot, gx)
+    want = torch.zeros_like(feats).index_add_(0, g.long(), dfeat)
+    scale = float(want.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(f.grad / scale, want / scale, atol=1e-5,
+                               rtol=0)
+
+
+def test_cascade_kernel_matches_plain_and_sort(cuda):
+    """K8 against its plain version (every output equal) and the sort
+    path's segments (equal, tile by tile); at a budget below the live total
+    the overflow flag is set and the kept total fits."""
+    proj, ops, gx, gy = _case(cuda)
+    before = cascade.cascade_binning.launches
+    out = cascade.cascade_binning(proj, ops, gx, gy, 2 ** 17)
+    assert cascade.cascade_binning.launches == before + 1
+    ref = cascade.cascade_binning_plain(proj, ops, gx, gy, 2 ** 17, 255.0)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    g, start, count, total, overflow = out
+    assert not bool(overflow) and int(total) > 0
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g_s, start_s, count_s = expand.sort_entries(tile, depth, gauss, gx * gy)
+    assert torch.equal(count, count_s)
+    n = int(total)
+    pos = torch.arange(n, device=cuda)
+    seg_c = torch.repeat_interleave(torch.arange(gx * gy, device=cuda),
+                                    count.long())
+    assert torch.equal(
+        g[start.long()[seg_c] + pos - (torch.cumsum(count, 0) - count)
+          .long()[seg_c]],
+        g_s[start_s.long()[seg_c] + pos - (torch.cumsum(count_s, 0)
+                                           - count_s).long()[seg_c]])
+    small = cascade.cascade_binning(proj, ops, gx, gy, 512)
+    small_ref = cascade.cascade_binning_plain(proj, ops, gx, gy, 512, 255.0)
+    assert bool(small[4]) and 0 < int(small[3]) <= 512
+    for a, b in zip(small, small_ref):
+        assert torch.equal(a, b)

@@ -225,17 +225,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     (dict(binning="cascade"), {}),
     (dict(binning="gauss"), {}),
     (dict(impl="xla"), {}),
-    ({}, dict(features=np.zeros((4, 64), np.float32))),
-    ({}, dict(features=np.zeros((4, 64), np.float32), quick_train=True)),
+    ({}, dict(features=np.zeros((4, 64), np.float32),
+              colors_precomp=torch.zeros((4, 3), requires_grad=True))),
+    ({}, dict(features=np.zeros((4, 64), np.float32),
+              cov3d_precomp=torch.zeros((4, 6), requires_grad=True))),
     (dict(tile_batch=32), {}),
     (dict(tile_batch=8), {}),
-    (dict(bf16_cells=True), {}),
-    (dict(bf16_cells=True, precision="bf16"),
+    (dict(binning="cascade", precision="bf16", bf16_cells=True), {}),
+    (dict(bf16_cells=True, precision="bf16", tile_batch=8),
      dict(quick_weights=np.ones((4, 4), np.float32),
           quick_indices=np.zeros((4, 4), np.int32), quick_channels=64)),
     (dict(pair_capacity=1024), {}),
 ])
 def test_later_slice_options_raise(change, kwargs):
+    """Options of later slices raise, naming their ROADMAP item: an RGB
+    frame on the cascade and dense features with a geometry gradient under
+    impl="auto" need the reference rasterizer (item 4)."""
     view, pm, tfx, tfy = camera(32, 32)
     s = RasterizeSettings(32, 32, tfx, tfy, 0)._replace(**change)
     z = np.zeros((4, 3), np.float32)
@@ -307,7 +312,8 @@ def test_feature_step_redo_leaves_model_untouched():
 
 def test_render_include_feature_runs_dense_features_raise():
     """Training mode renders (quick pairs from the logits); dense
-    `features=` into the training blend still raise."""
+    `features=` beside the training blend's quick pairs raise (the modes
+    are exclusive)."""
     f = model_fields(50, levels=1)
     f["language_logits"] = np.random.default_rng(0).normal(
         size=(50, 64)).astype(np.float32)
@@ -319,7 +325,7 @@ def test_render_include_feature_runs_dense_features_raise():
                  device="cpu")
     assert out.language_feature_weight_map.shape == (64, 32, 32)
     z = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="exclusive"):
         rasterize(s, z, np.ones((4, 1), np.float32), view, pm,
                   np.zeros(3, np.float32), np.zeros(3, np.float32),
                   scales=z, rotations=np.ones((4, 4), np.float32),

@@ -319,8 +319,7 @@ def test_temporal_serving_matches_jax(ring):
 def test_server_option_errors(ring):
     with pytest.raises(ValueError, match="budget-capped"):
         _port(ring, temporal_reuse_px=4.0)
-    with pytest.raises(NotImplementedError, match="bf16_cells"):
-        _port(ring, bf16_cells=True)
+    assert _port(ring, bf16_cells=True).bf16_cells   # ported: accepted
     with pytest.raises(ValueError, match="compose"):
         _port(ring, compose="gpu")
 
