@@ -126,13 +126,41 @@ Phases (any failure exits non-zero, and no result line is printed):
    K1 never), each equal to phase 4's frame bit for bit, K8 against its
    plain version and the sort segments (equal) and timed beside the sort
    stage (K1 + key sort), K2 on its segments timed, and an overflow probe
-   (budget half the kept total: the flag set, the total within it).
+   (budget half the kept total: the flag set, the total within it);
+17. the round-4 capped chain (scripts/profile_capped_stages.py:10-13) on
+   phase 4's scene and budgets, budget 1e-6, cap 128, subdiv 2: the
+   preprocess, K1 with_alpha, pack_lm_words, the sort carrying the word,
+   slice_windows, budget_counts_windowed, fast16 K2 on the kept counts, bf16
+   K3 and the relevancy tail, 5 frames at each load, counted (K1 with_alpha,
+   fast16 K2, bf16 K3 on every frame); K1 with_alpha against its plain
+   version (entries equal, lm within 2 f32 ulps, words equal) and timed
+   beside plain K1 and its bound; the windowed counts equal to
+   min(budget_counts, cap) on every tile; printed: kept against
+   budget_from_rows' (the share of equal tiles, the largest difference)
+   and the relevancy IoU against the exact bf16 frame beside phase 10's;
+18. K9, the cell-chain probe, on [512, 256, 256] in f32 and bf16, counted,
+   each against its plain version (f32 1e-5 of the largest, bf16 2 bf16
+   ulps of the largest), timed: G chains/s, the bf16/f32 ratio, the bound
+   with its basis, the SASS instructions a chain by unit, and the
+   ex2.approx.bf16x2 what-if (not K9's arithmetic);
+19. the eval drivers: the golden fixture (tests/golden/eval_golden.npz)
+   through the port on the card at atol 1e-5; evaluate_quick (hash CLIP
+   backend, Gram relevancy) on 4 annotated frames at 986x728, 4 prompts a
+   frame, GT from a seed, on the bench scene at the largest of 1M / 750k /
+   500k Gaussians whose frames all stay below make_settings' 2**21 entries
+   (fails if none does), counted (K1, K2, K3 on every frame) and timed a
+   frame (render + relevancy, segmentation, localization); LPIPS (VGG,
+   random weights) and evaluate_psnr on one frame, timed; evaluate (three
+   level models) against evaluate_quick (their merge) on a reduced scene
+   (50k Gaussians, 512x512): levels and localization equal, mean IoU
+   within 1e-4.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
 bf16 K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13; for
 K2 dense of phase 14, for the bf16-cell modes of phase 15, for K8 (entries
-that differ, 0) and K2 on its segments of phase 16) and, last,
+that differ, 0) and K2 on its segments of phase 16, for K1 with_alpha of
+phase 17 at both loads, for K9 of phase 18) and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -150,16 +178,20 @@ import time
 import numpy as np
 import torch
 
+from langsplatv2_tpu_torch.eval import lerf, psnr_eval
+from langsplatv2_tpu_torch.eval import lpips as lpips_mod
 from langsplatv2_tpu_torch.eval.openclip import OpenCLIPNetwork
 from langsplatv2_tpu_torch.models.gaussians import (create_from_pcd,
                                                     from_numpy_params,
                                                     init_language_features)
 from langsplatv2_tpu_torch.models.renderer import make_settings, render
-from langsplatv2_tpu_torch.ops import (blend, cascade, expand, gram, kernels,
-                                       projection, query, rasterize_tiles,
-                                       rgb_train, temporal, train)
+from langsplatv2_tpu_torch.ops import (blend, budget, cascade, expand, gram,
+                                       kernels, probe, projection, query,
+                                       rasterize_tiles, rgb_train, temporal,
+                                       train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
-    capped_binning, rasterize, rasterize_quick_query, sorted_binning
+    capped_binning, mark_stage, rasterize, rasterize_quick_query, \
+    sorted_binning
 from langsplatv2_tpu_torch.serve.backend import BackendRenderer
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
@@ -222,6 +254,13 @@ KERNELS = {
     "K2comb": ("blend_tiles[cascade segments]",
                "langsplatv2_tpu_torch/csrc/blend.cu",
                "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K1_with_alpha": ("expand_entries[with_alpha]",
+                      "langsplatv2_tpu_torch/csrc/expand.cu",
+                      "langsplatv2_tpu/ops/pallas_binning.py:498"),
+    "K9f32": ("cell_chain[f32]", "langsplatv2_tpu_torch/csrc/probe.cu",
+              "scripts/profile_vpu_bf16.py:53"),
+    "K9bf16": ("cell_chain[bf16]", "langsplatv2_tpu_torch/csrc/probe.cu",
+               "scripts/profile_vpu_bf16.py:53"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -293,15 +332,21 @@ def fail(msg: str):
     sys.exit(1)
 
 
+def _counter(w):
+    """A wrapper's launch counter: the function (its `launches`) or
+    (function, attribute name)."""
+    return w if isinstance(w, tuple) else (w, "launches")
+
+
 def zero_counts(wrappers) -> None:
     torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+    for w in wrappers.values():
+        setattr(*_counter(w), 0)
 
 
 def read_counts(wrappers) -> dict:
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in wrappers.items()}
+    return {k: getattr(*_counter(w)) for k, w in wrappers.items()}
 
 
 def bench_scene(n: int, seed: int = 0) -> dict:
@@ -2758,6 +2803,534 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
     return dict(reduced=reduced, loads=res, launches=launches)
 
 
+# ---------------------------- phase 17: the round-4 lm-payload capped chain
+
+def lm_chain_frame(model, s, view, pm, clip, consts, dev, events=None):
+    """scripts/profile_capped_stages.py:10-13's chain, from the functions
+    under their JAX names: the preprocess, K1 with_alpha (sub-box bounds),
+    pack_lm_words, the key sort carrying the word, slice_windows of the
+    sorted words, budget_counts_windowed, the [T*cap] windows of ids,
+    fast16 K2 on the kept counts, bf16 K3 and the relevancy tail. Stage
+    events as `render` names them, with "pack", "slice", "budget" and
+    "gather" between."""
+    cap, subdiv = CAPPED["cap"], CAPPED["subdiv"]
+    gx, gy, n_tiles = s.grid_x, s.grid_y, s.grid_x * s.grid_y
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    with torch.no_grad():
+        op = model.get_opacity()[:, 0].contiguous()
+        mark_stage(events, "start")
+        proj = projection.preprocess(
+            model.xyz, model.get_scaling(), model.get_rotation(),
+            model.get_features(), None, T(view), T(pm),
+            torch.zeros(3, device=dev), s.tanfovx, s.tanfovy, s.image_width,
+            s.image_height, 0, opacities=op, cull_alpha=s.cull_alpha)
+        mark_stage(events, "preprocess")
+        tile, depth, gauss, total, lm = expand.expand_entries(
+            proj, op, gx, gy, s.max_entries, with_alpha=subdiv)
+        mark_stage(events, "expand")
+        words = budget.pack_lm_words(lm)
+        mark_stage(events, "pack")
+        g_sorted, start, count, w_sorted = expand.sort_entries(
+            tile, depth, gauss, n_tiles, payload=words)
+        mark_stage(events, "sort")
+        win = tuple(budget.slice_windows(w, start, cap) for w in w_sorted)
+        mark_stage(events, "slice")
+        kept, sat = budget.budget_counts_windowed(
+            win, count, cap, subdiv * subdiv, CAPPED["tile_budget"])
+        kept = torch.clamp(kept, max=s.tile_cap)
+        mark_stage(events, "budget")
+        g_win = budget.slice_windows(g_sorted, start, cap).reshape(-1)
+        starts = torch.arange(n_tiles, dtype=torch.int32, device=dev) * cap
+        rows = blend.pack_fast16_rows(proj.xy, proj.conic, op, proj.rgb,
+                                      model.quick_weights,
+                                      model.quick_indices)
+        mark_stage(events, "gather")
+        bg = torch.zeros(3, device=dev)
+        _, feat_t, t_t = blend.blend_tiles_fast16(
+            g_win, starts, kept, rows, bg, gx, gy, L * TOPK, L * K, True)
+        mark_stage(events, "blend")
+        relev = clip.relevancy_from_tiles(feat_t, *consts, gx, gy,
+                                          s.image_height, s.image_width,
+                                          stage_events=events)
+    return dict(proj=proj, op=op, total=int(total), lm=lm, words=words,
+                start=start, count=count, w_sorted=w_sorted, kept=kept,
+                sat=sat, feat=feat_t, final_t=t_t, relev=relev)
+
+
+def check_k1_alpha(proj, op, s, timed: bool) -> dict:
+    """K1 with_alpha on a frame's inputs against its plain version:
+    entries equal, lm within 2 f32 ulps, the lm words equal; with `timed`,
+    its time beside plain K1's kernel, its plain version's and its bound
+    (K1's bytes + 4 s^2 B a slot; ~60 + 45 s^2 f32 operations an entry)."""
+    gx, gy, subdiv = s.grid_x, s.grid_y, CAPPED["subdiv"]
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    k1a = lambda: expand.expand_entries(  # noqa: E731
+        proj, op, gx, gy, s.max_entries, with_alpha=subdiv)
+    k1a_plain = lambda: expand.expand_entries_plain(  # noqa: E731
+        proj, op, offsets, gx, gy, s.max_entries, True,
+        float(np.float32(255.0)), subdiv)
+    out, ref = k1a(), k1a_plain()
+    mismatch = sum(int((a != b).sum()) for a, b in zip(out[:3], ref[:3]))
+    lm, lm_ref = out[4], ref[3]
+    spacing = torch.abs(torch.nextafter(lm_ref, torch.full_like(
+        lm_ref, -math.inf)) - lm_ref)
+    live = lm_ref != 0
+    ulps = float(((lm - lm_ref).abs()[live] / spacing[live]).max())
+    words_differ = sum(int((a != b).sum()) for a, b in zip(
+        budget.pack_lm_words(lm), budget.pack_lm_words(lm_ref)))
+    r = dict(max_abs_err=float((lm - lm_ref).abs().max()), lm_ulps=ulps,
+             entries_differ=mismatch, words_differ=words_differ,
+             total=int(out[3]))
+    if mismatch or ulps > 2.0 or words_differ:
+        fail(f"K1 with_alpha differs from its plain version: {r}")
+    del out, ref, lm, lm_ref, spacing, live
+    if timed:
+        n = op.shape[0]
+        n_on = int((proj.tiles_touched > 0).sum())
+        r["ms"] = cuda_ms(k1a, 20)[0]
+        r["plain_ms"] = cuda_ms(k1a_plain, 3)[0]
+        r["k1_ms"] = cuda_ms(lambda: expand.expand_entries(
+            proj, op, gx, gy, s.max_entries), 20)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = bound(
+            n * 12 + n_on * 44 + s.max_entries * (12 + 4 * subdiv ** 2),
+            r["total"] * (CULL_FLOPS + 45 * subdiv ** 2))
+    return r
+
+
+def lm_capped_chain(model, clip, consts, plans, capped_iou, dev) -> dict:
+    """Phase 17: the round-4 capped chain on phase 4's scene and budgets,
+    budget 1e-6, cap 128, subdiv 2: counted frames at both loads (K1 with
+    with_alpha, fast16 K2 and bf16 K3 on every frame), then on each load's
+    inputs K1 with_alpha against its plain version and timed, the windowed
+    counts against min(budget_counts, cap) on every tile, the kept counts
+    beside budget_from_rows' (printed; the bounds differ by design) and
+    the relevancy IoU against the exact bf16 frame."""
+    wrappers = {"K1": expand.expand_entries,
+                "K1_with_alpha": (expand.expand_entries, "alpha_launches"),
+                "K2f16": blend.blend_tiles_fast16,
+                "K3bf16": query.query_map_tiles_bf16}
+    zero_counts(wrappers)
+    runs = {}
+    for name, (s, view, pm) in plans.items():
+        host_ms, stages = [], []
+        for _ in range(FRAMES):
+            events = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lm_chain_frame(model, s, view, pm, clip, consts, dev,
+                                 events)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            stages.append({b[0]: a[1].elapsed_time(b[1])
+                           for a, b in zip(events, events[1:])})
+        runs[name] = (out, host_ms, stages)
+    launches = read_counts(wrappers)
+    n_frames = FRAMES * len(plans)
+    log(f"launches on the lm-capped chain ({n_frames} frames): {launches}")
+    if not all(v == n_frames for v in launches.values()):
+        fail(f"a kernel of the lm-capped chain missed a frame: {launches}")
+
+    results = {}
+    cap, t_budget = CAPPED["cap"], CAPPED["tile_budget"]
+    for name, (s, view, pm) in plans.items():
+        out, host_ms, stages = runs.pop(name)
+        checks = {
+            "total < max_entries": out["total"] < s.max_entries,
+            "finite": all(bool(torch.isfinite(t).all()) for t in (
+                out["feat"], out["final_t"], out["relev"])),
+            "kept <= min(count, cap)": bool((out["kept"] <= torch.clamp(
+                out["count"], max=cap)).all()),
+        }
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"{name} lm chain: checks failed: {bad}")
+        r = dict(frame_ms_median=statistics.median(host_ms),
+                 frame_ms=host_ms,
+                 stage_ms_median={k: statistics.median(st[k] for st in stages)
+                                  for k in stages[0]},
+                 total_entries=out["total"],
+                 live_total=int(out["count"].sum()),
+                 kept_total=int(out["kept"].sum()))
+        n_box = CAPPED["subdiv"] ** 2
+        kept_all = budget.budget_counts(
+            budget.unpack_lm_words(out["w_sorted"], n_box), out["start"],
+            out["count"], t_budget)
+        differ = int((torch.clamp(kept_all, max=cap) != out["kept"]).sum())
+        r["windowed_vs_budget_counts_differ"] = differ
+        if differ:
+            fail(f"{name}: budget_counts_windowed differs from "
+                 f"min(budget_counts, cap) on {differ} tiles")
+        capped_s = bf16_variants(s)["capped"]
+        _, _, kept_rows, _, _ = capped_binning(capped_s, out["proj"],
+                                               out["op"], True)
+        diff = (kept_rows - out["kept"]).abs()
+        r["kept_vs_budget_from_rows"] = dict(
+            tiles_equal_share=float((diff == 0).float().mean()),
+            max_abs_diff=int(diff.max()), kept_rows_total=int(kept_rows.sum()))
+        exact, _ = frame(model, bf16_variants(s)["exact"], view, pm, clip,
+                         consts, dev)
+        masks = [relevancy_mask(*query.query_map_tiles(t, *consts))
+                 for t in (exact.language_feature_weight_map, out["feat"])]
+        r["relevancy_iou_vs_exact"] = int((masks[0] & masks[1]).sum()) / max(
+            int((masks[0] | masks[1]).sum()), 1)
+        r["phase10_capped_iou"] = capped_iou[name]
+        del exact, masks
+        r["K1_with_alpha"] = check_k1_alpha(out["proj"], out["op"], s,
+                                            timed=True)
+        results[name] = r
+        log(f"{name} lm chain: frame median {r['frame_ms_median']:.3f} ms; "
+            f"total {r['total_entries']}, live {r['live_total']}, kept "
+            f"{r['kept_total']} (budget_from_rows "
+            f"{r['kept_vs_budget_from_rows']['kept_rows_total']}); tiles "
+            f"with equal kept {r['kept_vs_budget_from_rows']!r}; windowed "
+            f"vs budget_counts differ on {differ} tiles; relevancy IoU vs "
+            f"exact {r['relevancy_iou_vs_exact']!r} (phase 10 capped "
+            f"{r['phase10_capped_iou']!r})")
+        log(f"{name} lm chain stages (median ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["stage_ms_median"].items()))
+        log(f"{name} K1_with_alpha: " + ", ".join(
+            f"{a} {b!r}" for a, b in r["K1_with_alpha"].items()))
+        del out, kept_all, kept_rows
+        torch.cuda.empty_cache()
+    return dict(loads=results, launches=launches)
+
+
+# --------------------------------------------- phase 18: K9, the cell probe
+
+PROBE_BLOCKS = 512                      # profile_vpu_bf16.py's vmapped batch
+PROBE_OPS = 8     # f32 ops a chain besides exp: 2 mul, 2 cmp, select, add,
+                  # mul, add
+SFU_PER_CLOCK_SM = 16   # MUFU results a clock an SM: 4 a partition (planning)
+
+
+# SASS opcodes by the unit that issues them (Hopper: 128 FP32 lanes and 16
+# MUFU results a clock an SM; FSETP / FSEL / conversions run elsewhere).
+SASS_CLASSES = {"fp32": ("FFMA", "FMUL", "FADD"), "mufu": ("MUFU",),
+                "packed_bf16": ("HFMA2", "HMUL2", "HADD2"),
+                "compare_select": ("FSETP", "FSEL", "HSETP2", "PLOP3",
+                                   "SEL"),
+                "convert": ("F2F", "F2FP", "PRMT", "SHF", "IMAD.U32")}
+
+
+def sass_per_chain() -> dict:
+    """Instructions a chain of K9's kernels, by class, from cuobjdump's
+    SASS of the built library (the 64 repetitions are unrolled; a bf16
+    thread runs two chains). Empty when cuobjdump is absent."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    dump = subprocess.run([tool, "-sass", str(kernels.build()[0])],
+                          capture_output=True, text=True, timeout=120)
+    if dump.returncode != 0:
+        log(f"cuobjdump failed ({dump.returncode}): {dump.stderr[-500:]}")
+        return {}
+    sass = dump.stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = ("f32" if "chain_f32" in name else "bf16"
+                  if "chain_bf16ILb0" in name else "bf16_ex2"
+                  if "chain_bf16ILb1" in name else None)
+            if fn:
+                counts[fn] = dict.fromkeys(("all", *SASS_CLASSES), 0)
+            continue
+        if fn is None or "/*" not in line or ";" not in line:
+            continue
+        op = line.split("*/", 1)[1].strip().split()[0]
+        if op.startswith("@"):
+            op = line.split("*/", 1)[1].strip().split()[1]
+        if op != "NOP":
+            counts[fn]["all"] += 1
+        for cls, prefixes in SASS_CLASSES.items():
+            if any(op == p or op.startswith(p + ".") for p in prefixes):
+                counts[fn][cls] += 1
+    return {fn: {cls: n / (probe.REPS * (1 if fn == "f32" else 2))
+                 for cls, n in c.items()} for fn, c in counts.items()}
+
+
+def cell_probe(dev) -> dict:
+    """Phase 18: K9 in f32 and bf16 on [512, 256, 256], counted, each
+    against its plain version (f32 1e-5 of the largest, bf16 2 bf16 ulps
+    of the largest), timed beside its plain version and its bound; the
+    rates in G chains/s, the bf16/f32 ratio, and the ex2.approx.bf16x2
+    what-if (not K9's arithmetic) timed beside it."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((PROBE_BLOCKS, 256, 256), generator=gen, device=dev) \
+        * 2 - 1
+    chains = x.numel() * probe.REPS
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_rate = n_sm * SFU_PER_CLOCK_SM * clock_mhz * 1e6
+    t_ops = chains * PROBE_OPS / F32_FLOPS * 1e3
+    t_exp = chains / sfu_rate * 1e3
+    t_bytes = x.numel() * 8 / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_exp, t_bytes)
+    basis = (f"max of bytes {t_bytes:.4f} ms (8 B an element), f32 ops "
+             f"{t_ops:.4f} ms ({PROBE_OPS} a chain at 67 TFLOP/s) and exp "
+             f"{t_exp:.4f} ms (one a chain at {n_sm} SMs x "
+             f"{SFU_PER_CLOCK_SM} a clock x {clock_mhz:.0f} MHz = "
+             f"{sfu_rate / 1e12:.3f} T/s, a planning estimate)")
+    zero_counts({"K9": probe.cell_chain})
+    outs = {d: probe.cell_chain(x, dt) for d, dt in
+            (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    launches = read_counts({"K9": probe.cell_chain})["K9"]
+    if launches != 2:
+        fail(f"K9 launched {launches} times, not 2")
+    res = dict(blocks=PROBE_BLOCKS, chains=chains, bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= max(t_ops, t_exp)
+               else "operations", bound_basis=basis, launches=launches,
+               exp_bound_ms=t_exp, ops_bound_ms=t_ops)
+    for d, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ref = probe.cell_chain_plain(x, dt)
+        big = float(ref.abs().max())
+        err = float((outs[d] - ref).abs().max())
+        lim = (1e-5 * big if d == "f32"
+               else 2 * 2.0 ** (math.floor(math.log2(big)) - 7))
+        r = dict(max_abs_err=err, limit=lim, largest=big,
+                 elements_differ=int((outs[d] != ref).sum()))
+        if not err <= lim:
+            fail(f"K9 {d} differs from its plain version by {err} "
+                 f"(limit {lim})")
+        del ref
+        r["ms"] = cuda_ms(lambda: probe.cell_chain(x, dt), 10)[0]
+        r["plain_ms"] = cuda_ms(lambda: probe.cell_chain_plain(x, dt), 1)[0]
+        r["library_ms"] = None
+        r["bound_ms"], r["bound_by"] = res["bound_ms"], res["bound_by"]
+        r["gchains_per_s"] = chains / (r["ms"] * 1e-3) / 1e9
+        res[d] = r
+    out = torch.empty_like(x)
+    what_if = lambda: kernels.launch(  # noqa: E731
+        "lsv2_cell_chain", kernels.ptr(x), kernels.ptr(out), x.numel(), 2,
+        kernels.stream(x))
+    res["bf16_ex2_what_if_ms"] = cuda_ms(what_if, 10)[0]
+    res["bf16_ex2_what_if_err"] = float((out - outs["bf16"]).abs().max())
+    res["bf16_over_f32_rate"] = res["f32"]["ms"] / res["bf16"]["ms"]
+    res["sass_per_chain"] = sass_per_chain()
+    # What each rate alone would take: every instruction at one warp
+    # instruction a clock a scheduler (4 an SM, 128 lanes), the FP32-pipe
+    # ones at 128 lanes a clock an SM, MUFU at SFU_PER_CLOCK_SM.
+    lane_rate = n_sm * 128 * clock_mhz * 1e6
+    res["pipe_ms"] = {fn: dict(
+        issue=chains * c["all"] / lane_rate * 1e3,
+        fp32_pipe=chains * (c["fp32"] + c["packed_bf16"]) / lane_rate * 1e3,
+        mufu=chains * c["mufu"] / sfu_rate * 1e3)
+        for fn, c in res["sass_per_chain"].items()}
+    log(f"K9 SASS a chain: {res['sass_per_chain']}; issue-rate times "
+        f"{res['pipe_ms']}")
+    log(f"K9 cell probe on {x.shape}: f32 {res['f32']['ms']:.4f} ms = "
+        f"{res['f32']['gchains_per_s']:.1f} G chains/s, bf16 "
+        f"{res['bf16']['ms']:.4f} ms = {res['bf16']['gchains_per_s']:.1f} "
+        f"G chains/s, bf16/f32 rate {res['bf16_over_f32_rate']:.3f}; bound "
+        f"{bound_ms:.4f} ms ({basis}); bf16 with ex2.approx.bf16x2 (what-if) "
+        f"{res['bf16_ex2_what_if_ms']:.4f} ms, {res['bf16_ex2_what_if_err']}"
+        f" from K9 bf16")
+    for d in ("f32", "bf16"):
+        log(f"K9 {d}: " + ", ".join(f"{a} {b!r}" for a, b in res[d].items()))
+    del x, out, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------- phase 19: the eval drivers
+
+EVAL_H, EVAL_W = 728, 986               # the LERF eval resolution
+EVAL_SIZES = (1_000_000, 750_000, 500_000)
+EVAL_YAWS = (-4.0, -1.5, 1.5, 4.0)      # 4 annotated frames
+EVAL_PROMPTS = ("teddy bear", "coffee mug", "book", "plant")
+EVAL_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                 "K3": query.query_map_tiles}
+
+
+def eval_gt(seed: int, n_frames: int, h: int, w: int) -> dict:
+    """Rectangular GT masks and their boxes (x1 y1 x2 y2), from a seed."""
+    rng = np.random.default_rng(seed)
+    gt_ann = {}
+    for j in range(n_frames):
+        ann = {}
+        for p in EVAL_PROMPTS:
+            bh, bw = rng.integers(h // 8, h // 3), rng.integers(w // 8, w // 3)
+            y0, x0 = rng.integers(0, h - bh), rng.integers(0, w - bw)
+            m = np.zeros((h, w), bool)
+            m[y0:y0 + bh, x0:x0 + bw] = True
+            ann[p] = {"mask": m, "bboxes": np.array([x0, y0, x0 + bw,
+                                                     y0 + bh])}
+        gt_ann[str(j)] = ann
+    return gt_ann
+
+
+def level_models(n: int, h: int, w: int, seed: int, dev):
+    """Three per-level models (one layer of K codes each) on the bench
+    scene's geometry, logits and codebooks from a seed, and their merge."""
+    base = bench_scene(n, seed)
+    rng = np.random.default_rng(seed + 50)
+    models = []
+    for _ in range(L):
+        f = {k: v for k, v in base.items()
+             if k not in ("quick_weights", "quick_indices", "codebooks")}
+        f["language_logits"] = rng.normal(size=(n, K)).astype(np.float32)
+        f["codebooks"] = rng.normal(size=(1, K, DIM)).astype(np.float32)
+        models.append(from_numpy_params(f, device=dev))
+    return models, lerf.merge_level_models(models)
+
+
+def eval_path(dev) -> dict:
+    """Phase 19: the golden fixture on the card; evaluate_quick at full
+    width (the bench scene at the largest of EVAL_SIZES whose 4 frames all
+    stay inside make_settings' 2**21 entries), counted and timed a frame
+    by stage; evaluate against evaluate_quick on a reduced scene; LPIPS and
+    PSNR on one frame."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_port_fixtures import check_golden_eval, golden_eval
+
+    res = {"golden": check_golden_eval(golden_eval(dev))}
+    log(f"golden eval fixture on the card: largest differences "
+        f"{res['golden']} (atol 1e-5)")
+
+    cams = train_cameras("eval", EVAL_YAWS, EVAL_H, EVAL_W)
+    gt_ann = eval_gt(7, len(cams), EVAL_H, EVAL_W)
+    tried = {}
+    for n in EVAL_SIZES:
+        model = from_numpy_params(bench_scene(n), device=dev)
+        totals = []
+        with torch.no_grad():
+            for cam in cams:
+                out = render(make_settings(cam, 0)._replace(assemble=False),
+                             model, cam.world_view_transform,
+                             cam.full_proj_transform, cam.camera_center,
+                             np.zeros(3, np.float32), quick_render=True,
+                             device=dev)
+                totals.append(int(out.total_entries))
+        tried[n] = totals
+        if max(totals) < 2 ** 21:
+            break
+        del model
+    else:
+        fail(f"every eval frame overflows 2**21 entries at every size: "
+             f"{tried}")
+    log(f"eval scene: {n} Gaussians; total entries a frame {totals} "
+        f"(2**21 = {2 ** 21}); tried {tried}")
+    clip = OpenCLIPNetwork("hash", device=dev)
+    lerf.evaluate_quick(model, cams[:1], {"0": gt_ann["0"]}, (EVAL_H, EVAL_W),
+                        clip, device=dev)                       # warm-up
+    zero_counts(EVAL_WRAPPERS)
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = lerf.evaluate_quick(model, cams, gt_ann, (EVAL_H, EVAL_W),
+                                  clip, device=dev, stage_events=events)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(EVAL_WRAPPERS)
+    if not all(v == len(cams) for v in launches.values()):
+        fail(f"a kernel of evaluate_quick missed a frame: {launches}")
+    split = {"render + relevancy": [], "segmentation": [], "localization": []}
+    marks = {}
+    for (name, ev) in events:
+        if name == "start":
+            marks = {"start": ev}
+        marks[name] = ev
+        if name == "localization":
+            split["render + relevancy"].append(
+                marks["start"].elapsed_time(marks["relevancy"]))
+            split["segmentation"].append(
+                marks["relevancy"].elapsed_time(marks["segmentation"]))
+            split["localization"].append(
+                marks["segmentation"].elapsed_time(marks["localization"]))
+    n_prompts = len(cams) * len(EVAL_PROMPTS)
+    if not (metrics["num_prompts"] == n_prompts
+            and 0.0 <= metrics["mean_iou"] <= 1.0
+            and len(split["localization"]) == len(cams)):
+        fail(f"evaluate_quick: {metrics}, {len(split['localization'])} "
+             "frames timed")
+    res["evaluate_quick"] = dict(
+        gaussians=n, totals=totals, tried=tried, metrics=metrics,
+        wall_ms=wall_ms, frame_ms=wall_ms / len(cams), launches=launches,
+        stage_ms_median={k: statistics.median(v) for k, v in split.items()})
+    log(f"evaluate_quick, {len(cams)} frames at {EVAL_W}x{EVAL_H}, "
+        f"{n} Gaussians: mean_iou {metrics['mean_iou']!r}, localization "
+        f"accuracy {metrics['localization_accuracy']!r}, {wall_ms:.1f} ms "
+        f"({wall_ms / len(cams):.1f} a frame); device medians a frame "
+        + ", ".join(f"{k} {v:.3f} ms"
+                    for k, v in res["evaluate_quick"]["stage_ms_median"]
+                    .items()) + f"; launches {launches}")
+
+    rgb = render(make_settings(cams[0], 0), model,
+                 cams[0].world_view_transform, cams[0].full_proj_transform,
+                 cams[0].camera_center, np.zeros(3, np.float32),
+                 device=dev).render
+    del model
+    torch.cuda.empty_cache()
+    img = torch.rand(rgb.shape, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    params = lpips_mod.random_params("vgg", seed=0)
+    net = lpips_mod.LPIPS(params, "vgg").to(dev)
+    with torch.no_grad():
+        ms, dist = cuda_ms(lambda: net(rgb[None], img[None]), 3)
+    cam_gt = Camera(0, cams[0].R, cams[0].T, cams[0].FoVx, cams[0].FoVy,
+                    rgb.clamp(0, 1).cpu().numpy() * 0.9, "psnr", 0)
+    model = from_numpy_params(bench_scene(n), device=dev)
+    t0 = time.perf_counter()
+    mean_psnr, _ = psnr_eval.evaluate_psnr(model, [cam_gt], device=dev)
+    psnr_ms = (time.perf_counter() - t0) * 1e3
+    if not (math.isfinite(float(dist[0])) and float(dist[0]) > 0
+            and math.isfinite(mean_psnr)):
+        fail(f"LPIPS {dist} or PSNR {mean_psnr} is not finite")
+    res["lpips_psnr"] = dict(lpips_vgg=float(dist[0]), lpips_ms=ms,
+                             psnr=mean_psnr, psnr_ms=psnr_ms)
+    log(f"LPIPS (VGG, random weights) on a {EVAL_W}x{EVAL_H} frame: "
+        f"{float(dist[0])!r}, {ms:.3f} ms; evaluate_psnr of one frame "
+        f"{mean_psnr:.3f} dB, {psnr_ms:.1f} ms (host clock)")
+    del model, net
+    torch.cuda.empty_cache()
+
+    models, merged = level_models(50_000, 512, 512, 1, dev)
+    rcams = train_cameras("reduced", (-2.0, 2.0), 512, 512)
+    rgt = eval_gt(11, len(rcams), 512, 512)
+    clip.set_positives(list(EVAL_PROMPTS))
+    full = lerf.evaluate(models, rcams, rgt, (512, 512), clip, device=dev)
+    quick = lerf.evaluate_quick(merged, rcams, rgt, (512, 512), clip,
+                                gram_relevancy=False, device=dev)
+    gram = lerf.evaluate_quick(merged, rcams, rgt, (512, 512), clip,
+                               device=dev)
+    d_iou = abs(full["mean_iou"] - quick["mean_iou"])
+    res["evaluate_vs_quick"] = dict(full=full, quick=quick, gram=gram,
+                                    mean_iou_diff=d_iou)
+    log(f"evaluate (3 level models) vs evaluate_quick (their merge) on "
+        f"50k Gaussians at 512x512: mean IoU {full['mean_iou']!r} / "
+        f"{quick['mean_iou']!r} (diff {d_iou}, limit 1e-4), levels "
+        f"{full['chosen_levels']} / {quick['chosen_levels']}, localization "
+        f"{full['localization_accuracy']} / "
+        f"{quick['localization_accuracy']}; the Gram route "
+        f"{gram['mean_iou']!r}, levels {gram['chosen_levels']}")
+    if not (d_iou <= 1e-4 and full["chosen_levels"] == quick["chosen_levels"]
+            and full["localization_accuracy"]
+            == quick["localization_accuracy"]):
+        fail("evaluate and evaluate_quick disagree on the reduced scene")
+    del models, merged
+    torch.cuda.empty_cache()
+    return res
+
+
+def new_kernel_rows(lmc, probe_res) -> dict:
+    """The kernels line's rows of phases 17 and 18 (K1 with_alpha timed at
+    1080p; K9 f32 and bf16)."""
+    r = lmc["loads"]["1080p"]["K1_with_alpha"]
+    rows = {"K1_with_alpha": dict(
+        r, launches=lmc["launches"]["K1_with_alpha"],
+        max_abs_err=max(v["K1_with_alpha"]["max_abs_err"]
+                        for v in lmc["loads"].values()))}
+    for d in ("f32", "bf16"):
+        rows[f"K9{d}"] = dict(probe_res[d], launches=probe_res["launches"])
+    return rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2808,6 +3381,9 @@ def main() -> None:
                 if v in ("exact", "capped")}
          for name, load in bf16["loads"].items()}, dev)
     casc = cascade_serving(model, clip, consts, plans, dev)
+    lmc = lm_capped_chain(
+        model, clip, consts, plans,
+        {k: v["relevancy_iou"] for k, v in bf16["loads"].items()}, dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -2820,6 +3396,10 @@ def main() -> None:
     cpath = capped_train_path(dev)
     torch.cuda.empty_cache()
     dpath = dense_path(dev)
+    torch.cuda.empty_cache()
+    probe_res = cell_probe(dev)
+    eval_res = eval_path(dev)
+    new_rows = new_kernel_rows(lmc, probe_res)
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -2870,6 +3450,9 @@ def main() -> None:
             err = max([v[k]["max_abs_err"] for v in casc["loads"].values()]
                       + ([casc["reduced"]["max_abs_err"]] if k == "K8"
                          else []))
+        elif k in new_rows:
+            r = new_rows[k]
+            launches, err = r["launches"], r["max_abs_err"]
         elif k == "K2q":
             loads = fused["loads"]
             r = loads["1080p"]["exact"][k]
@@ -2902,8 +3485,9 @@ def main() -> None:
                        bf16_serving=bf16, fused_query_serving=fused,
                        serving_server=server, capped_train_path=cpath,
                        dense_path=dpath, dense_serving=dserve,
-                       bf16_cells_serving=cells, cascade_serving=casc), f,
-                  indent=1)
+                       bf16_cells_serving=cells, cascade_serving=casc,
+                       lm_capped_chain=lmc, cell_probe=probe_res,
+                       eval_path=eval_res), f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))

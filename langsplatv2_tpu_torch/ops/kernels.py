@@ -24,11 +24,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# expand.cu, cascade.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu and
-# rgb_bwd.cu round every f32 op on its own (no fused multiply-add), as their
-# plain PyTorch versions do: the entry sets of K1 and K8 and the alpha /
-# termination tests of K2 then agree bit for bit, and K4, K5 and K7 replay
-# K2's blend weights exactly. Headers (csrc/*.cuh) enter the build hash.
+# expand.cu, cascade.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu,
+# rgb_bwd.cu and probe.cu round every f32 op on its own (no fused
+# multiply-add), as their plain PyTorch versions do: the entry sets of K1
+# and K8, the alpha / termination tests of K2 and K9's compares then agree
+# bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
+# Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "cascade.cu": ["-fmad=false"],
@@ -38,6 +39,7 @@ SOURCES = {
     "feature_bwd_topk.cu": ["-fmad=false"],
     "gram.cu": [],
     "rgb_bwd.cu": ["-fmad=false"],
+    "probe.cu": ["-fmad=false"],
     "errors.cu": [],
 }
 
@@ -46,8 +48,10 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 ENTRY_POINTS = {
     # xy depth conic opacity rect_min rect_max tiles offsets n grid_x
-    # max_entries sentinel exact_cull inv_cull_alpha tile depth gauss stream
-    "lsv2_expand_entries": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 4,
+    # max_entries sentinel exact_cull inv_cull_alpha tile depth gauss subdiv
+    # lm stream
+    "lsv2_expand_entries": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 3 + [_I]
+    + [_P] * 2,
     # g_sorted tile_start tile_count geom qw qi bg num_tiles grid_x topk
     # channels rgb feat final_t stats stream
     "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
@@ -80,6 +84,8 @@ ENTRY_POINTS = {
     "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
     # g_sorted tile_start tile_count geom pack num_tiles grid_x dgrad stream
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
+    # in out n mode stream
+    "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P],
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument

@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from langsplatv2_tpu_torch.ops import blend, cascade, expand, query, train
+from langsplatv2_tpu_torch.ops import blend, budget, cascade, expand, probe, \
+    query, train
 from langsplatv2_tpu_torch.ops import projection
 
-from torch_port_fixtures import camera, quick_pairs, scene
+from torch_port_fixtures import (camera, check_golden_eval, golden_eval,
+                                 quick_pairs, scene)
 
 
 @pytest.fixture
@@ -435,3 +437,59 @@ def test_cascade_kernel_matches_plain_and_sort(cuda):
     assert bool(small[4]) and 0 < int(small[3]) <= 512
     for a, b in zip(small, small_ref):
         assert torch.equal(a, b)
+
+
+def f32_ulps(a, b):
+    """|a - b| in f32 ulps of b, elementwise."""
+    a, b = a.double(), b.double()
+    spacing = torch.from_numpy(np.spacing(np.abs(b.cpu().numpy()).astype(
+        np.float32)).astype(np.float64)).to(b.device)
+    return (a - b).abs() / spacing
+
+
+@pytest.mark.parametrize("subdiv", [1, 2, 4])
+def test_expand_with_alpha_kernel_matches_plain(cuda, subdiv):
+    """K1 with_alpha: entries equal, lm within 2 f32 ulps (the kernel and
+    torch round op by op in the same order), the lm words equal."""
+    proj, ops, gx, gy = _case(cuda)
+    before = expand.expand_entries.alpha_launches
+    tile, depth, gauss, total, lm = expand.expand_entries(
+        proj, ops, gx, gy, 2 ** 17, with_alpha=subdiv)
+    assert expand.expand_entries.alpha_launches == before + 1
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    ref = expand.expand_entries_plain(proj, ops, offsets, gx, gy, 2 ** 17,
+                                      True, 255.0, subdiv)
+    for a, b in zip((tile, depth, gauss), ref):
+        assert torch.equal(a, b)
+    assert lm.shape == ref[3].shape == (subdiv * subdiv, 2 ** 17)
+    assert float(f32_ulps(lm, ref[3]).max()) <= 2.0
+    assert int((lm[:, int(total):] != 0).sum()) == 0
+    for a, b in zip(budget.pack_lm_words(lm), budget.pack_lm_words(ref[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cell_chain_kernel_matches_plain(cuda, dtype):
+    """K9 against its plain version on 4 blocks: f32 within 1e-5 of the
+    largest, bf16 within 2 bf16 ulps of the largest."""
+    x = torch.rand((4, 256, 256), generator=torch.Generator().manual_seed(0))
+    x = (2 * x - 1).to(cuda)
+    before = probe.cell_chain.launches
+    out = probe.cell_chain(x, dtype)
+    assert probe.cell_chain.launches == before + 1
+    ref = probe.cell_chain_plain(x, dtype)
+    big = float(ref.abs().max())
+    assert 30.0 < big < 64.0 and out.dtype == torch.float32
+    err = float((out - ref).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * big
+    else:
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
+
+
+def test_golden_eval_on_the_card(cuda):
+    """tests/golden/eval_golden.npz through the port on the card (K1, K2,
+    K3) at the fixture test's atol 1e-5."""
+    check_golden_eval(golden_eval(cuda))

@@ -6,6 +6,7 @@ reference and the port, so the two sides see identical float32 inputs.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -82,3 +83,101 @@ def within_one_bf16_ulp(a, b, slack):
     a, b = a.float(), b.float()
     ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30))) - 7)
     return bool(((a - b).abs() <= ulp + slack).all())
+
+
+GOLDEN_EVAL = Path(__file__).resolve().parent / "golden" / "eval_golden.npz"
+
+
+def golden_eval(device) -> dict:
+    """The port's numbers for tests/golden/eval_golden.npz: the scene of
+    scripts/make_golden_eval.py::compute (seed 42, 2,000 Gaussians,
+    160x224, 3 levels x 64 codes, top-4 a level, 3 hash prompts, the same
+    draws in the same order) rendered with impl="pallas" and the port's
+    defaults (JAX's tile_cap 2048 and tile_batch 4 are read only by its
+    reference rasterizer). Relevancy through the tiles and the Gram query
+    (K3 on the card), and through the decoded map (get_max_across_quick);
+    segmentation and localization on the first. Imports no JAX."""
+    from langsplatv2_tpu_torch.eval import processing
+    from langsplatv2_tpu_torch.eval.openclip import OpenCLIPNetwork
+    from langsplatv2_tpu_torch.ops import rasterize_tiles
+    from langsplatv2_tpu_torch.ops.rasterize import (RasterizeSettings,
+                                                     rasterize)
+
+    h, w, n, levels, k, topk, n_prompt = 160, 224, 2000, 3, 64, 4, 3
+    rng = np.random.default_rng(42)
+    means = np.concatenate([rng.uniform(-3, 3, (n, 2)),
+                            rng.uniform(2.0, 9.0, (n, 1))], axis=1
+                           ).astype(np.float32)
+    scales = rng.uniform(0.02, 0.12, (n, 3)).astype(np.float32)
+    rots = rng.normal(size=(n, 4)).astype(np.float32)
+    ops = rng.uniform(0.3, 0.95, (n, 1)).astype(np.float32)
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    qw = rng.uniform(0, 1, (n, levels * topk)).astype(np.float32)
+    qw /= qw.sum(1, keepdims=True)
+    qi = np.concatenate([rng.integers(0, k, (n, topk)) + lvl * k
+                         for lvl in range(levels)], 1).astype(np.int32)
+    codebooks = rng.normal(size=(levels, k, 512)).astype(np.float32)
+    codebooks /= np.linalg.norm(codebooks, axis=2, keepdims=True)
+
+    view, pm, tfx, tfy = camera(h, w)
+    s = RasterizeSettings(image_height=h, image_width=w, tanfovx=tfx,
+                          tanfovy=tfy, sh_degree=0, max_entries=2 ** 17,
+                          impl="pallas", assemble=False)
+    zeros = np.zeros(3, np.float32)
+    with torch.no_grad():
+        out = rasterize(s, means, ops, view, pm, zeros, zeros, scales=scales,
+                        rotations=rots, colors_precomp=cols,
+                        quick_weights=qw, quick_indices=qi,
+                        quick_channels=levels * k, device=device)
+        clip = OpenCLIPNetwork(backend="hash", device=device)
+        prompts = [f"prompt {i}" for i in range(n_prompt)]
+        clip.set_positives(prompts)
+        cb = torch.as_tensor(codebooks, device=device)
+        rel_gram = clip.relevancy_from_tiles(
+            out.feature_map, *clip.prompt_constants(cb), s.grid_x, s.grid_y,
+            h, w)
+        wmap = rasterize_tiles.tiles_to_image(out.feature_map, s.grid_x,
+                                              s.grid_y, h, w)
+        feats = torch.einsum("lkd,lkp->ldp", cb, wmap.reshape(levels, k,
+                                                              h * w))
+        feats = feats / (torch.linalg.norm(feats, dim=1, keepdim=True)
+                         + 1e-10)
+        rel_decode = clip.get_max_across_quick(
+            feats.reshape(levels, 512, h, w).permute(0, 2, 3, 1))
+    gt_masks, gt_boxes = {}, {}
+    for i, p in enumerate(prompts):
+        m = np.zeros((h, w), np.uint8)
+        y0, x0 = 20 + 30 * i, 30 + 40 * i
+        m[y0:y0 + 60, x0:x0 + 80] = 1
+        gt_masks[p] = m
+        gt_boxes[p] = np.asarray([[x0, y0, x0 + 80, y0 + 60]])
+    chosen_iou, chosen_lvl, _ = processing.segmentation_process(
+        rel_gram, 0.4, gt_masks, prompts)
+    hits = processing.localization_process(rel_gram, gt_boxes, prompts)
+    return {
+        "rel_gram": rel_gram.cpu().numpy(),
+        "rel_decode": rel_decode.cpu().numpy(),
+        "chosen_iou": np.asarray(chosen_iou, np.float32),
+        "chosen_lvl": np.asarray(chosen_lvl, np.int32),
+        "localization_hits": np.asarray(hits, np.int32),
+        "total_entries": int(out.total_entries),
+    }
+
+
+def check_golden_eval(vals: dict, atol: float = 1e-5) -> dict:
+    """Hold golden_eval's numbers to the fixture at the fixture test's own
+    atol: rel_gram, chosen_iou, chosen_lvl, localization_hits, and the
+    decoded route's relevancy against the fixture's rel_gram (whose own
+    decode sits 2.7e-7 from it). Returns the largest differences."""
+    ref = np.load(GOLDEN_EVAL)
+    assert vals["total_entries"] < 2 ** 17, "the golden frame overflowed"
+    errs = {}
+    for key, ref_key in (("rel_gram", "rel_gram"), ("rel_decode", "rel_gram"),
+                         ("chosen_iou", "chosen_iou"),
+                         ("chosen_lvl", "chosen_lvl"),
+                         ("localization_hits", "localization_hits")):
+        np.testing.assert_allclose(vals[key], ref[ref_key], atol=atol,
+                                   rtol=0, err_msg=key)
+        errs[key] = float(np.abs(vals[key].astype(np.float64)
+                                 - ref[ref_key]).max())
+    return errs
