@@ -5,11 +5,17 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. environment: GPU name and power limit (nvidia-smi), torch and CUDA;
-2. build: nvcc builds the kernels from langsplatv2_tpu_torch/csrc;
+2. build: nvcc builds the kernels from langsplatv2_tpu_torch/csrc; for
+   each instantiation of K2 (csrc/blend.cu) ptxas's registers, stack and
+   spill bytes and its occupancy at the main path's width (blocks and
+   warps an SM, shared bytes); fails on a spill;
 3. kernel checks on a reduced scene (50k Gaussians, 512x512): each CUDA
    kernel against its plain PyTorch version on the card — K1 expansion
    exact, K2 blend (quick and rgb) atol 3e-5, K2 f32 and fast16 on rows
    with NaN / inf xy or conic atol 3e-5, K3 query rtol/atol 1e-5;
+   wherever a K2 mode is held against its plain version (phases 3, 5,
+   7-16), its pair counts (`stats`) must also equal
+   blend.pair_counts_plain on the same inputs;
 4. the main path at full width: the bench scene (1M Gaussians, seed 0;
    3 levels x 64 codes x 512-d, top-4 a level = 12 pairs, 192 channels),
    1 positive + 4 negative prompts, render(quick_render=True) +
@@ -81,7 +87,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    version (rgb and T atol 3e-5, raw and nrm2 1e-5 of their largest) and
    against the unfused routes (f32 tiles + f32 K3: 5e-3 of the largest;
    bf16 tiles + bf16 K3: raw 1e-5, nrm2 5e-3), timed beside its bound and
-   the unfused pair (fast16 K2 + bf16 K3);
+   the unfused pair (fast16 K2 + bf16 K3); then a torch.profiler trace of
+   one 1080p frame of phase 10 (exact) and one fused frame: the device's
+   busy share and the five largest kernels;
 13. the render server (serve/backend.py) in process at 986x728 on phase
    4's scene, as bench.py:1073-1119 drives it: compose="device", prompt
    "object", budget 1e-6, cap 128, temporal_reuse_px 4, reuse_zref 2, 24
@@ -170,6 +178,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -423,6 +432,50 @@ def stage_inputs(model, settings, view, pm, clip_consts, dev):
                 phi=clip_consts[0], gram=clip_consts[1])
 
 
+# K2's instantiations (csrc/blend.cu's template arguments kFast16, kQuery,
+# kCells, kDense and kOwn, the threads a pixel), the kernels line's rows
+# that run each, and the width of the main path's launches (rgb: the
+# geometry step's forward, and dense at D = 192, phase 14's map: no row
+# of their own).
+K2_MODES = {(0, 0, 0, 0, 3): ("f32", ("K2", "K2comb"), L * K, L * TOPK),
+            (0, 0, 0, 0, 1): ("rgb", (), 0, 0),
+            (1, 0, 0, 0, 3): ("fast16", ("K2f16",), L * K, L * TOPK),
+            (1, 0, 1, 0, 3): ("fast16 cells", ("K2f16cells",), L * K,
+                              L * TOPK),
+            (1, 1, 0, 0, 3): ("query", ("K2q",), L * K, L * TOPK),
+            (1, 1, 1, 0, 3): ("query cells", ("K2qcells",), L * K, L * TOPK),
+            (0, 0, 0, 1, 3): ("dense", (), L * K, 0),
+            (0, 0, 0, 1, 1): ("dense narrow", ("K2dense",), TRAIN_K, 0)}
+
+
+def k2_build_report() -> dict:
+    """Phase 2: ptxas's line for each K2 instantiation (registers, stack,
+    spill bytes) and its occupancy at the main path's width (blocks and
+    warps an SM, shared bytes); fails on a spill or a missing
+    instantiation."""
+    rep = {}
+    for r in kernels.ptxas_report("blend.cu"):
+        m = re.search(r"blend_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
+                      r["name"])
+        if m is None:
+            continue
+        mode, rows, width, topk = K2_MODES[tuple(int(v) for v in m.groups())]
+        occ = blend.kernel_occupancy(mode, width, topk)
+        rep[mode] = dict(ptxas=r, occupancy=occ, rows=rows)
+        log(f"K2 {mode}: ptxas: {r['line']}; {r['stack']} bytes stack "
+            f"frame, {r['spill_stores']} bytes spill stores, "
+            f"{r['spill_loads']} bytes spill loads; at C = {width}: "
+            f"{occ['blocks_per_sm']} block(s) of {occ['threads']} threads, "
+            f"{occ['warps_per_sm']} warps an SM, {occ['smem_bytes']} bytes "
+            f"of shared memory, {occ['local_bytes']} local bytes")
+    if len(rep) != len(K2_MODES) or any(
+            v["ptxas"]["spill_stores"] or v["ptxas"]["spill_loads"]
+            or v["occupancy"]["blocks_per_sm"] < 1 for v in rep.values()):
+        fail(f"K2: an instantiation is missing, spills or does not fit: "
+             f"{rep}")
+    return rep
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel against its plain version, reduced scene."""
     h = w = 512
@@ -453,10 +506,14 @@ def check_kernels(dev) -> dict:
         fail("K1 expansion differs from its plain version or overflowed")
 
     args = (x["g"], x["start"], x["count"], x["geom"], x["bg"], gx)
-    out = blend.blend_tiles(*args, gy, x["qw"], x["qi"], L * K)
+    stats = torch.zeros((2, 2), dtype=torch.int64, device=dev)
+    out = blend.blend_tiles(*args, gy, x["qw"], x["qi"], L * K,
+                            stats=stats[0])
     ref = blend.blend_tiles_plain(*args, x["qw"], x["qi"], L * K)
-    rgb_only = blend.blend_tiles(*args, gy)
+    rgb_only = blend.blend_tiles(*args, gy, stats=stats[1])
     rgb_ref = blend.blend_tiles_plain(*args)
+    for st in stats:
+        check_counts("K2 f32 (reduced scene)", st, *args[:4], gx)
     diffs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
     diffs.append(float((rgb_only[0] - rgb_ref[0]).abs().max()))
     errs["K2"] = max(diffs)
@@ -593,6 +650,19 @@ def max_diff(pairs) -> float:
     return max(float((a - b).abs().max()) for a, b in pairs)
 
 
+def check_counts(label: str, stats, g, start, count, geom, gx: int,
+                 cells: bool = False) -> tuple[int, int]:
+    """K2's pair counts (`stats`, evaluated and included) against
+    pair_counts_plain on the same segments: integers, so equal. geom
+    [N, 9] (the unpacked rows for fast16)."""
+    got = (int(stats[0]), int(stats[1]))
+    want = blend.pair_counts_plain(g, start, count, geom, gx, cells)
+    if got != want:
+        fail(f"{label}: K2's pair counts {got} differ from "
+             f"pair_counts_plain's {want}")
+    return got
+
+
 def kernels_at_main_shapes(model, clip, consts, plans, dev) -> dict:
     """Phase 5: at each load, every kernel (through its wrapper) on the
     main path's inputs, held against its plain version on the same inputs
@@ -632,7 +702,7 @@ def kernels_at_main_shapes(model, clip, consts, plans, dev) -> dict:
         args = (x["g"], x["start"], x["count"], x["geom"], x["bg"], gx)
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
         blend.blend_tiles(*args, gy, x["qw"], x["qi"], L * K, stats=stats)
-        n_eval, n_inc = (int(v) for v in stats)
+        n_eval, n_inc = check_counts(f"{name} K2 f32", stats, *args[:4], gx)
         k2 = lambda: blend.blend_tiles(*args, gy, x["qw"], x["qi"],  # noqa: E731
                                        L * K)
         k2_plain = lambda: blend.blend_tiles_plain(  # noqa: E731
@@ -762,6 +832,8 @@ def train_step_inputs(model, cam, max_entries: int, live: int, dev) -> dict:
         _, wmap, _ = blend.blend_tiles(g, start, count, geom,
                                        torch.zeros(3, device=dev), gx, gy, qw,
                                        qi, TRAIN_K, stats=stats)
+        check_counts("K2 f32 (feature step)", stats, g, start, count, geom,
+                     gx)
         table, seg = cam.get_language_feature_compact(GT_DIR, 1)
         table, seg = T(table), T(seg)
         rhs, gfull = gram.prep(model.codebooks, table, 0)
@@ -1053,6 +1125,8 @@ def rgb_step_inputs(model, cam, max_entries: int, dev) -> dict:
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
         rgb_t, _, t_t = blend.blend_tiles(g, start, count, geom, zero3, gx,
                                           gy, stats=stats)
+        check_counts("K2 rgb (geometry step)", stats, g, start, count, geom,
+                     gx)
     rgb_l = rgb_t.clone().requires_grad_(True)
     img = rasterize_tiles.tiles_to_image(rgb_l, gx, gy, s.image_height,
                                          s.image_width)
@@ -1424,8 +1498,11 @@ def check_fast16(x, s, timed: bool, cells: bool = False) -> dict:
     if not (ulps <= 1.0 and t_err <= 3e-5):
         fail(f"fast16 K2 (bf16 outputs, cells {cells}) differs from its "
              f"plain version: {ulps} ulp, final T {t_err}")
+    n_eval, n_inc = check_counts(
+        f"fast16 K2 (cells {cells})", stats, x["g"], x["start"], x["count"],
+        blend.unpack_fast16_rows(x["rows"], L * TOPK)[0], gx, cells)
     r.update(max_abs_err=max(err, t_err), bf16_ulps=ulps, t_err=t_err,
-             pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]),
+             pairs_evaluated=n_eval, pairs_included=n_inc,
              distinct_gaussians=x["distinct"])
     del out, ref
     if timed:
@@ -1615,6 +1692,8 @@ def check_query_kernel(x, s, consts, timed: bool) -> dict:
     out = blend.blend_tiles_query(*seg, gx, gy, L * TOPK, phi, gram,
                                   stats=stats)
     ref = blend.blend_tiles_query_plain(*seg, gx, L * TOPK, phi, gram)
+    check_counts("K2q", stats, *seg[:3],
+                 blend.unpack_fast16_rows(x["rows"], L * TOPK)[0], gx)
     r = dict(max_abs_err=max_diff(zip(out, ref)),
              rgb_t_err=max(float((out[i] - ref[i]).abs().max())
                            for i in (0, 3)),
@@ -1731,6 +1810,32 @@ def fused_query_serving(model, clip, consts, plans, bf16_frames,
             torch.cuda.empty_cache()
         results[name] = res
     return dict(loads=results, launches=launches)
+
+
+def frame_traces(model, clip, consts, plans, dev) -> dict:
+    """Phase 12 (end): torch.profiler over one 1080p frame of the serving
+    default (fast16 rows, bf16 map, exact) and one fused-query frame: the
+    device's busy share (its summed kernel time over the frame's host
+    clock; "not measured" where key_averages shows no device time) and the
+    five largest kernels by device time."""
+    s, view, pm = plans["1080p"]
+    sv = bf16_variants(s)["exact"]
+    res = {}
+    for key, fn in (
+            ("fast16 frame", lambda: frame(model, sv, view, pm, clip, consts,
+                                           dev)),
+            ("fused frame", lambda: query_frame(model, sv, view, pm, clip,
+                                                consts, dev))):
+        with torch.no_grad():
+            d = device_split(fn, top=5)
+        d["busy_share"] = (d["device_total"] / d["wall"]
+                           if d["device_total"] > 0 else "not measured")
+        res[key] = d
+        log(f"1080p {key} trace: device busy {d['busy_share']} "
+            f"({d['device_total']:.1f} us of kernels over a "
+            f"{d['wall']:.1f} us frame, {d['launches']} launches); largest: "
+            + "; ".join(f"{k} {v:.1f} us" for k, v in d["kernels"].items()))
+    return res
 
 
 # ------------------------------ phase 13: the render server, temporal reuse
@@ -2077,6 +2182,7 @@ def capped_step_inputs(model, cam, max_entries: int, dev) -> dict:
         _, wmap, _ = blend.blend_tiles(g, start, kept, geom,
                                        torch.zeros(3, device=dev), gx, gy, qw,
                                        qi, TRAIN_K, stats=stats)
+        check_counts("K2 f32 (capped step)", stats, g, start, kept, geom, gx)
         table, seg = cam.get_language_feature_compact(GT_DIR, 1)
         rhs, gfull = gram.prep(model.codebooks, T(table), 0)
         cot = gram.gram_tiles_bwd(gram.seg_to_tiles(T(seg), gx, gy), wmap,
@@ -2297,6 +2403,7 @@ def check_dense(x, gx: int, gy: int, feats, timed: bool) -> dict:
     stats = torch.zeros(2, dtype=torch.int64, device=feats.device)
     out = blend.blend_tiles_dense(*args, feats, x["bg"], gx, gy, stats=stats)
     ref = blend.blend_tiles_dense_plain(*args, feats, x["bg"], gx)
+    check_counts(f"K2 dense (D = {feats.shape[1]})", stats, *args, gx)
     r = dict(max_abs_err=max_diff(zip(out, ref)), channels=feats.shape[1],
              groups=len(blend.dense_groups(feats.shape[1])),
              pairs_evaluated=int(stats[0]), pairs_included=int(stats[1]))
@@ -2479,6 +2586,8 @@ def dense_serving(model, plans, dev) -> dict:
         args = (x["g"], x["start"], x["count"], x["geom"], feats, x["bg"],
                 s.grid_x, s.grid_y)
         blend.blend_tiles_dense(*args, stats=stats)
+        check_counts(f"{name} K2 dense (D = 192)", stats, *args[:4],
+                     s.grid_x)
         r = dict(vs_quick_frame=err, ms=cuda_ms(
             lambda: blend.blend_tiles_dense(*args), 3)[0])
         r["bound_ms"], r["bound_by"] = dense_bound(
@@ -2507,6 +2616,8 @@ def check_query_cells(x, s, consts, timed: bool) -> dict:
     ref = blend.blend_tiles_query_plain(*seg, gx, L * TOPK, phi, gram,
                                         cells_bf16=True)
     f32 = blend.blend_tiles_query(*seg, gx, gy, L * TOPK, phi, gram)
+    check_counts("K2q (bf16 cells)", stats, *seg[:3],
+                 blend.unpack_fast16_rows(x["rows"], L * TOPK)[0], gx, True)
     r = dict(max_abs_err=max_diff(zip(out, ref)),
              rgb_t_err=max(float((out[i] - ref[i]).abs().max())
                            for i in (0, 3)),
@@ -2767,6 +2878,8 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
                 x["qw"], x["qi"], L * K)
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
         blend.blend_tiles(*args, stats=stats)
+        check_counts(f"{name} K2 combined", stats, g, start, count,
+                     x["geom"], s.grid_x)
         k2 = dict(ms=cuda_ms(lambda: blend.blend_tiles(*args), 10)[0],
                   max_abs_err=max_diff(zip(
                       blend.blend_tiles(*args),
@@ -3352,6 +3465,7 @@ def main() -> None:
     kernels.library()
     log(f"kernel build: {build_s:.1f} s ({time.perf_counter() - t0:.1f} s "
         "with load)")
+    k2_report = k2_build_report()
 
     errs = check_kernels(dev)
 
@@ -3373,6 +3487,7 @@ def main() -> None:
         {name: {v: r["frame_ms_median"] for v, r in load.items()
                 if v in ("exact", "capped")}
          for name, load in bf16["loads"].items()}, dev)
+    traces = frame_traces(model, clip, consts, plans, dev)
     server = serving_server(model, clip, consts, plans, dev)
     dserve = dense_serving(model, plans, dev)
     cells = bf16_cells_serving(
@@ -3473,6 +3588,13 @@ def main() -> None:
             launches=launches, max_abs_err=err, ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        occ = next((v["occupancy"] for v in k2_report.values()
+                    if k in v["rows"]), None)
+        if occ is not None:
+            log(f"{k}: {r['ms']:.4f} ms on the path's inputs (bound "
+                f"{r['bound_ms']:.4f}),"
+                f" {occ['blocks_per_sm']} block(s) = {occ['warps_per_sm']} "
+                f"warps an SM, {occ['registers']} registers a thread")
     elapsed = time.perf_counter() - t_start
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3486,6 +3608,7 @@ def main() -> None:
                        serving_server=server, capped_train_path=cpath,
                        dense_path=dpath, dense_serving=dserve,
                        bf16_cells_serving=cells, cascade_serving=casc,
+                       k2_build=k2_report, frame_traces=traces,
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res), f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")

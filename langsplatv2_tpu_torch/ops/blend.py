@@ -45,8 +45,17 @@ the plain versions round at the same points with torch's bf16 arithmetic.
 Dense mode (`blend_tiles_dense`, K2's mode="dense", pallas_blend.py
 :342-346): the f32 blend of each entry's own feature row F[g] (F [N, D]
 f32) into [T, 256, D], in channel groups of at most 192 a launch.
+
+Pair counts (`pair_counts_plain`): the (evaluated, included) pairs that
+each mode's `stats` counts, from `replay_positions`; they are integers,
+so the kernel's must equal them. The kernel walks a segment in batches of
+BATCH entries (DENSE_BATCH in dense mode, NARROW_BATCH in dense launches
+of at most NARROW_DENSE columns, RGB_BATCH without channels), the numbers
+the card tests place segment and termination boundaries around.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,6 +68,12 @@ FAST16_PAIRS = 12      # (index, weight) slots of a fast16 row
 QUERY_MAX_LEVELS = 3   # fused query: 192 channels fill shared memory
 LEVEL_BAND = 64        # codebook rows a level band
 DENSE_GROUP = 192      # dense mode: channels a launch (shared accumulators)
+BATCH = 24             # csrc/blend.cu kQuickBatch: entries a batch
+DENSE_BATCH = 8        # csrc/blend.cu kDenseBatch
+NARROW_BATCH = 32      # csrc/blend.cu kNarrowBatch
+NARROW_DENSE = 64      # csrc/blend.cu kNarrowDense
+RGB_BATCH = 96         # csrc/blend.cu kRgbBatch
+F32_MAX_PAIRS = 27     # f32 quick mode: a batch's raw words fit 2 a thread
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -144,7 +159,7 @@ def pixel_coords(n_tiles: int, grid_x: int, device):
 
 
 def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
-                     cells_bf16: bool = False):
+                     cells_bf16: bool = False, evaluated=None):
     """The blend's per-position loop, vectorized over tiles and pixels: for
     each depth position j of the tiles' segments yields (j, live [T] bool,
     g [T] Gaussian ids, row [T, 9] state, w [T, 256] blend weights, T
@@ -152,7 +167,8 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
     sequence, or with `cells_bf16` its bf16 cell math (the transmittance
     exp(S), S the f32 sum of the included pairs' bf16 log1p(-alpha)). Stops
     once every pixel has ended (checked every 32 positions); later weights
-    would all be 0."""
+    would all be 0. `evaluated` (int64 [T, 256]), if given, gets 1 added
+    for each position a pixel reaches, its terminating one included."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
     px, py = pixel_coords(n_tiles, grid_x, dev)
@@ -185,6 +201,8 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
         valid = (live[:, None] & ~done & (power <= 0.0)
                  & (alpha >= ALPHA_MIN))
         ends = valid & (test_t < T_EPS)
+        if evaluated is not None:
+            evaluated += live[:, None] & ~done
         done |= ends
         inc = valid & ~ends
         w = torch.where(inc, wb, 0.0)
@@ -194,6 +212,42 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
         else:
             T = torch.where(inc, test_t, T)
         yield j, live, g, row, w, T
+
+
+def pair_counts_plain(g_sorted, tile_start, tile_count, geom, grid_x,
+                      cells_bf16: bool = False) -> tuple[int, int]:
+    """(evaluated, included) (entry, pixel) pairs as K2's `stats` counts
+    them: a pixel evaluates each entry of its tile's segment up to and
+    including the one that ends it (all of them if none does), whether
+    its pair is skipped or not; it includes those whose blend weight is
+    added. geom [N, 9] (`unpack_fast16_rows` for fast16 rows)."""
+    n_tiles = tile_start.shape[0]
+    evaluated = torch.zeros((n_tiles, P), dtype=torch.int64,
+                            device=geom.device)
+    included = torch.zeros((), dtype=torch.int64, device=geom.device)
+    for _j, _live, _g, _row, w, _T in replay_positions(
+            g_sorted, tile_start, tile_count, geom, grid_x, cells_bf16,
+            evaluated):
+        included += (w > 0).sum()
+    return int(evaluated.sum()), int(included)
+
+
+def kernel_occupancy(mode: str, channels: int, topk: int) -> dict:
+    """K2's instantiation `mode` ("f32", "fast16", "fast16 cells", "query",
+    "query cells", "dense", "rgb": the f32 blend without channels, "dense
+    narrow": dense launches of at most 64 columns) at this width (CUDA
+    only): resident blocks and warps an SM, dynamic shared bytes,
+    registers and local (spill, stack) bytes a thread, from the CUDA
+    runtime."""
+    code = {"f32": (0, 0), "fast16": (1, 0), "fast16 cells": (1, 1),
+            "query": (2, 0), "query cells": (2, 1), "dense": (3, 0),
+            "rgb": (4, 0), "dense narrow": (5, 0)}[mode]
+    out = (ctypes.c_int * 5)()
+    kernels.launch("lsv2_blend_occupancy", *code, channels, topk,
+                   ctypes.cast(out, ctypes.c_void_p))
+    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
+                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
+                threads=out[4])
 
 
 def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
@@ -236,9 +290,11 @@ def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
     (pack_gaussian_state), bg [3] f32; quick mode: quick_weights [N, S]
     f32, quick_indices [N, S] i32 in [0, channels). The feature map has no
     background term. On CUDA the channel accumulators share one block's
-    shared memory; more channels than fit (209 at S=12) make the
-    launch raise with the kernel's CUDA error. `stats` (CUDA only): an int64 [2] tensor that gets
-    the count of evaluated and of included (entry, pixel) pairs added."""
+    shared memory; more channels than fit (194 at S = 12) make the launch
+    raise with the kernel's CUDA error, and S is at most F32_MAX_PAIRS.
+    `stats` (CUDA only): an int64 [2] tensor that gets the count of
+    evaluated and of included (entry, pixel) pairs added
+    (`pair_counts_plain`)."""
     dev = geom.device
     n_tiles = grid_x * grid_y
     quick = channels > 0
@@ -263,6 +319,9 @@ def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
                              (n, topk), dev)
         kernels.check_tensor(quick_indices, "quick_indices", torch.int32,
                              (n, topk), dev)
+        if topk > F32_MAX_PAIRS:
+            raise ValueError(f"the f32 quick blend takes at most "
+                             f"{F32_MAX_PAIRS} pairs a Gaussian, not {topk}")
     if stats is not None:
         kernels.check_tensor(stats, "stats", torch.int64, (2,), dev)
     rgb = torch.empty((n_tiles, P, 3), device=dev)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,11 +30,13 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # multiply-add), as their plain PyTorch versions do: the entry sets of K1
 # and K8, the alpha / termination tests of K2 and K9's compares then agree
 # bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
+# blend.cu is built with ptxas's report (registers, shared memory, spills
+# of each instantiation), kept in BUILD_DIR/blend.log: `ptxas_report`.
 # Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "cascade.cu": ["-fmad=false"],
-    "blend.cu": ["-fmad=false"],
+    "blend.cu": ["-fmad=false", "-Xptxas=-v"],
     "query.cu": [],
     "feature_bwd.cu": ["-fmad=false"],
     "feature_bwd_topk.cu": ["-fmad=false"],
@@ -86,6 +89,8 @@ ENTRY_POINTS = {
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
     # in out n mode stream
     "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P],
+    # mode cells channels topk out[5]
+    "lsv2_blend_occupancy": [_I] * 4 + [_P],
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument
@@ -134,6 +139,7 @@ def build() -> tuple[Path, float]:
     failures = []
     for name, _obj, proc in jobs:
         out, _ = proc.communicate()
+        (BUILD_DIR / f"{Path(name).stem}.log").write_text(out)
         if proc.returncode != 0:
             failures.append(f"--- nvcc {name} (exit {proc.returncode})\n{out}")
     if failures:
@@ -165,6 +171,28 @@ def library() -> ctypes.CDLL:
         lib.lsv2_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def ptxas_report(source: str = "blend.cu") -> list[dict]:
+    """ptxas's report of each kernel of `source` from its build log:
+    (mangled name, registers, stack frame, spill store and load bytes)."""
+    log = BUILD_DIR / f"{Path(source).stem}.log"
+    rows, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(name=m.group(1))
+            rows.append(cur)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            cur["line"] = line.strip()
+    return rows
 
 
 def launch(name: str, *args) -> None:

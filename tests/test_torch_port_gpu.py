@@ -493,3 +493,175 @@ def test_golden_eval_on_the_card(cuda):
     """tests/golden/eval_golden.npz through the port on the card (K1, K2,
     K3) at the fixture test's atol 1e-5."""
     check_golden_eval(golden_eval(cuda))
+
+
+# K2's batch boundaries: tile segments of kB - 1, kB, kB + 1 and 3 kB + 5
+# entries (kB: blend.BATCH, or blend.DENSE_BATCH in dense mode), an empty
+# tile, and a tile whose centre pixel ends on the last entry of its first
+# batch; each mode against its plain version at the existing limits, its
+# stats equal to pair_counts_plain.
+
+def _batch_case(dev, kb: int, seed: int = 0):
+    """(g, start, count, geom [N, 9], qw [N, 12], unbanded qi [N, 12] in
+    [0, 192), banded qi with about one index in ten out of its level's
+    band, grid_x, grid_y, the ending tile, its centre pixel)."""
+    rng = np.random.default_rng(seed)
+    counts = [kb - 1, kb, kb + 1, 3 * kb + 5, 0, 2 * kb, 2 * kb + 3, 1]
+    gx, gy, end_tile, centre = 4, 2, 5, 8 * 16 + 8
+    rows = []
+    for t, c in enumerate(counts):
+        ox, oy = (t % gx) * 16, (t // gx) * 16
+        r = np.zeros((c, 9), np.float32)
+        r[:, 0] = ox + rng.uniform(-4, 20, c)
+        r[:, 1] = oy + rng.uniform(-4, 20, c)
+        s = rng.uniform(2.0, 9.0, (c, 2))
+        r[:, 2] = 1 / s[:, 0] ** 2
+        r[:, 3] = rng.uniform(-0.3, 0.3, c) / (s[:, 0] * s[:, 1])
+        r[:, 4] = 1 / s[:, 1] ** 2
+        r[:, 5] = rng.uniform(0.2, 0.95, c)
+        r[:, 6:9] = rng.uniform(0, 1, (c, 3))
+        if t == end_tile:
+            # kb - 1 wide entries of alpha a at the centre, (1 - a)^(kb-1)
+            # = 1e-3, then one of 0.99: T falls below 1e-4 on entry kb - 1.
+            a = 1.0 - 1e-3 ** (1.0 / (kb - 1))
+            r[:kb, 0:2] = [ox + 8, oy + 8]
+            r[:kb, 2:5] = [1e-3, 0.0, 1e-3]
+            r[:kb - 1, 5] = a
+            r[kb - 1, 5] = 0.99
+        rows.append(r)
+    geom = np.concatenate(rows)
+    n = geom.shape[0]
+    g = np.arange(n, dtype=np.int32)          # each tile its own rows
+    count = np.array(counts, np.int32)
+    start = (np.cumsum(count) - count).astype(np.int32)
+    qw = rng.uniform(0, 1, (n, 12)).astype(np.float32)
+    qw /= qw.sum(1, keepdims=True)
+    qi = rng.integers(0, 192, (n, 12))
+    qb = np.concatenate([rng.integers(0, 64, (n, 4)) + 64 * lvl
+                         for lvl in range(3)], 1)
+    out = rng.uniform(0, 1, (n, 12)) < 0.1
+    qb[out] = (qb[out] + 64 * rng.integers(1, 3, int(out.sum()))) % 192
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (T(g), T(start), T(count), T(geom), T(qw), T(qi.astype(np.int32)),
+            T(qb.astype(np.int32)), gx, gy, end_tile, centre)
+
+
+def _check_ends_on_batch_end(g, start, count, geom, gx, tile, pix, kb,
+                             cells=False):
+    """The constructed pixel ends on entry kb - 1 of its 2 kb: it
+    evaluates exactly kb entries."""
+    evaluated = torch.zeros((count.shape[0], 256), dtype=torch.int64,
+                            device=geom.device)
+    for _ in blend.replay_positions(g, start, count, geom, gx, cells,
+                                    evaluated):
+        pass
+    assert int(evaluated[tile, pix]) == kb
+
+
+def _assert_counts(stats, g, start, count, geom, gx, cells=False):
+    want = blend.pair_counts_plain(g, start, count, geom, gx, cells)
+    assert (int(stats[0]), int(stats[1])) == want
+
+
+@pytest.mark.parametrize("rgb_only", [False, True], ids=["quick", "rgb"])
+def test_blend_batch_boundaries_f32(cuda, rgb_only):
+    """K2 f32: quick with 12 unbanded indices over all three bands (C =
+    192) and at the training width (C = 64, top-4); rgb only, on segments
+    cut around its own batch."""
+    kb = blend.RGB_BATCH if rgb_only else blend.BATCH
+    (g, start, count, geom, qw, qi, _qb, gx, gy, tile,
+     pix) = _batch_case(cuda, kb)
+    _check_ends_on_batch_end(g, start, count, geom, gx, tile, pix, kb)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    args = (g, start, count, geom, bg, gx)
+    cases = [(None, None, 0)] if rgb_only else [
+        (qw, qi, 192),
+        (qw[:, :4].contiguous(), (qi[:, :4] % 64).contiguous(), 64)]
+    for q_w, q_i, c in cases:
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+        out = blend.blend_tiles(*args, gy, q_w, q_i, c, stats=stats)
+        ref = blend.blend_tiles_plain(*args, q_w, q_i, c)
+        for a, b in zip(out, ref):
+            if b is not None:
+                torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+        _assert_counts(stats, g, start, count, geom, gx)
+
+
+@pytest.mark.parametrize("banded", [True, False], ids=["banded", "unbanded"])
+@pytest.mark.parametrize("cells", [False, True], ids=["f32", "bf16_cells"])
+def test_fast16_blend_batch_boundaries(cuda, cells, banded):
+    """fast16 K2 (f32 outputs) with band-dropped indices, banded or not."""
+    (g, start, count, geom, qw, _qi, qb, gx, gy, tile,
+     pix) = _batch_case(cuda, blend.BATCH, seed=1)
+    rows = blend.pack_fast16_rows(geom[:, 0:2], geom[:, 2:5], geom[:, 5],
+                                  geom[:, 6:9], qw, qb)
+    unpacked = blend.unpack_fast16_rows(rows, 12)[0]
+    _check_ends_on_batch_end(g, start, count, unpacked, gx, tile, pix,
+                             blend.BATCH, cells)
+    args = (g, start, count, rows, torch.tensor([0.1, 0.2, 0.3],
+                                                device=cuda), gx)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = blend.blend_tiles_fast16(*args, gy, 12, 192, False, stats=stats,
+                                   banded=banded, cells_bf16=cells)
+    ref = blend.blend_tiles_fast16_plain(*args, 12, 192, False, banded,
+                                         cells)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    _assert_counts(stats, g, start, count, unpacked, gx, cells)
+
+
+@pytest.mark.parametrize("cells", [False, True], ids=["f32", "bf16_cells"])
+@pytest.mark.parametrize("pq", [1, 16])
+def test_fused_query_batch_boundaries(cuda, pq, cells):
+    """K2q at PQ = 1 and 16 on the boundary segments: rgb and T atol 3e-5,
+    raw and nrm2 within 1e-5 of their largest."""
+    (g, start, count, geom, qw, _qi, qb, gx, gy, tile,
+     pix) = _batch_case(cuda, blend.BATCH, seed=2)
+    rows = blend.pack_fast16_rows(geom[:, 0:2], geom[:, 2:5], geom[:, 5],
+                                  geom[:, 6:9], qw, qb)
+    gen = torch.Generator(device=cuda).manual_seed(pq)
+    cb = torch.randn(3, 64, 128, device=cuda, generator=gen)
+    phi = torch.einsum("lkd,pd->lkp", cb, torch.randn(
+        pq, 128, device=cuda, generator=gen)).contiguous()
+    gram = torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+    args = (g, start, count, rows, torch.tensor([0.1, 0.2, 0.3],
+                                                device=cuda), gx)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = blend.blend_tiles_query(*args, gy, 12, phi, gram, stats=stats,
+                                  cells_bf16=cells)
+    ref = blend.blend_tiles_query_plain(*args, 12, phi, gram,
+                                        cells_bf16=cells)
+    assert out[1].shape == (gx * gy, 256, 3 * pq)
+    for i in (0, 3):
+        torch.testing.assert_close(out[i], ref[i], atol=3e-5, rtol=0)
+    for i in (1, 2):
+        scale = float(ref[i].abs().max())
+        assert scale > 0
+        assert float((out[i] - ref[i]).abs().max()) <= 1e-5 * scale
+    assert float(out[1][4].abs().max()) == 0.0       # the empty tile
+    unpacked = blend.unpack_fast16_rows(rows, 12)[0]
+    _check_ends_on_batch_end(g, start, count, unpacked, gx, tile, pix,
+                             blend.BATCH, cells)
+    _assert_counts(stats, g, start, count, unpacked, gx, cells)
+
+
+@pytest.mark.parametrize("d", [64, 100, 192])
+def test_dense_blend_batch_boundaries(cuda, d):
+    """K2 dense (one channel group of D' = d) on segments cut around its
+    own batch (one thread a pixel up to NARROW_DENSE columns), atol
+    3e-5."""
+    kb = blend.NARROW_BATCH if d <= blend.NARROW_DENSE else blend.DENSE_BATCH
+    (g, start, count, geom, _qw, _qi, _qb, gx, gy, tile,
+     pix) = _batch_case(cuda, kb, seed=3)
+    _check_ends_on_batch_end(g, start, count, geom, gx, tile, pix, kb)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    feats = torch.rand(geom.shape[0], d, device=cuda, generator=gen)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    assert blend.dense_groups(d) == [(0, d)]
+    out = blend.blend_tiles_dense(g, start, count, geom, feats, bg, gx, gy,
+                                  stats=stats)
+    ref = blend.blend_tiles_dense_plain(g, start, count, geom, feats, bg, gx)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+    _assert_counts(stats, g, start, count, geom, gx)
