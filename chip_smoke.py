@@ -8,7 +8,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: nvcc builds the kernels from langsplatv2_tpu_torch/csrc; for
    each instantiation of K2 (csrc/blend.cu) ptxas's registers, stack and
    spill bytes and its occupancy at the main path's width (blocks and
-   warps an SM, shared bytes); fails on a spill;
+   warps an SM, shared bytes); fails on a spill; the same report for K3
+   (csrc/query.cu, f32 and bf16 map, at L = 3, PQ = 5) and K6b
+   (csrc/gram.cu, M = 64, 128, 192);
 3. kernel checks on a reduced scene (50k Gaussians, 512x512): each CUDA
    kernel against its plain PyTorch version on the card — K1 expansion
    exact, K2 blend (quick and rgb) atol 3e-5, K2 f32 and fast16 on rows
@@ -31,7 +33,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    output) and K4 (1e-5 of its largest output) against their plain
    versions on one step's inputs, the fused loss against the plain
    autograd of trainer._gram_cos_core (value rtol 1e-5, gradients 1e-4),
-   and K6 at M = 192 on random inputs;
+   K6 at M = 192 on random inputs (K6b timed there beside its plain
+   version and its bound), and K6b at M = 64, 128, 192 on the segment
+   patterns its d_phi treats apart (whole-warp segments with 5% -1 holes,
+   a tile of -1 only, 256 distinct ids in a tile; 1e-4 of its largest);
 7. the training slice at full width (scripts/profile_train.py's scene:
    300k Gaussians, 544x960, L=1, K=64, top-4, a 512-row GT table, 4
    cameras): train_features for 20 steps with the launch counters zeroed
@@ -473,6 +478,42 @@ def k2_build_report() -> dict:
             or v["occupancy"]["blocks_per_sm"] < 1 for v in rep.values()):
         fail(f"K2: an instantiation is missing, spills or does not fit: "
              f"{rep}")
+    return rep
+
+
+# The main path's prompts a level: 1 positive and the 4 canonical negatives.
+MAIN_PQ = len(PROMPTS) + 4
+
+
+def qg_build_report() -> dict:
+    """Phase 2: ptxas's line (registers, stack, spill bytes) for K3 (f32
+    and bf16 map) and K6b (M = 64, 128, 192) and each one's occupancy at
+    the main path's shapes (K3: L = 3, PQ = 5); fails on a missing
+    instantiation or one that does not fit."""
+    want = {"K3 f32": ("query_kernelILb0E",
+                       lambda: query.kernel_occupancy(False, L, MAIN_PQ)),
+            "K3 bf16": ("query_kernelILb1E",
+                        lambda: query.kernel_occupancy(True, L, MAIN_PQ))}
+    for m in gram.BWD_M:
+        want[f"K6b M={m}"] = (f"gram_bwd_kernelILi{m}E",
+                              lambda m=m: gram.bwd_occupancy(m))
+    found = kernels.ptxas_report("query.cu") + kernels.ptxas_report("gram.cu")
+    rep = {}
+    for label, (pattern, occupancy) in want.items():
+        r = next((r for r in found if pattern in r["name"]), None)
+        if r is None:
+            fail(f"{label}: no ptxas report of an instantiation "
+                 f"{pattern!r}")
+        occ = occupancy()
+        rep[label] = dict(ptxas=r, occupancy=occ)
+        log(f"{label}: ptxas: {r['line']}; {r['stack']} bytes stack frame, "
+            f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} "
+            f"bytes spill loads; {occ['blocks_per_sm']} block(s) of "
+            f"{occ['threads']} threads, {occ['warps_per_sm']} warps an SM, "
+            f"{occ['smem_bytes']} bytes of shared memory, "
+            f"{occ['local_bytes']} local bytes")
+        if occ["blocks_per_sm"] < 1:
+            fail(f"{label} does not fit on an SM: {occ}")
     return rep
 
 
@@ -920,18 +961,15 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
     if not timed:
         return r
 
-    # Per pixel, the forward forms G w (2M^2), n2, num and the chain; the
-    # backward reuses G w and adds d_w (4K), d_phi (2K) and d_G (2MK + K).
     # K4 needs only the entries the tiles cover: its g read and dF write
     # count x["covered"] rows, not the live budget's padding.
     q = x["seg_t"].numel()
-    fwd_ops = q * (2 * M * M + 4 * M + 10)
-    base_bytes = q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
+    k6b_bytes, k6b_ops = k6b_work(q, M, C, K, rhs, gfull)
     for name, fn, plain, reps, nbytes, ops in (
-            ("K6a", k6a, k6a_plain, 20, base_bytes + gx * gy * 4, fwd_ops),
-            ("K6b", k6b, k6b_plain, 10,
-             base_bytes + q * C * 4 + (rhs.shape[0] + M) * K * 4,
-             fwd_ops + q * (7 * K + 2 * M * K)),
+            ("K6a", k6a, k6a_plain, 20,
+             q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
+             + gx * gy * 4, q * (2 * M * M + 4 * M + 10)),
+            ("K6b", k6b, k6b_plain, 10, k6b_bytes, k6b_ops),
             ("K4", k4, k4_plain, 10,
              x["covered"] * 4 + gx * gy * 8 + x["distinct"] * 24
              + cot.numel() * 4 + x["covered"] * C * 4,
@@ -944,9 +982,49 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
     return r
 
 
+def k6b_work(q: int, M: int, C: int, K: int, rhs, gfull) -> tuple:
+    """(bytes, operations) K6b needs on q pixels: seg, w [q, M], rhs and G
+    read once, d_w [q, C], d_phi and d_G written once. Per pixel, G w
+    (2M^2), n2, num and the chain (4M + 10), then d_w (4K), d_phi (2K) and
+    d_G (2MK + K)."""
+    nbytes = (q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
+              + q * C * 4 + (rhs.shape[0] + M) * K * 4)
+    return nbytes, q * (2 * M * M + 4 * M + 10) + q * (7 * K + 2 * M * K)
+
+
+def check_gram_patterns(dev) -> dict:
+    """K6b against its plain version (1e-4 of the largest entry) on the
+    segment patterns its d_phi treats apart, at M = 64, 128 and 192, 3
+    tiles each; a tile of -1 only gives all-zero outputs."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_port_fixtures import GRAM_PATTERNS, gram_pattern_case
+
+    res = {}
+    for m in gram.BWD_M:
+        for i, pattern in enumerate(GRAM_PATTERNS):
+            case = {k: torch.as_tensor(v, device=dev) for k, v in
+                    gram_pattern_case(pattern, m, 3, 10 * m + i).items()}
+            rhs, gfull = gram.prep(case["codebooks"], case["table"],
+                                   m // TRAIN_K - 1)
+            args = (case["seg"], case["w"], rhs, gfull, m // TRAIN_K - 1,
+                    TRAIN_K, 1e-8, 1.0 / case["seg"].numel(),
+                    torch.tensor(1.5, device=dev))
+            out = gram.gram_tiles_bwd(*args)
+            ref = gram.gram_tiles_bwd_plain(*args)
+            rel = max(normalized_err(a, b)[1] if b.abs().max() > 0
+                      else float(a.abs().max()) for a, b in zip(out, ref))
+            res[f"M={m} {pattern}"] = rel
+            if not rel <= 1e-4:
+                fail(f"K6b at M={m} on {pattern} differs from its plain "
+                     f"version by {rel} of its largest output")
+    return res
+
+
 def check_gram_wide(dev) -> dict:
-    """K6a/K6b at the L=3 curriculum's last layer (M = 192, G read from
-    device memory) on random inputs, against their plain versions."""
+    """K6a/K6b at the L=3 curriculum's last layer (M = 192) on random
+    inputs, against their plain versions; K6b timed beside its plain
+    version and its bound."""
     gen = torch.Generator(device=dev).manual_seed(2)
     gx, gy, h, w, S = 30, 17, 272, 480, 256
     wm = torch.randn(gx * gy, 256, 3 * TRAIN_K, device=dev, generator=gen)
@@ -969,8 +1047,15 @@ def check_gram_wide(dev) -> dict:
     if not (torch.allclose(a, b, rtol=1e-5, atol=1e-4)
             and max(e[1] for e in errs[1:]) <= 1e-4):
         fail(f"K6 at M=192 differs from its plain version: {errs}")
+    args = (seg_t, wm, rhs, gfull, 2, TRAIN_K, 1e-8, 1.0 / (h * w), up)
+    timed = dict(ms=cuda_ms(lambda: gram.gram_tiles_bwd(*args), 10)[0],
+                 plain_ms=cuda_ms(lambda: gram.gram_tiles_bwd_plain(*args),
+                                  1)[0], library_ms=None)
+    timed["bound_ms"], timed["bound_by"] = bound(
+        *k6b_work(seg_t.numel(), 3 * TRAIN_K, wm.shape[2], TRAIN_K, rhs,
+                  gfull), F32_TENSOR_FLOPS)
     return dict(K6a=errs[0][0], K6b=max(e[0] for e in errs[1:]),
-                rel=[e[1] for e in errs])
+                rel=[e[1] for e in errs], K6b_timed=timed)
 
 
 def train_checks_reduced(dev) -> dict:
@@ -982,11 +1067,13 @@ def train_checks_reduced(dev) -> dict:
     x = train_step_inputs(model, cam, 1 << 20, 0, dev)
     r = check_train_kernels(x, dev, timed=False)
     r["wide"] = check_gram_wide(dev)
+    r["patterns"] = check_gram_patterns(dev)
     for k in ("K4", "K6a", "K6b"):
         log(f"reduced {k}: max |kernel - plain| {r[k]['max_abs_err']!r} "
             f"({r[k]['rel_err']!r} of the largest)")
     log(f"reduced: fused loss vs XLA core {r['loss_vs_xla_core']}; "
-        f"M=192 {r['wide']}")
+        f"M=192 {r['wide']}; K6b on the segment patterns (of the largest) "
+        f"{r['patterns']}")
     torch.cuda.synchronize()
     return r
 
@@ -3466,6 +3553,7 @@ def main() -> None:
     log(f"kernel build: {build_s:.1f} s ({time.perf_counter() - t0:.1f} s "
         "with load)")
     k2_report = k2_build_report()
+    qg_report = qg_build_report()
 
     errs = check_kernels(dev)
 
@@ -3590,6 +3678,9 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         occ = next((v["occupancy"] for v in k2_report.values()
                     if k in v["rows"]), None)
+        qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6b": "K6b M=64"}
+        if k in qg:
+            occ = qg_report[qg[k]]["occupancy"]
         if occ is not None:
             log(f"{k}: {r['ms']:.4f} ms on the path's inputs (bound "
                 f"{r['bound_ms']:.4f}),"
@@ -3608,7 +3699,8 @@ def main() -> None:
                        serving_server=server, capped_train_path=cpath,
                        dense_path=dpath, dense_serving=dserve,
                        bf16_cells_serving=cells, cascade_serving=casc,
-                       k2_build=k2_report, frame_traces=traces,
+                       k2_build=k2_report, qg_build=qg_report,
+                       frame_traces=traces,
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res), f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")

@@ -23,12 +23,16 @@ their design meets that.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import kernels
 from .projection import BLOCK
 
 P = BLOCK * BLOCK
+BWD_K = 64                  # codebook rows a layer the backward kernel takes
+BWD_M = (64, 128, 192)      # its widths of G (layers 0..lay)
 
 
 def prep(codebooks, gt_table, lay: int):
@@ -135,20 +139,37 @@ def gram_tiles_bwd(seg_tiles, wmap_tiles, rhs, gfull, lay: int, k: int,
     t, c, m = _check(seg_tiles, wmap_tiles, rhs, gfull)
     if (lay + 1) * k != m:
         raise ValueError(f"layer {lay} of K={k} does not match G [{m}, {m}]")
+    if k != BWD_K or m not in BWD_M or c % 4:
+        raise NotImplementedError(
+            f"the gram backward kernel takes K={BWD_K}, M in {BWD_M} and a "
+            f"map width that is a multiple of 4, not K={k}, M={m}, C={c}")
     upstream = upstream.reshape(1).to(torch.float32).contiguous()
     dw = torch.empty_like(wmap_tiles)
     dphi = torch.zeros((rhs.shape[0], k), device=dev)
     dg = torch.zeros((m, k), device=dev)
+    gsplit = torch.empty(2 * m * m, device=dev)   # G's split B fragments
     ptr = kernels.ptr
     kernels.launch("lsv2_gram_bwd", ptr(seg_tiles), ptr(wmap_tiles),
                    ptr(rhs), ptr(gfull), t, c, m, k, lay, eps, inv_hw,
-                   ptr(upstream), ptr(dw), ptr(dphi), ptr(dg),
+                   ptr(upstream), ptr(dw), ptr(dphi), ptr(dg), ptr(gsplit),
                    kernels.stream(dw))
     gram_tiles_bwd.launches += 1
     return dw, dphi, dg
 
 
 gram_tiles_bwd.launches = 0
+
+
+def bwd_occupancy(m: int) -> dict:
+    """K6b's instantiation at G [m, m] (CUDA only): resident blocks and
+    warps an SM, dynamic shared bytes, registers and local (spill, stack)
+    bytes a thread, from the CUDA runtime."""
+    out = (ctypes.c_int * 5)()
+    kernels.launch("lsv2_gram_bwd_occupancy", m,
+                   ctypes.cast(out, ctypes.c_void_p))
+    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
+                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
+                threads=out[4])
 
 
 def _check(seg_tiles, wmap_tiles, rhs, gfull):

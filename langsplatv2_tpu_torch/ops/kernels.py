@@ -30,17 +30,18 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # multiply-add), as their plain PyTorch versions do: the entry sets of K1
 # and K8, the alpha / termination tests of K2 and K9's compares then agree
 # bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
-# blend.cu is built with ptxas's report (registers, shared memory, spills
-# of each instantiation), kept in BUILD_DIR/blend.log: `ptxas_report`.
+# blend.cu, query.cu and gram.cu are built with ptxas's report (registers,
+# shared memory, spills of each instantiation), kept in
+# BUILD_DIR/<source stem>.log: `ptxas_report`.
 # Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "cascade.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false", "-Xptxas=-v"],
-    "query.cu": [],
+    "query.cu": ["-Xptxas=-v"],
     "feature_bwd.cu": ["-fmad=false"],
     "feature_bwd_topk.cu": ["-fmad=false"],
-    "gram.cu": [],
+    "gram.cu": ["-Xptxas=-v"],
     "rgb_bwd.cu": ["-fmad=false"],
     "probe.cu": ["-fmad=false"],
     "errors.cu": [],
@@ -75,6 +76,8 @@ ENTRY_POINTS = {
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
     "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,
+    # bf16 levels pq out[5]
+    "lsv2_query_occupancy": [_I] * 3 + [_P],
     # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
     # num_entries dfeat stream
     "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
@@ -83,8 +86,10 @@ ENTRY_POINTS = {
     # seg w rhs gfull num_tiles C M eps partial stream
     "lsv2_gram_fwd": [_P] * 4 + [_I] * 3 + [_F] + [_P] * 2,
     # seg w rhs gfull num_tiles C M K lay eps inv_hw upstream dw dphi dg
-    # stream
-    "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 5,
+    # gsplit stream
+    "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 6,
+    # M out[5]
+    "lsv2_gram_bwd_occupancy": [_I, _P],
     # g_sorted tile_start tile_count geom pack num_tiles grid_x dgrad stream
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
     # in out n mode stream

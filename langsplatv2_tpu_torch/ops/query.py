@@ -3,8 +3,8 @@
 
 On a CUDA tensor `query_map_tiles` launches csrc/query.cu; on a CPU tensor
 it runs `query_map_tiles_plain`, one pair of matmuls per level. The kernel
-is bound by the read of the map; on CUDA cores, as written, its f32
-multiply-adds take longer than that read. csrc/query.cu says more.
+is bound by the read of the map; its products run on the tensor cores (bf16
+map: bf16 operands, f32 sums; f32 map: 3xTF32). csrc/query.cu says more.
 
 A bf16 map (the fast16 serving tiles) goes to `query_map_tiles_bf16`, the
 kernel's bf16 mode. As in the Pallas kernel (`mm_dt`), phi and gram are
@@ -14,6 +14,8 @@ widened map and the rounded constants.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import kernels
@@ -21,6 +23,7 @@ from . import kernels
 P = 256
 KERNEL_K = 64     # codebook rows per level the kernel is built for
 KERNEL_MAX_PQ = 16
+KERNEL_MAX_LEVELS = 3
 
 
 def query_map_tiles_plain(wm_tiles, phi, gram):
@@ -53,10 +56,12 @@ def _check(wm_tiles, phi):
         raise ValueError(f"weight-map tiles {tuple(wm_tiles.shape)} do not "
                          f"match phi {tuple(phi.shape)}")
     if wm_tiles.device.type == "cuda" and (
-            K != KERNEL_K or not 1 <= PQ <= KERNEL_MAX_PQ):
+            K != KERNEL_K or not 1 <= PQ <= KERNEL_MAX_PQ
+            or not 1 <= L <= KERNEL_MAX_LEVELS):
         raise NotImplementedError(
-            f"the query kernel takes K={KERNEL_K} codebook rows and at most "
-            f"{KERNEL_MAX_PQ} prompts a level, not K={K}, PQ={PQ}")
+            f"the query kernel takes K={KERNEL_K} codebook rows, at most "
+            f"{KERNEL_MAX_LEVELS} levels and {KERNEL_MAX_PQ} prompts a "
+            f"level, not K={K}, L={L}, PQ={PQ}")
     if wm_tiles.device.type not in ("cpu", "cuda"):
         raise ValueError(f"query_map_tiles: unsupported device "
                          f"{wm_tiles.device}")
@@ -111,3 +116,15 @@ def query_map_tiles_bf16(wm_tiles: torch.Tensor, phi: torch.Tensor,
 
 
 query_map_tiles_bf16.launches = 0
+
+
+def kernel_occupancy(bf16: bool, levels: int, pq: int) -> dict:
+    """The kernel's mode (bf16 or f32 map) at L levels and PQ prompts (CUDA
+    only): resident blocks and warps an SM, dynamic shared bytes, registers
+    and local (spill, stack) bytes a thread, from the CUDA runtime."""
+    out = (ctypes.c_int * 5)()
+    kernels.launch("lsv2_query_occupancy", int(bf16), levels, pq,
+                   ctypes.cast(out, ctypes.c_void_p))
+    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
+                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
+                threads=out[4])

@@ -15,8 +15,9 @@ from langsplatv2_tpu_torch.ops import blend, budget, cascade, expand, probe, \
     query, train
 from langsplatv2_tpu_torch.ops import projection
 
-from torch_port_fixtures import (camera, check_golden_eval, golden_eval,
-                                 quick_pairs, scene)
+from torch_port_fixtures import (GRAM_PATTERNS, camera, check_golden_eval,
+                                 golden_eval, gram_pattern_case, quick_pairs,
+                                 scene)
 
 
 @pytest.fixture
@@ -129,6 +130,70 @@ def test_gram_kernels_match_plain(cuda, L, lay):
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-30)
         torch.testing.assert_close(a / scale, b / scale, atol=1e-4, rtol=0)
+
+
+def _gram_bwd_both(case, m, dev):
+    """K6b and its plain version on a gram_pattern_case."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    lay = m // 64 - 1
+    rhs, gfull = gram.prep(torch.as_tensor(case["codebooks"], device=dev),
+                           torch.as_tensor(case["table"], device=dev), lay)
+    seg = torch.as_tensor(case["seg"], device=dev)
+    w = torch.as_tensor(case["w"], device=dev)
+    args = (seg, w, rhs, gfull, lay, 64, 1e-8, 1.0 / seg.numel(),
+            torch.tensor(1.5, device=dev))
+    return gram.gram_tiles_bwd(*args), gram.gram_tiles_bwd_plain(*args)
+
+
+def _assert_scaled_close(got, want, atol):
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("pattern", GRAM_PATTERNS)
+@pytest.mark.parametrize("m", [64, 128, 192])
+def test_gram_bwd_kernel_segment_patterns(cuda, m, pattern):
+    """K6b against its plain version (1e-4 of the largest entry: atomics
+    in another order) on the segment patterns its d_phi treats apart:
+    whole-warp segments with -1 holes, a tile of -1 only, 256 distinct ids
+    in one tile; three tiles each."""
+    got, want = _gram_bwd_both(gram_pattern_case(pattern, m, tiles=3,
+                                                 seed=m), m, cuda)
+    _assert_scaled_close(got, want, 1e-4)
+    if pattern == "masked":
+        assert not any(bool(a.any()) for a in got)
+
+
+@pytest.mark.parametrize("m", [64, 192])
+def test_gram_bwd_kernel_ragged_grid(cuda, m):
+    """K6b on 1001 tiles (2002 half-tile chunks, not a multiple of the
+    persistent grid) mixing the three segment patterns."""
+    case = gram_pattern_case("warp_segments", m, tiles=1001, seed=5)
+    case["seg"][1::7] = -1
+    case["seg"][3::11] = np.random.default_rng(6).permutation(300)[:256]
+    got, want = _gram_bwd_both(case, m, cuda)
+    _assert_scaled_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 3, 1001])
+@pytest.mark.parametrize("pq", [1, 16])
+def test_query_kernels_match_plain(cuda, t, pq):
+    """K3 in both modes against its plain version (rtol/atol 1e-5) at
+    PQ = 1 and 16; T = 1001 gives 16,016 warp items, not a multiple of the
+    persistent grid's warps."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * t + pq)
+    wm = torch.rand(t, 256, 192, device=cuda, generator=gen)
+    phi = torch.randn(3, 64, pq, device=cuda, generator=gen)
+    cb = torch.randn(3, 64, 32, device=cuda, generator=gen)
+    gm = torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+    for x, plain in ((wm, query.query_map_tiles_plain),
+                     (wm.to(torch.bfloat16), query.query_map_tiles_bf16_plain)):
+        out = query.query_map_tiles(x, phi, gm)
+        ref = plain(x, phi, gm)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_rgb_bwd_kernel_matches_plain(cuda):

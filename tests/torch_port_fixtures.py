@@ -181,3 +181,32 @@ def check_golden_eval(vals: dict, atol: float = 1e-5) -> dict:
         errs[key] = float(np.abs(vals[key].astype(np.float64)
                                  - ref[ref_key]).max())
     return errs
+
+
+GRAM_PATTERNS = ("warp_segments", "masked", "distinct")
+
+
+def gram_pattern_case(pattern: str, m: int, tiles: int = 1, seed: int = 0,
+                      segments: int = 300) -> dict:
+    """Inputs of the Gram-loss backward at G [m, m] (layer m / 64 - 1 of
+    K = 64) whose tiles [tiles, 256] (tile-pixel order) all follow one
+    segment pattern: "warp_segments", two pixel rows (32 pixels) a segment
+    with ~5% -1 holes; "masked", every pixel -1; "distinct", 256 distinct
+    ids. The map w [tiles, 256, m] has ~10% zero pixels; codebooks
+    [m / 64, 64, 32] and the table [segments, 32] are standard normal."""
+    rng = np.random.default_rng(seed)
+    seg = np.empty((tiles, 256), np.int32)
+    for t in range(tiles):
+        if pattern == "warp_segments":
+            seg[t] = np.repeat(rng.integers(0, segments, 8), 32)
+            seg[t, rng.uniform(size=256) < 0.05] = -1
+        elif pattern == "masked":
+            seg[t] = -1
+        else:
+            seg[t] = rng.permutation(segments)[:256]
+    w = rng.standard_normal((tiles, 256, m)).astype(np.float32)
+    w[rng.uniform(size=(tiles, 256)) < 0.1] = 0.0
+    return dict(seg=seg, w=w,
+                codebooks=rng.standard_normal((m // 64, 64, 32)).astype(
+                    np.float32),
+                table=rng.standard_normal((segments, 32)).astype(np.float32))
