@@ -9,8 +9,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    each instantiation of K2 (csrc/blend.cu) ptxas's registers, stack and
    spill bytes and its occupancy at the main path's width (blocks and
    warps an SM, shared bytes); fails on a spill; the same report for K3
-   (csrc/query.cu, f32 and bf16 map, at L = 3, PQ = 5) and K6b
-   (csrc/gram.cu, M = 64, 128, 192);
+   (csrc/query.cu, f32 and bf16 map, at L = 3, PQ = 5), K6b
+   (csrc/gram.cu, M = 64, 128, 192), K4 (csrc/feature_bwd.cu) and K7
+   (csrc/rgb_bwd.cu);
 3. kernel checks on a reduced scene (50k Gaussians, 512x512): each CUDA
    kernel against its plain PyTorch version on the card — K1 expansion
    exact, K2 blend (quick and rgb) atol 3e-5, K2 f32 and fast16 on rows
@@ -43,8 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    just before and read just after; fails unless K1, K2, K4, K6a and K6b
    all launched, the loss is finite and falls, and no budget saturates;
    then K4/K6a/K6b on one step's own inputs against their plain versions
-   (as in phase 6) and timed beside their bounds, with the step's stages
-   timed alone;
+   (as in phase 6) and timed beside their bounds, K4 also at C = 192 (a
+   seeded cotangent on the same blend), with the step's stages timed
+   alone;
 8. the geometry step's kernels on a reduced scene (50k Gaussians,
    272x480, SH degree 3), on one step's inputs (the loss's own
    cotangents): K1 exact, K2 rgb-only with bg = 0 (colour and final T,
@@ -487,9 +489,9 @@ MAIN_PQ = len(PROMPTS) + 4
 
 def qg_build_report() -> dict:
     """Phase 2: ptxas's line (registers, stack, spill bytes) for K3 (f32
-    and bf16 map) and K6b (M = 64, 128, 192) and each one's occupancy at
-    the main path's shapes (K3: L = 3, PQ = 5); fails on a missing
-    instantiation or one that does not fit."""
+    and bf16 map), K6b (M = 64, 128, 192), K4 and K7 and each one's
+    occupancy at the main path's shapes (K3: L = 3, PQ = 5); fails on a
+    missing instantiation, a spill or one that does not fit."""
     want = {"K3 f32": ("query_kernelILb0E",
                        lambda: query.kernel_occupancy(False, L, MAIN_PQ)),
             "K3 bf16": ("query_kernelILb1E",
@@ -497,7 +499,13 @@ def qg_build_report() -> dict:
     for m in gram.BWD_M:
         want[f"K6b M={m}"] = (f"gram_bwd_kernelILi{m}E",
                               lambda m=m: gram.bwd_occupancy(m))
-    found = kernels.ptxas_report("query.cu") + kernels.ptxas_report("gram.cu")
+    want["K4"] = ("feature_bwd_kernel", lambda: kernels.occupancy(
+        "lsv2_feature_bwd_occupancy"))
+    want["K7"] = ("rgb_bwd_kernel", lambda: kernels.occupancy(
+        "lsv2_rgb_bwd_occupancy"))
+    found = [r for src in ("query.cu", "gram.cu", "feature_bwd.cu",
+                           "rgb_bwd.cu")
+             for r in kernels.ptxas_report(src)]
     rep = {}
     for label, (pattern, occupancy) in want.items():
         r = next((r for r in found if pattern in r["name"]), None)
@@ -512,8 +520,8 @@ def qg_build_report() -> dict:
             f"{occ['threads']} threads, {occ['warps_per_sm']} warps an SM, "
             f"{occ['smem_bytes']} bytes of shared memory, "
             f"{occ['local_bytes']} local bytes")
-        if occ["blocks_per_sm"] < 1:
-            fail(f"{label} does not fit on an SM: {occ}")
+        if r["spill_stores"] or r["spill_loads"] or occ["blocks_per_sm"] < 1:
+            fail(f"{label} spills or does not fit on an SM: {rep[label]}")
     return rep
 
 
@@ -979,6 +987,24 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
         r[name]["library_ms"] = None
         r[name]["bound_ms"], r[name]["bound_by"] = bound(nbytes, ops,
                                                          F32_TENSOR_FLOPS)
+    # K4 at C = 192 (the 3-level map's width) on the same blend, beside
+    # C = 64: a seeded cotangent, held to its plain version as above.
+    gen = torch.Generator(device=dev).manual_seed(192)
+    cot192 = torch.randn(gx * gy, 256, 192, device=dev, generator=gen)
+    args192 = (x["g"], x["start"], x["count"], x["geom"], cot192)
+    out = train.feature_grads(*args192, gx, gy)
+    err = normalized_err(out, train.feature_grads_plain(*args192, gx))
+    del out
+    if not err[1] <= 1e-5:
+        fail(f"K4 at C = 192 differs from its plain version by {err}")
+    r["K4 C=192"] = dict(
+        max_abs_err=err[0], rel_err=err[1],
+        ms=cuda_ms(lambda: train.feature_grads(*args192, gx, gy), 10)[0])
+    r["K4 C=192"]["bound_ms"], r["K4 C=192"]["bound_by"] = bound(
+        x["covered"] * 4 + gx * gy * 8 + x["distinct"] * 24
+        + cot192.numel() * 4 + x["covered"] * 192 * 4,
+        x["n_eval"] * BLEND_ALPHA_FLOPS + x["n_inc"] * (3 + 2 * 192),
+        F32_TENSOR_FLOPS)
     return r
 
 
@@ -3678,7 +3704,8 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         occ = next((v["occupancy"] for v in k2_report.values()
                     if k in v["rows"]), None)
-        qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6b": "K6b M=64"}
+        qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6b": "K6b M=64",
+              "K4": "K4", "K7": "K7"}
         if k in qg:
             occ = qg_report[qg[k]]["occupancy"]
         if occ is not None:

@@ -63,6 +63,7 @@
 // ring and the M/16 d_G accumulators a warp), two at M = 64.
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
 #include "phase_marks.cuh"
 
 // K6b's phases (profile_query_gram.py): 0 prologue, 1 waiting for the
@@ -181,46 +182,6 @@ struct Bwd {
       sizeof(float) * ((size_t)kStages * kStageFloats + 4 * kGVec +
                        3 * kChunk);
 };
-
-// x = big + small for 3xTF32: big is x rounded to TF32 (half an ulp added,
-// the 13 low bits cleared: two integer ops, where cvt.rna.tf32.f32 takes
-// several), small = x - big exactly in f32; the tensor core drops small's
-// own 13 low bits.
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// d += a . b: A 16x8 TF32 (row), B 8x8 TF32 (col), f32 sums.
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void split4(const float* a, unsigned* ab,
-                                       unsigned* as) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kN>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN));
-}
 
 // G [M, M] as W.G's B fragments, split for 3xTF32, in 64 x 64 blocks
 // (column panel np, row panel kp) of 32 KB: entry ((np * M/64 + kp) * 64 +

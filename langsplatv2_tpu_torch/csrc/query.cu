@@ -46,6 +46,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
 #include "phase_marks.cuh"
 
 // Phases (profile_query_gram.py): 0 the B stage, 1 waiting for a level's
@@ -79,16 +80,6 @@ __device__ __forceinline__ int phys(int t, int j) {
                : (j >> 2) * 16 + 4 * t + (j & 3);
 }
 
-// x = big + small for 3xTF32: big is x rounded to TF32 (half an ulp added,
-// the 13 low bits cleared: two integer ops, where cvt.rna.tf32.f32 takes
-// several), small = x - big exactly in f32; the tensor core drops small's
-// own 13 low bits.
-__device__ __forceinline__ void split_tf32(float x, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
@@ -107,16 +98,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
                                          unsigned b0, unsigned b1) {
   asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b: A 16x8 TF32 (row), B 8x8 TF32 (col), f32 sums.
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

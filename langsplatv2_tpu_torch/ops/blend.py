@@ -55,8 +55,6 @@ the card tests place segment and termination boundaries around.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import kernels
@@ -242,12 +240,7 @@ def kernel_occupancy(mode: str, channels: int, topk: int) -> dict:
     code = {"f32": (0, 0), "fast16": (1, 0), "fast16 cells": (1, 1),
             "query": (2, 0), "query cells": (2, 1), "dense": (3, 0),
             "rgb": (4, 0), "dense narrow": (5, 0)}[mode]
-    out = (ctypes.c_int * 5)()
-    kernels.launch("lsv2_blend_occupancy", *code, channels, topk,
-                   ctypes.cast(out, ctypes.c_void_p))
-    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
-                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
-                threads=out[4])
+    return kernels.occupancy("lsv2_blend_occupancy", *code, channels, topk)
 
 
 def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,

@@ -23,8 +23,6 @@ their design meets that.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import kernels
@@ -164,12 +162,7 @@ def bwd_occupancy(m: int) -> dict:
     """K6b's instantiation at G [m, m] (CUDA only): resident blocks and
     warps an SM, dynamic shared bytes, registers and local (spill, stack)
     bytes a thread, from the CUDA runtime."""
-    out = (ctypes.c_int * 5)()
-    kernels.launch("lsv2_gram_bwd_occupancy", m,
-                   ctypes.cast(out, ctypes.c_void_p))
-    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
-                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
-                threads=out[4])
+    return kernels.occupancy("lsv2_gram_bwd_occupancy", m)
 
 
 def _check(seg_tiles, wmap_tiles, rhs, gfull):

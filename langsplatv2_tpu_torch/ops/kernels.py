@@ -30,19 +30,19 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # multiply-add), as their plain PyTorch versions do: the entry sets of K1
 # and K8, the alpha / termination tests of K2 and K9's compares then agree
 # bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
-# blend.cu, query.cu and gram.cu are built with ptxas's report (registers,
-# shared memory, spills of each instantiation), kept in
-# BUILD_DIR/<source stem>.log: `ptxas_report`.
+# blend.cu, query.cu, gram.cu, feature_bwd.cu and rgb_bwd.cu are built with
+# ptxas's report (registers, shared memory, spills of each instantiation),
+# kept in BUILD_DIR/<source stem>.log: `ptxas_report`.
 # Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false"],
     "cascade.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false", "-Xptxas=-v"],
     "query.cu": ["-Xptxas=-v"],
-    "feature_bwd.cu": ["-fmad=false"],
+    "feature_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "feature_bwd_topk.cu": ["-fmad=false"],
     "gram.cu": ["-Xptxas=-v"],
-    "rgb_bwd.cu": ["-fmad=false"],
+    "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "probe.cu": ["-fmad=false"],
     "errors.cu": [],
 }
@@ -81,6 +81,8 @@ ENTRY_POINTS = {
     # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
     # num_entries dfeat stream
     "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
+    # out[5]
+    "lsv2_feature_bwd_occupancy": [_P],
     # g_win kept geom qi cot num_tiles grid_x cap channels topk dproj stream
     "lsv2_feature_bwd_topk": [_P] * 5 + [_I] * 5 + [_P] * 2,
     # seg w rhs gfull num_tiles C M eps partial stream
@@ -92,6 +94,8 @@ ENTRY_POINTS = {
     "lsv2_gram_bwd_occupancy": [_I, _P],
     # g_sorted tile_start tile_count geom pack num_tiles grid_x dgrad stream
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
+    # out[5]
+    "lsv2_rgb_bwd_occupancy": [_P],
     # in out n mode stream
     "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P],
     # mode cells channels topk out[5]
@@ -198,6 +202,18 @@ def ptxas_report(source: str = "blend.cu") -> list[dict]:
             cur["registers"] = int(m.group(1))
             cur["line"] = line.strip()
     return rows
+
+
+def occupancy(entry: str, *args) -> dict:
+    """A kernel's occupancy from its C entry point `entry`, called with
+    `args` and an int[5] it fills (CUDA only): resident blocks and warps an
+    SM, shared bytes, registers and local (spill, stack) bytes a thread,
+    threads a block."""
+    out = (ctypes.c_int * 5)()
+    launch(entry, *args, ctypes.cast(out, ctypes.c_void_p))
+    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
+                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
+                threads=out[4])
 
 
 def launch(name: str, *args) -> None:

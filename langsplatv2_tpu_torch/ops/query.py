@@ -14,8 +14,6 @@ widened map and the rounded constants.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import kernels
@@ -122,9 +120,4 @@ def kernel_occupancy(bf16: bool, levels: int, pq: int) -> dict:
     """The kernel's mode (bf16 or f32 map) at L levels and PQ prompts (CUDA
     only): resident blocks and warps an SM, dynamic shared bytes, registers
     and local (spill, stack) bytes a thread, from the CUDA runtime."""
-    out = (ctypes.c_int * 5)()
-    kernels.launch("lsv2_query_occupancy", int(bf16), levels, pq,
-                   ctypes.cast(out, ctypes.c_void_p))
-    return dict(blocks_per_sm=out[0], warps_per_sm=out[0] * out[4] // 32,
-                smem_bytes=out[1], registers=out[2], local_bytes=out[3],
-                threads=out[4])
+    return kernels.occupancy("lsv2_query_occupancy", int(bf16), levels, pq)

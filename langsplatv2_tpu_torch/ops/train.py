@@ -17,8 +17,9 @@ blend weights (constants with respect to F):
 entry) on CPU tensors. The projection onto each entry's own top-k channels
 and the reduction to Gaussians are a gather and an `index_add_`: the JAX
 package did them in XLA (a sort + cumsum there only because TPU scatters are
-slow), not in Pallas. The kernel is bound by its dF write and cotangent read;
-csrc/feature_bwd.cu says how its design meets that.
+slow), not in Pallas. The kernel's bound is its dF write and cotangent read;
+its cost is the dense product W^T g, which runs on the tensor cores with
+f32 accuracy (csrc/feature_bwd.cu says how).
 
 The capped route (settings.tile_budget > 0, top-k width <= 4) blends each
 tile's window of `cap` slots (ops/budget.py). Its backward projects first:

@@ -15,9 +15,10 @@ from langsplatv2_tpu_torch.ops import blend, budget, cascade, expand, probe, \
     query, train
 from langsplatv2_tpu_torch.ops import projection
 
-from torch_port_fixtures import (GRAM_PATTERNS, camera, check_golden_eval,
-                                 golden_eval, gram_pattern_case, quick_pairs,
-                                 scene)
+from torch_port_fixtures import (BWD_DARK_TILE, BWD_END_AT, BWD_END_TILE,
+                                 GRAM_PATTERNS, bwd_edge_case, camera,
+                                 check_golden_eval, golden_eval,
+                                 gram_pattern_case, quick_pairs, scene)
 
 
 @pytest.fixture
@@ -730,3 +731,77 @@ def test_dense_blend_batch_boundaries(cuda, d):
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
     _assert_counts(stats, g, start, count, geom, gx)
+
+
+# The training backwards' edges (K4: batches of 32 entries, chunks of 64
+# channels; K7: batches of 64, groups of 4): bwd_edge_case's tiles (counts
+# 1 ... 65 and 300, an empty tile with a misaligned start, a tile whose
+# pixels all end on entry BWD_END_AT, a tile whose entries 8..31 no pixel
+# includes, entries past the last tile's range).
+
+def _edge_inputs(dev, seed: int = 0):
+    c = bwd_edge_case(seed)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (T(c["g"]), T(c["start"]), T(c["count"]), T(c["geom"]),
+            c["grid_x"], c["grid_y"])
+
+
+def _edge_zero_rows(out, start, count):
+    """The rows after every pixel of the ending tile ended and the rows of
+    the entries no pixel of the dark tile includes."""
+    s, n = int(start[BWD_END_TILE]), int(count[BWD_END_TILE])
+    d = int(start[BWD_DARK_TILE])
+    return torch.cat([out[s + BWD_END_AT:s + n], out[d + 8:d + 32]])
+
+
+@pytest.mark.parametrize("c", [13, 64, 192, 256])
+def test_feature_bwd_kernel_edges(cuda, c):
+    """K4 against its plain version (atol/rtol 1e-5) at C = 13 (one narrow
+    chunk), 64, 192 and 256 (three and four chunks); rows past the last
+    tile's range, after the early exit and of entries no pixel weighs are
+    0."""
+    g, start, count, geom, gx, gy = _edge_inputs(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    cot = torch.randn(gx * gy, 256, c, device=cuda, generator=gen)
+    out = train.feature_grads(g, start, count, geom, cot, gx, gy)
+    ref = train.feature_grads_plain(g, start, count, geom, cot, gx)
+    assert float(ref.abs().max()) > 1.0
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    n = int(count.sum())
+    assert out.shape == (g.shape[0], c) and g.shape[0] > n
+    assert float(out[n:].abs().max()) == 0.0
+    assert float(_edge_zero_rows(out, start, count).abs().max()) == 0.0
+
+
+def test_rgb_bwd_kernel_edges(cuda):
+    """K7 against its plain version (1e-5 of the largest) and
+    RGBTrainBlend's gradients against the plain chain (1e-4 of the
+    largest); rows after every pixel ended and of entries no pixel
+    includes (whole groups of 8 in no warp) are 0."""
+    from langsplatv2_tpu_torch.ops import rgb_train
+
+    g, start, count, geom, gx, gy = _edge_inputs(cuda, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    rgb_t, _, t_t = blend.blend_tiles_plain(
+        g, start, count, geom, torch.zeros(3, device=cuda), gx)
+    g_rgb = torch.randn(gx * gy, 256, 3, device=cuda, generator=gen)
+    g_t = torch.randn(gx * gy, 256, device=cuda, generator=gen)
+    pack = rgb_train.make_pack(rgb_t, t_t, g_rgb, g_t)
+    out = rgb_train.rgb_grads(g, start, count, geom, pack, gx, gy)
+    ref = rgb_train.rgb_grads_plain(g, start, count, geom, pack, gx)
+    assert out.shape == ref.shape == (int(count.sum()), 9)
+    scale = float(ref.abs().max())
+    assert scale > 1.0
+    torch.testing.assert_close(out / scale, ref / scale, atol=1e-5, rtol=0)
+    assert float(_edge_zero_rows(out, start, count).abs().max()) == 0.0
+
+    xy, conic, op, rgb = geom[:, 0:2], geom[:, 2:5], geom[:, 5], geom[:, 6:9]
+    leaves = [t.clone().requires_grad_(True) for t in (xy, conic, op, rgb)]
+    rgb_k, t_k = rgb_train.RGBTrainBlend.apply(*leaves, g, start, count, gx,
+                                               gy)
+    ((rgb_k * g_rgb).sum() + (t_k * g_t).sum()).backward()
+    per = rgb_train.reduce_to_gaussians(ref, g, geom.shape[0])
+    want = (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, 6:9])
+    for leaf, w in zip(leaves, want):
+        s = max(float(w.abs().max()), 1e-30)
+        torch.testing.assert_close(leaf.grad / s, w / s, atol=1e-4, rtol=0)

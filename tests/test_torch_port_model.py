@@ -184,7 +184,7 @@ def test_from_numpy_params_indices():
 
 def _port_files():
     return sorted((REPO / "langsplatv2_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py"] + sorted(REPO.glob("profile_*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -210,3 +210,53 @@ def gram_pattern_case(pattern: str, m: int, tiles: int = 1, seed: int = 0,
                 codebooks=rng.standard_normal((m // 64, 64, 32)).astype(
                     np.float32),
                 table=rng.standard_normal((segments, 32)).astype(np.float32))
+
+
+# Tile counts that sit on K4's batch (32), K7's group (4) and batch (64)
+# edges (and 16, 8), an empty tile with a misaligned start, ~300 entries,
+# a tile whose every pixel ends mid-batch and mid-group, a tile whose
+# entries 8..31 no pixel includes, and an empty last tile.
+BWD_EDGE_COUNTS = (1, 7, 8, 9, 0, 15, 16, 17, 31, 32, 33, 63, 64, 65, 300)
+BWD_END_TILE, BWD_END_AT, BWD_DARK_TILE = 15, 21, 16
+
+
+def bwd_edge_case(seed: int = 0, tail: int = 5) -> dict:
+    """Inputs of the training backwards (K4, K7) on a 6 x 3 tile grid with
+    BWD_EDGE_COUNTS' segments, then tile BWD_END_TILE (150 entries that
+    cover the whole tile: every pixel ends on entry BWD_END_AT), tile
+    BWD_DARK_TILE (40 entries, 8..31 of opacity 0.002: alpha below 1/255
+    everywhere) and an empty tile. g_sorted has `tail` entries past the
+    last tile's range. Returns numpy arrays g, start, count, geom [N, 9]
+    and the grid."""
+    rng = np.random.default_rng(seed)
+    gx, gy = 6, 3
+    counts = list(BWD_EDGE_COUNTS) + [150, 40, 0]
+    rows = []
+    for t, c in enumerate(counts):
+        ox, oy = (t % gx) * 16, (t // gx) * 16
+        r = np.zeros((c, 9), np.float32)
+        r[:, 0] = ox + rng.uniform(-4, 20, c)
+        r[:, 1] = oy + rng.uniform(-4, 20, c)
+        s = rng.uniform(2.0, 9.0, (c, 2))
+        r[:, 2] = 1 / s[:, 0] ** 2
+        r[:, 3] = rng.uniform(-0.3, 0.3, c) / (s[:, 0] * s[:, 1])
+        r[:, 4] = 1 / s[:, 1] ** 2
+        r[:, 5] = rng.uniform(0.2, 0.95, c)
+        r[:, 6:9] = rng.uniform(0, 1, (c, 3))
+        if t == BWD_END_TILE:
+            # BWD_END_AT wide entries of alpha a ((1 - a)^BWD_END_AT =
+            # 1e-3), then alpha 0.99: T falls below 1e-4 on that entry.
+            n = BWD_END_AT
+            r[:n + 1, 0:2] = [ox + 7.5, oy + 7.5]
+            r[:n + 1, 2:5] = [1e-6, 0.0, 1e-6]
+            r[:n, 5] = 1.0 - 1e-3 ** (1.0 / n)
+            r[n, 5] = 0.99
+        if t == BWD_DARK_TILE:
+            r[8:32, 5] = 0.002
+        rows.append(r)
+    rows.append(rng.uniform(0, 1, (tail, 9)).astype(np.float32))
+    geom = np.concatenate(rows)
+    count = np.array(counts, np.int32)
+    start = (np.cumsum(count) - count).astype(np.int32)
+    return dict(g=np.arange(geom.shape[0], dtype=np.int32), start=start,
+                count=count, geom=geom, grid_x=gx, grid_y=gy)
