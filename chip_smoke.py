@@ -277,6 +277,18 @@ KERNELS = {
               "scripts/profile_vpu_bf16.py:53"),
     "K9bf16": ("cell_chain[bf16]", "langsplatv2_tpu_torch/csrc/probe.cu",
                "scripts/profile_vpu_bf16.py:53"),
+    "K3pq17": ("query_map_tiles[PQ=17]", "langsplatv2_tpu_torch/csrc/query.cu",
+               "langsplatv2_tpu/ops/pallas_query.py:92"),
+    "K3bf16pq17": ("query_map_tiles_bf16[PQ=17]",
+                   "langsplatv2_tpu_torch/csrc/query.cu",
+                   "langsplatv2_tpu/ops/pallas_query.py:92"),
+    "K2qpq17": ("blend_tiles_query[PQ=17]",
+                "langsplatv2_tpu_torch/csrc/blend.cu",
+                "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K6aK32": ("gram_tiles_fwd[K=32]", "langsplatv2_tpu_torch/csrc/gram.cu",
+               "langsplatv2_tpu/ops/pallas_gram.py:175"),
+    "K6bK32": ("gram_tiles_bwd[K=32]", "langsplatv2_tpu_torch/csrc/gram.cu",
+               "langsplatv2_tpu/ops/pallas_gram.py:205"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -334,6 +346,16 @@ CELLS_EFFECT = 10.0
 CASCADE_WRAPPERS = {"K1": expand.expand_entries,
                     "K8": cascade.cascade_binning, "K2": blend.blend_tiles,
                     "K3": query.query_map_tiles}
+# Phase 20: the shapes past the main path's kernel designs: 13 positives a
+# frame (PQ = 17 a level), feature steps at codebook_size 32, the Gram loss
+# at M = 256.
+MANY_POSITIVES = [f"part {i}" for i in range(13)]
+MANY_PQ = len(MANY_POSITIVES) + 4
+MANY_PQ_WRAPPERS = {"K3": query.query_map_tiles,
+               "K3bf16": query.query_map_tiles_bf16,
+               "K2q": blend.blend_tiles_query}
+SMALL_K, SMALL_K_ITERS = 32, 4
+SMALL_K_WRAPPERS = {"K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
 SERVE_LOAD = "986x728"                 # the server's load (bench.py:1013)
 SERVE_REQUESTS = 24
 REUSE_PX = 4.0
@@ -440,19 +462,26 @@ def stage_inputs(model, settings, view, pm, clip_consts, dev):
 
 
 # K2's instantiations (csrc/blend.cu's template arguments kFast16, kQuery,
-# kCells, kDense and kOwn, the threads a pixel), the kernels line's rows
-# that run each, and the width of the main path's launches (rgb: the
-# geometry step's forward, and dense at D = 192, phase 14's map: no row
-# of their own).
-K2_MODES = {(0, 0, 0, 0, 3): ("f32", ("K2", "K2comb"), L * K, L * TOPK),
-            (0, 0, 0, 0, 1): ("rgb", (), 0, 0),
-            (1, 0, 0, 0, 3): ("fast16", ("K2f16",), L * K, L * TOPK),
-            (1, 0, 1, 0, 3): ("fast16 cells", ("K2f16cells",), L * K,
-                              L * TOPK),
-            (1, 1, 0, 0, 3): ("query", ("K2q",), L * K, L * TOPK),
-            (1, 1, 1, 0, 3): ("query cells", ("K2qcells",), L * K, L * TOPK),
-            (0, 0, 0, 1, 3): ("dense", (), L * K, 0),
-            (0, 0, 0, 1, 1): ("dense narrow", ("K2dense",), TRAIN_K, 0)}
+# kCells, kDense, kOwn, the threads a pixel, and kQA, the fused query's
+# design), the kernels line's rows that run each, and the width of the
+# main path's launches (rgb: the geometry step's forward, and dense at D =
+# 192, phase 14's map: no row of their own; the fused query at any shape:
+# phase 20's 13 positives at 3 x 64, and 8 x 32 = 256 channels, two blocks
+# a tile).
+K2_MODES = {(0, 0, 0, 0, 3, 0): ("f32", ("K2", "K2comb"), L * K, L * TOPK),
+            (0, 0, 0, 0, 1, 0): ("rgb", (), 0, 0),
+            (1, 0, 0, 0, 3, 0): ("fast16", ("K2f16",), L * K, L * TOPK),
+            (1, 0, 1, 0, 3, 0): ("fast16 cells", ("K2f16cells",), L * K,
+                                 L * TOPK),
+            (1, 1, 0, 0, 3, 0): ("query", ("K2q",), L * K, L * TOPK),
+            (1, 1, 1, 0, 3, 0): ("query cells", ("K2qcells",), L * K,
+                                 L * TOPK),
+            (0, 0, 0, 1, 3, 0): ("dense", (), L * K, 0),
+            (0, 0, 0, 1, 1, 0): ("dense narrow", ("K2dense",), TRAIN_K, 0),
+            (1, 1, 0, 0, 3, 1): ("query any", ("K2qpq17",), L * K, L * TOPK),
+            (1, 1, 1, 0, 3, 1): ("query any cells", (), L * K, L * TOPK),
+            (1, 1, 0, 0, 3, 2): ("query pair", (), 256, 8),
+            (1, 1, 1, 0, 3, 2): ("query pair cells", (), 256, 8)}
 
 
 def k2_build_report() -> dict:
@@ -462,8 +491,8 @@ def k2_build_report() -> dict:
     instantiation."""
     rep = {}
     for r in kernels.ptxas_report("blend.cu"):
-        m = re.search(r"blend_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
-                      r["name"])
+        m = re.search(r"blend_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)"
+                      r"ELi(\d)E", r["name"])
         if m is None:
             continue
         mode, rows, width, topk = K2_MODES[tuple(int(v) for v in m.groups())]
@@ -489,16 +518,30 @@ MAIN_PQ = len(PROMPTS) + 4
 
 def qg_build_report() -> dict:
     """Phase 2: ptxas's line (registers, stack, spill bytes) for K3 (f32
-    and bf16 map), K6b (M = 64, 128, 192), K4 and K7 and each one's
-    occupancy at the main path's shapes (K3: L = 3, PQ = 5); fails on a
-    missing instantiation, a spill or one that does not fit."""
+    and bf16 map, the main path's design at L = 3, PQ = 5 and the general
+    one), every instantiation of K6a and K6b (csrc/gram.cu: k-panels of the
+    stage, 0 unstaged; compile-time or run-time widths), K4 and K7 and each
+    one's occupancy; fails on a missing instantiation, a spill or one that
+    does not fit."""
     want = {"K3 f32": ("query_kernelILb0E",
                        lambda: query.kernel_occupancy(False, L, MAIN_PQ)),
             "K3 bf16": ("query_kernelILb1E",
-                        lambda: query.kernel_occupancy(True, L, MAIN_PQ))}
-    for m in gram.BWD_M:
-        want[f"K6b M={m}"] = (f"gram_bwd_kernelILi{m}E",
-                              lambda m=m: gram.bwd_occupancy(m))
+                        lambda: query.kernel_occupancy(True, L, MAIN_PQ)),
+            "K3 any f32": ("query_any_kernelILb0E",
+                           lambda: query.kernel_occupancy(False, L,
+                                                          MANY_PQ)),
+            "K3 any bf16": ("query_any_kernelILb1E",
+                            lambda: query.kernel_occupancy(True, L,
+                                                           MANY_PQ))}
+    for bwd in (0, 1):
+        for run_time in (0, 1):
+            for kpk in range(1 - run_time, gram.STAGE_PANELS + 1):
+                label = (f"{('K6a', 'K6b')[bwd]} kpk={kpk}"
+                         + (" any" if run_time else ""))
+                want[label] = (
+                    f"gram_kernelILi{kpk}ELb{bwd}ELb{run_time}E",
+                    lambda a=(bwd, kpk, run_time): kernels.occupancy(
+                        "lsv2_gram_occupancy", *a))
     want["K4"] = ("feature_bwd_kernel", lambda: kernels.occupancy(
         "lsv2_feature_bwd_occupancy"))
     want["K7"] = ("rgb_bwd_kernel", lambda: kernels.occupancy(
@@ -774,45 +817,52 @@ def kernels_at_main_shapes(model, clip, consts, plans, dev) -> dict:
         feat = out[1]
         del out, ref
 
-        phi, gram = x["phi"], x["gram"]
-        pq = phi.shape[2]
-        k3 = lambda: query.query_map_tiles(feat, phi, gram)  # noqa: E731
-        k3_plain = lambda: query.query_map_tiles_plain(  # noqa: E731
-            feat, phi, gram)
-        wm3 = feat.reshape(-1, L, K)
-
-        def k3_einsum():
-            torch.einsum("qlk,lkp->qlp", wm3, phi)
-            torch.einsum("qlk,lkm,qlm->ql", wm3, gram, wm3)
-
-        ms, out = cuda_ms(k3, 20)
-        plain_ms, ref = cuda_ms(k3_plain, 5)
-        q = n_tiles * 256
-        flops = q * L * 2 * K * (K + pq + 1)
-        r["K3"] = dict(ms=ms, plain_ms=plain_ms,
-                       library_ms=cuda_ms(k3_einsum, 5)[0],
-                       max_abs_err=max_diff(zip(out, ref)),
-                       cuda_core_ops_ms=flops / F32_FLOPS * 1e3)
-        r["K3"]["bound_ms"], r["K3"]["bound_by"] = bound(
-            q * L * K * 4 + (L * K * pq + L * K * K) * 4 + q * L * (pq + 1) * 4,
-            flops, F32_TENSOR_FLOPS)
-        if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
-                   for a, b in zip(out, ref)):
-            fail(f"{name}: K3 differs from its plain version by "
-                 f"{r['K3']['max_abs_err']} (rtol/atol 1e-5)")
+        r["K3"] = check_query_f32(feat, x["phi"], x["gram"], name)
         rows[name] = r
         for k, v in r.items():
             log(f"{name} {k}: " + ", ".join(
                 f"{a} {b!r}" for a, b in v.items()))
-        del x, feat, out, ref, wm3
+        del x, feat
         torch.cuda.empty_cache()
     return rows
 
 
-def train_scene(n: int, seed: int, dev):
+def check_query_f32(feat, phi, gram, label: str) -> dict:
+    """K3 on a frame's f32 map against its plain version (rtol/atol 1e-5),
+    timed beside it, its bound (the map read once; the products at the
+    3xTF32 rate) and the einsum pair."""
+    pq = phi.shape[2]
+    k3 = lambda: query.query_map_tiles(feat, phi, gram)  # noqa: E731
+    k3_plain = lambda: query.query_map_tiles_plain(  # noqa: E731
+        feat, phi, gram)
+    wm3 = feat.reshape(-1, L, K)
+
+    def k3_einsum():
+        torch.einsum("qlk,lkp->qlp", wm3, phi)
+        torch.einsum("qlk,lkm,qlm->ql", wm3, gram, wm3)
+
+    ms, out = cuda_ms(k3, 20)
+    plain_ms, ref = cuda_ms(k3_plain, 5)
+    q = feat.shape[0] * 256
+    flops = q * L * 2 * K * (K + pq + 1)
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=cuda_ms(k3_einsum, 5)[0],
+             max_abs_err=max_diff(zip(out, ref)),
+             cuda_core_ops_ms=flops / F32_FLOPS * 1e3)
+    r["bound_ms"], r["bound_by"] = bound(
+        q * L * K * 4 + (L * K * pq + L * K * K) * 4 + q * L * (pq + 1) * 4,
+        flops, F32_TENSOR_FLOPS)
+    if not all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+               for a, b in zip(out, ref)):
+        fail(f"{label}: K3 differs from its plain version by "
+             f"{r['max_abs_err']} (rtol/atol 1e-5)")
+    return r
+
+
+def train_scene(n: int, seed: int, dev, k: int = TRAIN_K):
     """scripts/profile_train.py:38-48 (same draws in the same order) with
     create_from_pcd's other fields (identity rotations, SH degree-3 slots
-    at active degree 0); logits and codebooks from a torch.Generator."""
+    at active degree 0); logits and codebooks (one level of k codes) from
+    a torch.Generator."""
     rng = np.random.default_rng(seed)
     pts = np.concatenate([rng.uniform(-4, 4, (n, 2)),
                           rng.uniform(2.0, 12.0, (n, 1))], 1).astype(np.float32)
@@ -826,7 +876,7 @@ def train_scene(n: int, seed: int, dev):
         features_rest=np.zeros((n, 15, 3), np.float32), scaling=scaling,
         rotation=rot, opacity=opacity), active_sh_degree=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_language_features(model, 1, TRAIN_K, generator=gen), rng
+    return init_language_features(model, 1, k, generator=gen), rng
 
 
 def write_gt(rng, prefix: str, n_cams: int, h: int, w: int, cell: int = 48):
@@ -880,7 +930,8 @@ def train_step_inputs(model, cam, max_entries: int, live: int, dev) -> dict:
         stats = torch.zeros(2, dtype=torch.int64, device=dev)
         _, wmap, _ = blend.blend_tiles(g, start, count, geom,
                                        torch.zeros(3, device=dev), gx, gy, qw,
-                                       qi, TRAIN_K, stats=stats)
+                                       qi, model.codebooks.shape[1],
+                                       stats=stats)
         check_counts("K2 f32 (feature step)", stats, g, start, count, geom,
                      gx)
         table, seg = cam.get_language_feature_compact(GT_DIR, 1)
@@ -913,7 +964,7 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
     s = x["settings"]
     gx, gy = s.grid_x, s.grid_y
     hw = s.image_height * s.image_width
-    K, C = TRAIN_K, x["wmap"].shape[2]
+    K, C = x["codebooks"].shape[1], x["wmap"].shape[2]
     M = x["gfull"].shape[0]
     seg_t, wmap, rhs, gfull = x["seg_t"], x["wmap"], x["rhs"], x["gfull"]
     up = torch.ones((), device=dev)
@@ -974,9 +1025,7 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
     q = x["seg_t"].numel()
     k6b_bytes, k6b_ops = k6b_work(q, M, C, K, rhs, gfull)
     for name, fn, plain, reps, nbytes, ops in (
-            ("K6a", k6a, k6a_plain, 20,
-             q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
-             + gx * gy * 4, q * (2 * M * M + 4 * M + 10)),
+            ("K6a", k6a, k6a_plain, 20, *k6a_work(q, M, rhs, gfull)),
             ("K6b", k6b, k6b_plain, 10, k6b_bytes, k6b_ops),
             ("K4", k4, k4_plain, 10,
              x["covered"] * 4 + gx * gy * 8 + x["distinct"] * 24
@@ -1008,6 +1057,14 @@ def check_train_kernels(x: dict, dev, timed: bool) -> dict:
     return r
 
 
+def k6a_work(q: int, M: int, rhs, gfull) -> tuple:
+    """(bytes, operations) K6a needs on q pixels: seg and w [q, M] read, rhs
+    and G read once, the per-tile sums written; G w (2M^2), n2, num and the
+    chain (4M + 10) a pixel."""
+    return (q * (M + 1) * 4 + rhs.numel() * 4 + gfull.numel() * 4
+            + q // 256 * 4, q * (2 * M * M + 4 * M + 10))
+
+
 def k6b_work(q: int, M: int, C: int, K: int, rhs, gfull) -> tuple:
     """(bytes, operations) K6b needs on q pixels: seg, w [q, M], rhs and G
     read once, d_w [q, C], d_phi and d_G written once. Per pixel, G w
@@ -1027,7 +1084,7 @@ def check_gram_patterns(dev) -> dict:
     from torch_port_fixtures import GRAM_PATTERNS, gram_pattern_case
 
     res = {}
-    for m in gram.BWD_M:
+    for m in (64, 128, 192):
         for i, pattern in enumerate(GRAM_PATTERNS):
             case = {k: torch.as_tensor(v, device=dev) for k, v in
                     gram_pattern_case(pattern, m, 3, 10 * m + i).items()}
@@ -1047,41 +1104,57 @@ def check_gram_patterns(dev) -> dict:
     return res
 
 
-def check_gram_wide(dev) -> dict:
-    """K6a/K6b at the L=3 curriculum's last layer (M = 192) on random
-    inputs, against their plain versions; K6b timed beside its plain
-    version and its bound."""
+def gram_wide_inputs(dev, layers: int = 3):
+    """Random inputs of the Gram loss at the last layer of a `layers`-level
+    curriculum (M = 64 layers): 272x480 (30x17 tiles), 256 segments with ~5%
+    of pixels at -1, a [T, 256, 64 layers] map. Returns (seg_t, wm, rhs, G,
+    H*W)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     gx, gy, h, w, S = 30, 17, 272, 480, 256
-    wm = torch.randn(gx * gy, 256, 3 * TRAIN_K, device=dev, generator=gen)
+    wm = torch.randn(gx * gy, 256, layers * TRAIN_K, device=dev,
+                     generator=gen)
     seg = torch.randint(0, S, (h, w), device=dev, generator=gen,
                         dtype=torch.int32)
     seg[torch.rand(h, w, device=dev, generator=gen) < 0.05] = -1
-    books = torch.randn(3, TRAIN_K, 512, device=dev, generator=gen)
+    books = torch.randn(layers, TRAIN_K, 512, device=dev, generator=gen)
     rhs, gfull = gram.prep(books, torch.randn(S, 512, device=dev,
-                                              generator=gen), 2)
-    seg_t = gram.seg_to_tiles(seg, gx, gy)
+                                              generator=gen), layers - 1)
+    return gram.seg_to_tiles(seg, gx, gy), wm, rhs, gfull, h * w
+
+
+def check_gram_wide(dev, layers: int = 3) -> dict:
+    """K6a/K6b at the last layer of a `layers`-level curriculum (M = 192 at
+    3, 256 at 4) on gram_wide_inputs, against their plain versions (K6a's
+    per-tile sums rtol 1e-5 / atol 1e-4, K6b 1e-4 of the largest), each
+    timed beside its plain version and its bound."""
+    seg_t, wm, rhs, gfull, hw = gram_wide_inputs(dev, layers)
+    lay, M = layers - 1, layers * TRAIN_K
     a = gram.gram_tiles_fwd(seg_t, wm, rhs, gfull)
     b = gram.gram_tiles_fwd_plain(seg_t, wm, rhs, gfull, 1e-8)
     up = torch.ones((), device=dev)
+    args = (seg_t, wm, rhs, gfull, lay, TRAIN_K, 1e-8, 1.0 / hw, up)
     errs = [normalized_err(a, b)] + [
         normalized_err(u, v) for u, v in zip(
-            gram.gram_tiles_bwd(seg_t, wm, rhs, gfull, 2, TRAIN_K, 1e-8,
-                                1.0 / (h * w), up),
-            gram.gram_tiles_bwd_plain(seg_t, wm, rhs, gfull, 2, TRAIN_K,
-                                      1e-8, 1.0 / (h * w), up))]
+            gram.gram_tiles_bwd(*args), gram.gram_tiles_bwd_plain(*args))]
     if not (torch.allclose(a, b, rtol=1e-5, atol=1e-4)
             and max(e[1] for e in errs[1:]) <= 1e-4):
-        fail(f"K6 at M=192 differs from its plain version: {errs}")
-    args = (seg_t, wm, rhs, gfull, 2, TRAIN_K, 1e-8, 1.0 / (h * w), up)
-    timed = dict(ms=cuda_ms(lambda: gram.gram_tiles_bwd(*args), 10)[0],
-                 plain_ms=cuda_ms(lambda: gram.gram_tiles_bwd_plain(*args),
-                                  1)[0], library_ms=None)
-    timed["bound_ms"], timed["bound_by"] = bound(
-        *k6b_work(seg_t.numel(), 3 * TRAIN_K, wm.shape[2], TRAIN_K, rhs,
-                  gfull), F32_TENSOR_FLOPS)
-    return dict(K6a=errs[0][0], K6b=max(e[0] for e in errs[1:]),
-                rel=[e[1] for e in errs], K6b_timed=timed)
+        fail(f"K6 at M={M} differs from its plain version: {errs}")
+    fwd = (seg_t, wm, rhs, gfull)
+    q = seg_t.numel()
+    res = dict(M=M, K6a=errs[0][0], K6b=max(e[0] for e in errs[1:]),
+               rel=[e[1] for e in errs])
+    for name, fn, plain, work in (
+            ("K6a", lambda: gram.gram_tiles_fwd(*fwd),
+             lambda: gram.gram_tiles_fwd_plain(*fwd, 1e-8),
+             k6a_work(q, M, rhs, gfull)),
+            ("K6b", lambda: gram.gram_tiles_bwd(*args),
+             lambda: gram.gram_tiles_bwd_plain(*args),
+             k6b_work(q, M, wm.shape[2], TRAIN_K, rhs, gfull))):
+        res[f"{name}_timed"] = t = dict(ms=cuda_ms(fn, 20)[0],
+                                        plain_ms=cuda_ms(plain, 1)[0],
+                                        library_ms=None)
+        t["bound_ms"], t["bound_by"] = bound(*work, F32_TENSOR_FLOPS)
+    return res
 
 
 def train_checks_reduced(dev) -> dict:
@@ -3544,6 +3617,107 @@ def eval_path(dev) -> dict:
     return res
 
 
+# ---------------------- phase 20: the shapes past the main path's designs
+
+def many_prompts_serving(model, plans, dev) -> dict:
+    """Phase 20 (serving): 1080p frames with MANY_POSITIVES (13 positives, as
+    eval/lerf.py::quick_relevancy sends a frame's: PQ = 17 a level, past
+    K3's and K2q's main-path design), one f32 frame (render +
+    relevancy_from_tiles: K3), one bf16 frame (K3 bf16) and one fused frame
+    (rasterize_quick_query: K2q), the launch counts zeroed before and read
+    after; then each kernel on its frame's own inputs against its plain
+    version (K3 rtol/atol 1e-5; K2q rgb and T atol 3e-5, raw and nrm2 1e-5
+    of their largest, and against the unfused routes) and timed."""
+    clip = OpenCLIPNetwork("hash", device=dev)
+    clip.set_positives(MANY_POSITIVES)
+    consts = clip.prompt_constants(model.codebooks)
+    s, view, pm = plans["1080p"]
+    sb = bf16_variants(s)["exact"]
+    zero_counts(MANY_PQ_WRAPPERS)
+    with torch.no_grad():
+        f32, rel32 = frame(model, s, view, pm, clip, consts, dev)
+        f16, rel16 = frame(model, sb, view, pm, clip, consts, dev)
+        fused, relq = query_frame(model, sb, view, pm, clip, consts, dev)
+    launches = read_counts(MANY_PQ_WRAPPERS)
+    log(f"phase 20: launches over an f32, a bf16 and a fused 1080p frame "
+        f"at PQ = {MANY_PQ}: {launches}")
+    if launches != {k: 1 for k in MANY_PQ_WRAPPERS}:
+        fail(f"phase 20: a kernel of the 13-positive frames did not launch "
+             f"once: {launches}")
+    shape = (L, len(MANY_POSITIVES), s.image_height, s.image_width)
+    for name, rel in (("f32", rel32), ("bf16", rel16), ("fused", relq)):
+        if not (tuple(rel.shape) == shape and bool(torch.isfinite(rel).all())
+                and bool(((rel >= 0) & (rel <= 1)).all())):
+            fail(f"phase 20 {name} frame: relevancy {tuple(rel.shape)} (want "
+                 f"{shape}), not finite or outside [0, 1]")
+    del rel32, rel16, relq, fused
+    r = dict(launches=launches)
+    r["K3"] = check_query_f32(f32.language_feature_weight_map, *consts,
+                              "phase 20 K3")
+    del f32
+    r["K3bf16"] = check_query_bf16(f16.language_feature_weight_map, *consts,
+                                   timed=True)
+    del f16
+    x = fast16_inputs(model, sb, view, pm, dev)
+    r["K2q"] = check_query_kernel(x, sb, consts, timed=True)
+    del x
+    for k in ("K3", "K3bf16", "K2q"):
+        log(f"phase 20 1080p PQ={MANY_PQ} {k}: " + ", ".join(
+            f"{a} {b!r}" for a, b in r[k].items()))
+    torch.cuda.empty_cache()
+    return r
+
+
+def small_k_training(dev) -> dict:
+    """Phase 20 (training): SMALL_K_ITERS train_features steps at codebook_size
+    SMALL_K on phase 7's scene and cameras (K6a and K6b at M = K = 32, the
+    launch counts zeroed before and read after), then K6a, K6b and K4 on
+    one step's own inputs (check_train_kernels: phase 7's limits), timed;
+    and K6a and K6b at M = 256 (the last layer of vq_layer_num 4) on
+    gram_wide_inputs against their plain versions, timed."""
+    model, _ = train_scene(TRAIN_N, 0, dev, SMALL_K)
+    cams = train_cameras("cam", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W)
+    opt = type("Opt", (), {"language_feature_lr": 0.0025})()
+    metrics_log = []
+    zero_counts(SMALL_K_WRAPPERS)
+    model, _optimizer, logs = trainer.train_features(
+        model, cams, opt, GT_DIR, 1, iterations=SMALL_K_ITERS, seed=0,
+        max_entries=2 ** 21, feature_cache={}, device=dev,
+        on_iteration=lambda _i, _m, _o, m: metrics_log.append(
+            {k: float(v) for k, v in m.items()}))
+    launches = read_counts(SMALL_K_WRAPPERS)
+    log(f"phase 20 training at codebook_size {SMALL_K}: {SMALL_K_ITERS} "
+        f"steps, losses {logs.losses}, launches {launches}")
+    if launches != {k: SMALL_K_ITERS for k in SMALL_K_WRAPPERS}:
+        fail(f"phase 20: the K={SMALL_K} steps did not launch K6a and K6b "
+             f"once a step: {launches}")
+    if not all(math.isfinite(v) for v in logs.losses):
+        fail(f"phase 20: non-finite loss at codebook_size {SMALL_K}: "
+             f"{logs.losses}")
+    budget = list(logs.live_budget.values())
+    x = train_step_inputs(model, cams[0], 2 ** 21, budget[0], dev)
+    r = dict(launches=launches, losses=logs.losses,
+             step=check_train_kernels(x, dev, timed=True))
+    del x, model
+    r["M=256"] = check_gram_wide(dev, layers=4)
+    for k, v in r["step"].items():
+        log(f"phase 20 K={SMALL_K} step {k}: " + ", ".join(
+            f"{a} {b!r}" for a, b in v.items()))
+    log(f"phase 20 M=256: {r['M=256']}")
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase20_kernel_rows(p20s, p20t) -> dict:
+    """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
+    (1080p), K6a and K6b at K = 32 (a feature step)."""
+    rows = {f"{k}pq17": dict(p20s[k], launches=p20s["launches"][k])
+            for k in ("K3", "K3bf16", "K2q")}
+    for k in ("K6a", "K6b"):
+        rows[f"{k}K32"] = dict(p20t["step"][k], launches=p20t["launches"][k])
+    return rows
+
+
 def new_kernel_rows(lmc, probe_res) -> dict:
     """The kernels line's rows of phases 17 and 18 (K1 with_alpha timed at
     1080p; K9 f32 and bf16)."""
@@ -3613,6 +3787,7 @@ def main() -> None:
     lmc = lm_capped_chain(
         model, clip, consts, plans,
         {k: v["relevancy_iou"] for k, v in bf16["loads"].items()}, dev)
+    p20s = many_prompts_serving(model, plans, dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -3626,9 +3801,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     dpath = dense_path(dev)
     torch.cuda.empty_cache()
+    p20t = small_k_training(dev)
     probe_res = cell_probe(dev)
     eval_res = eval_path(dev)
-    new_rows = new_kernel_rows(lmc, probe_res)
+    new_rows = {**new_kernel_rows(lmc, probe_res),
+                **phase20_kernel_rows(p20s, p20t)}
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -3704,8 +3881,10 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
         occ = next((v["occupancy"] for v in k2_report.values()
                     if k in v["rows"]), None)
-        qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6b": "K6b M=64",
-              "K4": "K4", "K7": "K7"}
+        qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6a": "K6a kpk=1",
+              "K6b": "K6b kpk=1", "K4": "K4", "K7": "K7",
+              "K3pq17": "K3 any f32", "K3bf16pq17": "K3 any bf16",
+              "K6aK32": "K6a kpk=1 any", "K6bK32": "K6b kpk=1 any"}
         if k in qg:
             occ = qg_report[qg[k]]["occupancy"]
         if occ is not None:
@@ -3729,7 +3908,9 @@ def main() -> None:
                        k2_build=k2_report, qg_build=qg_report,
                        frame_traces=traces,
                        lm_capped_chain=lmc, cell_probe=probe_res,
-                       eval_path=eval_res), f, indent=1, default=str)
+                       eval_path=eval_res, many_prompts_serving=p20s,
+                       small_k_training=p20t),
+                  f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": line}))

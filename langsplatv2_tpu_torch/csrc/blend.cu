@@ -96,7 +96,19 @@
 // multiplies). nrm2 multiplies each gram product by the unrounded f32
 // accumulator at the same (pixel, k) and sums over the 4 lanes of a row
 // with shuffles. Products of bf16 values are exact in f32, so the kernel
-// and its plain version differ only in the order of the sums.
+// and its plain version differ only in the order of the sums. That
+// epilogue is for K = 64, L <= 3 and PQ <= 16; every other shape up to
+// fast16's 256 channels takes query_frag.cuh's general products (kQA = 1:
+// warps of 16 pixels, B's fragments from a scratch copy written once a
+// call, A the accumulators read a pair at a time, zero past K). 256
+// channels of f32 accumulators do not fit a block's shared memory, so past
+// 192 (kQA = 2) a tile takes a cluster of two blocks: both walk the tile,
+// each accumulates half the channels (a pair outside its half is dropped
+// where the batch is staged, as an out-of-band one), rank 0 alone writes rgb,
+// T and the pair counts, and after a cluster barrier rank r runs the
+// epilogue for pixels [128 r, 128 r + 128), reading the partner's half of
+// the accumulators through distributed shared memory (a level may straddle
+// the halves: K = 256 at L = 1).
 //
 // Level bands (fast16 and query modes, `per_level` > 0; the Pallas
 // kernel's banded=True, :386-401): slot k belongs to level k / per_level
@@ -135,6 +147,9 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "mma_tf32.cuh"
+#include "query_frag.cuh"
 
 namespace {
 
@@ -243,15 +258,16 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // Accumulator offset of slot k's index, or -1 where the pair is dropped:
-// outside [0, channels), or (per_level > 0) outside its level's band.
-__device__ __forceinline__ int slot_offset(int idx, int k, int channels,
-                                           int per_level) {
-  if ((unsigned)idx >= (unsigned)channels) return -1;
+// outside the channels [cb, cb + channels) the block holds, or (per_level >
+// 0) outside its level's band.
+__device__ __forceinline__ int slot_offset(int idx, int k, int cb,
+                                           int channels, int per_level) {
+  if ((unsigned)(idx - cb) >= (unsigned)channels) return -1;
   if (per_level > 0) {
     const int band = (k / per_level) * kLevelK;
     if (idx < band || idx >= band + kLevelK) return -1;
   }
-  return idx * kPad;
+  return (idx - cb) * kPad;
 }
 
 // Field f of Gaussian gi's raw state.
@@ -273,7 +289,7 @@ __device__ __forceinline__ unsigned load_word(
 template <bool kFast16, bool kDense, int kB>
 __device__ __forceinline__ void store_word(unsigned v, int e, int f,
                                            float* sg, int topk, int channels,
-                                           int per_level) {
+                                           int per_level, int cb) {
   float* s_geom = sg + e * kGeomStride;
   int2* s_slot = reinterpret_cast<int2*>(sg + kB * kGeomStride) + e * topk;
   if (kFast16) {
@@ -298,8 +314,8 @@ __device__ __forceinline__ void store_word(unsigned v, int e, int f,
         for (int b = 0; b < 4; ++b) {
           const int k = 4 * (f - 6) + b;
           if (k < topk)
-            s_slot[k].x =
-                slot_offset((v >> (8 * b)) & 0xFF, k, channels, per_level);
+            s_slot[k].x = slot_offset((v >> (8 * b)) & 0xFF, k, cb,
+                                      channels, per_level);
         }
         break;
       case 15:
@@ -325,7 +341,7 @@ __device__ __forceinline__ void store_word(unsigned v, int e, int f,
     s_slot[f].y = (int)v;
   } else {
     f -= topk;
-    s_slot[f].x = slot_offset((int)v, f, channels, per_level);
+    s_slot[f].x = slot_offset((int)v, f, cb, channels, per_level);
   }
 }
 
@@ -428,21 +444,6 @@ __device__ __forceinline__ unsigned partition_slots(int2* slot, int topk,
   }
   return (unsigned)n0 | (unsigned)(n0 + n1) << 8 |
          (unsigned)(n0 + n1 + n2) << 16;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// d += a . b on the tensor cores: A 16x16 bf16 (row), B 16x8 bf16 (col).
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Query mode's epilogue (see the header): raw [kPix][levels * pq] and
@@ -551,6 +552,92 @@ __device__ __forceinline__ void query_epilogue(
   }
 }
 
+// Both blocks of a cluster meet: every thread of each arrives and waits
+// (release / acquire: shared-memory writes before it are seen after it).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of p (in this block's shared memory) in the shared
+// memory of the cluster's block `rank`.
+__device__ __forceinline__ const float* cluster_map(const float* p,
+                                                    unsigned rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<unsigned long long>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
+// The query epilogue at any K, L and PQ (see the header; query_frag.cuh):
+// warp w of the block takes 16 pixels, A the accumulators rounded to bf16
+// and nrm2's last factor the f32 accumulator, as query_epilogue. kQA = 2:
+// this block (cluster rank `rank`) holds channels [rank * half, ...) and
+// its partner the others; it takes pixels [128 rank, 128 rank + 128).
+template <int kQA>
+__device__ __forceinline__ void query_any_epilogue(
+    const float* acc, const QShape& s, const void* __restrict__ frag,
+    int half, int rank, float* __restrict__ raw, float* __restrict__ nrm2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* acc_lo = acc;   // channels [0, half) (kQA = 2), else all
+  const float* acc_hi = acc;   // channels [half, ...) (kQA = 2)
+  int p_first = 0, n_warps = kPix / 16;
+  if constexpr (kQA == 2) {
+    cluster_sync();   // both halves of the tile's accumulators are complete
+    const float* other = cluster_map(acc, rank ^ 1);
+    acc_lo = rank == 0 ? acc : other;
+    acc_hi = rank == 0 ? other : acc;
+    p_first = rank * (kPix / 2);
+    n_warps = kPix / 32;
+  }
+  if (warp < n_warps) {
+    const int pa = p_first + warp * 16 + g, pb = pa + 8;
+    const size_t level_bytes = (size_t)s.NT * s.KS * 32 * sizeof(uint2);
+    for (int l = 0; l < s.L; ++l) {
+      // Level column k of pixel p (0 past K).
+      auto v = [&](int p, int k) -> float {
+        if (k >= s.K) return 0.0f;
+        const int c = l * s.K + k;
+        if constexpr (kQA == 2) {
+          return c < half ? acc_lo[c * kPad + p]
+                          : acc_hi[(c - half) * kPad + p];
+        } else {
+          return acc[c * kPad + p];
+        }
+      };
+      auto a_frag = [&](int ks, unsigned* a) {
+        const int k = 16 * ks + 2 * t4;
+        a[0] = pack_bf16(v(pa, k), v(pa, k + 1));
+        a[1] = pack_bf16(v(pb, k), v(pb, k + 1));
+        a[2] = pack_bf16(v(pa, k + 8), v(pa, k + 9));
+        a[3] = pack_bf16(v(pb, k + 8), v(pb, k + 9));
+      };
+      auto w_at = [&](int h, int m) -> float { return v(h ? pb : pa, m); };
+      auto raw_at = [&](int h, int q, float val) {
+        raw[(size_t)(h ? pb : pa) * s.L * s.PQ + l * s.PQ + q] = val;
+      };
+      float n2a = 0.0f, n2b = 0.0f;
+      qf_level<true>(static_cast<const char*>(frag) + l * level_bytes, s,
+                     a_frag, w_at, raw_at, n2a, n2b);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        n2a += __shfl_xor_sync(0xffffffffu, n2a, off);
+        n2b += __shfl_xor_sync(0xffffffffu, n2b, off);
+      }
+      if (t4 == 0) {
+        nrm2[pa * s.L + l] = n2a;
+        nrm2[pb * s.L + l] = n2b;
+      }
+    }
+  }
+  if constexpr (kQA == 2) {
+    cluster_sync();   // the partner is done with this block's accumulators
+  }
+}
+
 // Coalesced write of the tile's [kPix, width] block from acc [width][kPad]
 // into rows of `stride` elements: element i = q * width + c; bf16 two
 // channels a store where width and stride are even.
@@ -594,9 +681,10 @@ __device__ __forceinline__ void write_tile(const float* acc, int width,
   }
 }
 
-// kFast16: state from fast16 rows; kQuery: the fused query epilogue;
-// kCells: bf16 cell math (fast16 rows only); kDense: each entry's own
-// feature row. The modes are template flags and each pointer a __restrict__
+// kFast16: state from fast16 rows; kQuery: the fused query epilogue (kQA:
+// 0 the K = 64 one, 1 any shape, 2 any shape with a cluster of two blocks a
+// tile); kCells: bf16 cell math (fast16 rows only); kDense: each entry's
+// own feature row. The modes are template flags and each pointer a __restrict__
 // parameter, so that each instantiation compiles only its own code: with
 // the pointers in a struct parameter the f32 blend's accumulate loop
 // rebuilt its shared-memory address for every pair and ran ~45% slower at
@@ -605,7 +693,8 @@ __device__ __forceinline__ void write_tile(const float* acc, int width,
 // room for), at most 80 registers a thread; 1 for rgb only and dense
 // launches of at most 64 columns, several blocks of 256 an SM (4 and 2),
 // so that several tiles' walks overlap.
-template <bool kFast16, bool kQuery, bool kCells, bool kDense, int kOwn>
+template <bool kFast16, bool kQuery, bool kCells, bool kDense, int kOwn,
+          int kQA>
 __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
     blend_kernel(const int* __restrict__ g_sorted,
                  const int* __restrict__ tile_start,
@@ -620,14 +709,21 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
                  float* __restrict__ t_out,
                  unsigned long long* __restrict__ stats, int per_level,
                  const float* __restrict__ feat_in, int feat_stride,
-                 int feat_c0) {
+                 int feat_c0, const void* __restrict__ qfrag, QShape qs) {
   constexpr int kB = batch_entries<kDense, kOwn>();
   constexpr int kPre = prefetch_words<kFast16, kDense, kOwn>();
   constexpr int kT = kOwn * kPix;                     // threads
   constexpr int kPer = (kB + kOwn - 1) / kOwn;        // phase (a) entries
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);          // [channels][kPad]
-  unsigned* abuf = reinterpret_cast<unsigned*>(acc + acc_floats(channels));
+  // kQA = 2: cluster rank `rank` holds channels [cb, cb + cw) of tile
+  // blockIdx.x / 2 (its half, `half` wide for the layout); else all.
+  const int rank = kQA == 2 ? (int)(blockIdx.x & 1) : 0;
+  const int half = (channels + 1) / 2;
+  const int held = kQA == 2 ? half : channels;
+  const int cb = kQA == 2 ? rank * half : 0;
+  const int cw = kQA == 2 ? (rank ? channels - half : half) : channels;
+  float* acc = reinterpret_cast<float*>(smem);          // [held][kPad]
+  unsigned* abuf = reinterpret_cast<unsigned*>(acc + acc_floats(held));
   float* stage = reinterpret_cast<float*>(
       abuf + (kOwn == 1 ? kPix : kB * kPix));           // 2 buffers
   const int stage_n = stage_floats<kDense, kOwn>(channels, topk);
@@ -636,7 +732,7 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
       reinterpret_cast<unsigned char*>(s_ends + (kDense ? 0 : kB));
   unsigned char* s_nacc = s_done + kPix;
 
-  const int tile = blockIdx.x;
+  const int tile = kQA == 2 ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
   const int tid = threadIdx.x;
   const int pix = tid & (kPix - 1);
   const int own = tid / kPix;  // owner: channel third and colour channel
@@ -647,16 +743,16 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
 
   // This owner's channels [c_lo, c_hi): a third (dense: rounded up to 4
   // columns, for float4 reads of the rows).
-  int third = (channels + kOwn - 1) / kOwn;
+  int third = (cw + kOwn - 1) / kOwn;
   if (kDense) third = (third + 3) & ~3;
-  const int c_lo = min(channels, own * third);
-  const int c_hi = min(channels, c_lo + third);
+  const int c_lo = min(cw, own * third);
+  const int c_hi = min(cw, c_lo + third);
   // The slots it reads: in the banded 3-level rows level own's, whose
   // valid offsets all lie in its band; else (up to 12 slots) each batch's
   // slots are sorted by owner (`part`) and it reads its own; else every
   // slot. All range-checked.
   int k_lo = 0, k_hi = topk;
-  const bool banded3 = per_level > 0 && channels == kMaxLevels * kLevelK;
+  const bool banded3 = per_level > 0 && cw == kMaxLevels * kLevelK;
   if (banded3) {
     k_lo = own * per_level;
     k_hi = k_lo + per_level;
@@ -666,7 +762,7 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
   const int lo_off = c_lo * kPad;
   const unsigned span_off = (unsigned)((c_hi - c_lo) * kPad);
 
-  for (int i = tid; i < acc_floats(channels) / 4; i += kT)
+  for (int i = tid; i < acc_floats(held) / 4; i += kT)
     reinterpret_cast<float4*>(acc)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (kOwn > 1 && own == 0) s_done[pix] = 0;
 
@@ -699,7 +795,7 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
       const int e = w / nw;
       if (e < kB && b0 + e < count)
         store_word<kFast16, kDense, kB>(pw[s], e, w - e * nw, sg, topk,
-                                        channels, per_level);
+                                        cw, per_level, cb);
     }
   };
   // The next batch into the other buffer; the words of the one after and
@@ -875,12 +971,12 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
   if constexpr (kCells) T = expf(S);
   if (own == 0) {  // the final T, in the alpha buffer the walk left free
     reinterpret_cast<float*>(abuf)[pix] = T;
-    if (stats != nullptr) add_stats(stats, n_eval, n_inc);
+    if (stats != nullptr && rank == 0) add_stats(stats, n_eval, n_inc);
   }
   __syncthreads();
 
   const size_t p = (size_t)tile * kPix + pix;
-  if (!kDense || rgb_out != nullptr) {
+  if ((!kDense || rgb_out != nullptr) && rank == 0) {
     const float t = reinterpret_cast<const float*>(abuf)[pix];
 #pragma unroll
     for (int o = 0; o < (kOwn == 1 ? 3 : 1); ++o) {
@@ -890,12 +986,17 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
     }
     if (own == 0) t_out[p] = t;
   }
-  if constexpr (kQuery) {  // feat_out is raw [T, 256, levels * pq]
+  if constexpr (kQuery && kQA == 0) {  // feat_out: raw [T, 256, levels * pq]
     query_epilogue(acc, reinterpret_cast<__nv_bfloat16*>(abuf), levels, pq,
                    phi, gram,
                    static_cast<float*>(feat_out) +
                        (size_t)tile * kPix * levels * pq,
                    nrm2_out + (size_t)tile * kPix * levels);
+  } else if constexpr (kQuery) {
+    query_any_epilogue<kQA>(acc, qs, qfrag, half, rank,
+                            static_cast<float*>(feat_out) +
+                                (size_t)tile * kPix * qs.L * qs.PQ,
+                            nrm2_out + (size_t)tile * kPix * qs.L);
   } else if constexpr (kDense) {
     // The tile's [kPix, channels] block at columns feat_c0.. of its
     // [kPix, feat_stride] rows.
@@ -919,11 +1020,18 @@ constexpr const float* kNoF32 = nullptr;
 constexpr const int* kNoIdx = nullptr;
 constexpr const unsigned* kNoRows = nullptr;
 constexpr float* kNoOut = nullptr;
+constexpr const void* kNoFrag = nullptr;
 
 // Sets the shared-memory size of one instantiation for `channels` and
 // `topk` and launches it with the kernel's argument list `args`.
+// Channels a block's accumulators hold (kQA = 2: half, rounded up).
+template <int kQA>
+__host__ __device__ constexpr int held_channels(int channels) {
+  return kQA == 2 ? (channels + 1) / 2 : channels;
+}
+
 template <bool kFast16, bool kQuery, bool kCells, bool kDense, int kOwn,
-          typename... Args>
+          int kQA, typename... Args>
 int launch_blend(int num_tiles, int channels, int topk, void* stream,
                  Args... args) {
   cudaGetLastError();  // drop a stale error so only this launch reports
@@ -931,24 +1039,45 @@ int launch_blend(int num_tiles, int channels, int topk, void* stream,
   if (kB * entry_words<kFast16, kDense>(channels, topk) >
       prefetch_words<kFast16, kDense, kOwn>() * kOwn * kPix)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = blend_smem<kDense, kOwn>(channels, topk);
-  auto kernel = blend_kernel<kFast16, kQuery, kCells, kDense, kOwn>;
+  const size_t smem =
+      blend_smem<kDense, kOwn>(held_channels<kQA>(channels), topk);
+  auto kernel = blend_kernel<kFast16, kQuery, kCells, kDense, kOwn, kQA>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_tiles > 0)
-    kernel<<<num_tiles, kOwn * kPix, smem,
-             static_cast<cudaStream_t>(stream)>>>(args...);
+  if (num_tiles > 0) {
+    if constexpr (kQA == 2) {   // a cluster of two blocks a tile
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 2;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(2 * num_tiles);
+      cfg.blockDim = dim3(kOwn * kPix);
+      cfg.dynamicSmemBytes = smem;
+      cfg.stream = static_cast<cudaStream_t>(stream);
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, kernel, args...);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    } else {
+      kernel<<<num_tiles, kOwn * kPix, smem,
+               static_cast<cudaStream_t>(stream)>>>(args...);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: blocks an SM, dynamic shared bytes, registers a thread, local
 // (spill and stack) bytes a thread, threads a block.
-template <bool kFast16, bool kQuery, bool kCells, bool kDense, int kOwn>
+template <bool kFast16, bool kQuery, bool kCells, bool kDense, int kOwn,
+          int kQA = 0>
 int occupancy(int channels, int topk, int* out) {
   cudaGetLastError();
-  const size_t smem = blend_smem<kDense, kOwn>(channels, topk);
-  auto kernel = blend_kernel<kFast16, kQuery, kCells, kDense, kOwn>;
+  const size_t smem =
+      blend_smem<kDense, kOwn>(held_channels<kQA>(channels), topk);
+  auto kernel = blend_kernel<kFast16, kQuery, kCells, kDense, kOwn, kQA>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -977,11 +1106,12 @@ extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
                                 float* feat_out, float* t_out,
                                 unsigned long long* stats, void* stream) {
   auto go = [&](auto owners) {
-    return launch_blend<false, false, false, false, decltype(owners)::value>(
+    return launch_blend<false, false, false, false, decltype(owners)::value,
+                        0>(
         num_tiles, channels, topk, stream, g_sorted, tile_start, tile_count,
         geom, qw, qi, kNoRows, bg, grid_x, topk, kNoF32, kNoF32, channels, 0,
         0, 0, rgb_out, static_cast<void*>(feat_out), kNoOut, t_out, stats, 0,
-        kNoF32, 0, 0);
+        kNoF32, 0, 0, kNoFrag, QShape{});
   };
   return channels > 0 ? go(std::integral_constant<int, kOwners>{})
                       : go(std::integral_constant<int, 1>{});
@@ -1000,11 +1130,13 @@ extern "C" int lsv2_blend_tiles_fast16(const int* g_sorted,
                                        unsigned long long* stats,
                                        void* stream) {
   auto go = [&](auto cells) {
-    return launch_blend<true, false, decltype(cells)::value, false, kOwners>(
+    return launch_blend<true, false, decltype(cells)::value, false, kOwners,
+                        0>(
         num_tiles, channels, topk, stream, g_sorted, tile_start, tile_count,
         kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
         grid_x, topk, kNoF32, kNoF32, channels, out_bf16, 0, 0, rgb_out,
-        feat_out, kNoOut, t_out, stats, per_level, kNoF32, 0, 0);
+        feat_out, kNoOut, t_out, stats, per_level, kNoF32, 0, 0, kNoFrag,
+        QShape{});
   };
   return cells_bf16 ? go(std::true_type{}) : go(std::false_type{});
 }
@@ -1027,14 +1159,53 @@ extern "C" int lsv2_blend_tiles_query(const int* g_sorted,
     return static_cast<int>(cudaErrorInvalidValue);
   const int channels = levels * kLevelK;
   auto go = [&](auto cells) {
-    return launch_blend<true, true, decltype(cells)::value, false, kOwners>(
+    return launch_blend<true, true, decltype(cells)::value, false, kOwners,
+                        0>(
         num_tiles, channels, topk, stream, g_sorted, tile_start, tile_count,
         kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
         grid_x, topk, phi, gram, channels, 0, levels, pq, rgb_out,
         static_cast<void*>(raw_out), nrm2_out, t_out, stats, per_level,
-        kNoF32, 0, 0);
+        kNoF32, 0, 0, kNoFrag, QShape{});
   };
   return cells_bf16 ? go(std::true_type{}) : go(std::false_type{});
+}
+
+// Query mode at any levels, K and pq with levels * K <= 256 (fast16's u8
+// indices): as lsv2_blend_tiles_query; frag: scratch of frag_words 32-bit
+// words for B's fragments (query_frag.cuh, bf16).
+extern "C" int lsv2_blend_tiles_query_any(
+    const int* g_sorted, const int* tile_start, const int* tile_count,
+    const void* rows, const float* bg, const float* phi, const float* gram,
+    int num_tiles, int grid_x, int topk, int levels, int K, int pq,
+    int per_level, int cells_bf16, float* rgb_out, float* raw_out,
+    float* nrm2_out, float* t_out, unsigned long long* stats, void* frag,
+    long long frag_words, void* stream) {
+  cudaGetLastError();
+  if (levels < 1 || K < 1 || pq < 1 || levels * K > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QShape s = qf_shape(true, levels, K, pq);
+  if (frag_words < qf_words(true, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      qf_split<true>(phi, gram, s, frag, static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  const int channels = levels * K;
+  auto go = [&](auto cells, auto qa) {
+    return launch_blend<true, true, decltype(cells)::value, false, kOwners,
+                        decltype(qa)::value>(
+        num_tiles, channels, topk, stream, g_sorted, tile_start, tile_count,
+        kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
+        grid_x, topk, phi, gram, channels, 0, levels, pq, rgb_out,
+        static_cast<void*>(raw_out), nrm2_out, t_out, stats, per_level,
+        kNoF32, 0, 0, static_cast<const void*>(frag), s);
+  };
+  using One = std::integral_constant<int, 1>;
+  using Two = std::integral_constant<int, 2>;
+  if (channels > kMaxLevels * kLevelK)
+    return cells_bf16 ? go(std::true_type{}, Two{})
+                      : go(std::false_type{}, Two{});
+  return cells_bf16 ? go(std::true_type{}, One{})
+                    : go(std::false_type{}, One{});
 }
 
 // Dense mode: features [N, stride] f32; this launch blends columns
@@ -1054,11 +1225,12 @@ extern "C" int lsv2_blend_tiles_dense(const int* g_sorted,
       c0 + channels > stride || (rgb_out == nullptr) != (t_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto owners) {
-    return launch_blend<false, false, false, true, decltype(owners)::value>(
+    return launch_blend<false, false, false, true, decltype(owners)::value,
+                        0>(
         num_tiles, channels, 0, stream, g_sorted, tile_start, tile_count,
         geom, kNoF32, kNoIdx, kNoRows, bg, grid_x, 0, kNoF32, kNoF32,
         channels, 0, 0, 0, rgb_out, static_cast<void*>(feat_out), kNoOut,
-        t_out, stats, 0, feats, stride, c0);
+        t_out, stats, 0, feats, stride, c0, kNoFrag, QShape{});
   };
   return channels <= kNarrowDense ? go(std::integral_constant<int, 1>{})
                                   : go(std::integral_constant<int, kOwners>{});
@@ -1066,7 +1238,9 @@ extern "C" int lsv2_blend_tiles_dense(const int* g_sorted,
 
 // Occupancy of one instantiation at `channels` and `topk` (see occupancy):
 // mode 0 f32, 1 fast16, 2 query, 3 dense, 4 rgb only, 5 narrow dense (one
-// thread a pixel); cells_bf16 for modes 1 and 2.
+// thread a pixel), 6 query at any shape, 7 the same with a cluster of two
+// blocks a tile (channels the tile's, not the block's); cells_bf16 for
+// modes 1, 2, 6 and 7.
 extern "C" int lsv2_blend_occupancy(int mode, int cells_bf16, int channels,
                                     int topk, int* out) {
   constexpr int k3 = kOwners;
@@ -1079,6 +1253,10 @@ extern "C" int lsv2_blend_occupancy(int mode, int cells_bf16, int channels,
     case 6: return occupancy<false, false, false, true, k3>(channels, topk, out);
     case 8: return occupancy<false, false, false, false, 1>(channels, topk, out);
     case 10: return occupancy<false, false, false, true, 1>(channels, topk, out);
+    case 12: return occupancy<true, true, false, false, k3, 1>(channels, topk, out);
+    case 13: return occupancy<true, true, true, false, k3, 1>(channels, topk, out);
+    case 14: return occupancy<true, true, false, false, k3, 2>(channels, topk, out);
+    case 15: return occupancy<true, true, true, false, k3, 2>(channels, topk, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,10 +1,12 @@
-// f32-accurate tensor-core products and asynchronous copies, shared by
-// query.cu (K3), gram.cu (K6b), feature_bwd.cu (K4) and rgb_bwd.cu (K7).
+// Tensor-core products (f32-accurate 3xTF32, and bf16) and asynchronous
+// copies, shared by query.cu (K3), blend.cu (K2q), gram.cu (K6a, K6b),
+// feature_bwd.cu (K4) and rgb_bwd.cu (K7).
 //
 // 3xTF32: x = big + small, both TF32; a.b ~ as.bb + ab.bs + ab.bb on
 // mma.sync m16n8k8 with f32 sums (the dropped as.bs is ~2^-22 of a.b).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -35,6 +37,24 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b: A 16x16 bf16 (row), B 16x8 bf16 (col), f32 sums. For lane
+// (g, t): a = A[g][2t, 2t+1], A[g+8][2t, 2t+1], A[g][2t+8, 2t+9],
+// A[g+8][2t+8, 2t+9]; b = B[2t, 2t+1][g], B[2t+8, 2t+9][g] (the lower
+// index in the low half); d as for mma_tf32.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // 16 bytes, both addresses 16-byte aligned (bypasses L1).

@@ -43,11 +43,21 @@
 // in f32 mode already split into big and small). The outputs of a warp's
 // 16 pixels (60 bytes a pixel at L = 3, PQ = 5) go through a per-warp
 // shared stage and leave as 16-byte coalesced stores.
+//
+// That design is for K = 64, L <= 3 and PQ <= 16 (the main path's 3 x 64
+// codebooks and 1 + 4 prompts). Every other shape runs query_any_kernel
+// (query_frag.cuh): any K, L and PQ, the levels one after another and a
+// level's [gram | phi] n-tiles four at a time, B's fragments read from a
+// scratch copy written once a call, A loaded a value at a time from the map
+// at its true row stride, predicated to zero past K (no 16-byte loads: the
+// rows need not be aligned to them), outputs stored straight from the
+// accumulators; nrm2 is formed once a level whatever PQ.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_tf32.cuh"
 #include "phase_marks.cuh"
+#include "query_frag.cuh"
 
 // Phases (profile_query_gram.py): 0 the B stage, 1 waiting for a level's
 // loads, 2 the products, 3 nrm2's shuffles and the output stores.
@@ -80,27 +90,12 @@ __device__ __forceinline__ int phys(int t, int j) {
                : (j >> 2) * 16 + 4 * t + (j & 3);
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 __device__ __forceinline__ float bf16_lo(unsigned v) {
   return __uint_as_float(v << 16);
 }
 
 __device__ __forceinline__ float bf16_hi(unsigned v) {
   return __uint_as_float(v & 0xFFFF0000u);
-}
-
-// d += a . b: A 16x16 bf16 (row), B 16x8 bf16 (col), f32 sums.
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A phi n-tile's accumulators (columns q0 + 2 t4, + 1 of rows g, g + 8)
@@ -424,7 +419,152 @@ int occupancy(int levels, int pq, int* out) {
   return 0;
 }
 
+// ------------------------------------------------- any K, L and PQ
+constexpr int kAnyThreads = 256;
+
+// Warps walk items of 16 pixels with a grid stride (persistent blocks), the
+// item's levels in turn (see the header and query_frag.cuh).
+template <bool kBf16, typename MapT>
+__global__ void __launch_bounds__(kAnyThreads)
+    query_any_kernel(const MapT* __restrict__ wm,
+                     const void* __restrict__ frag, QShape s, int n_tiles,
+                     float* __restrict__ raw, float* __restrict__ nrm2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t C = (size_t)s.L * s.K, lpq = (size_t)s.L * s.PQ;
+  const size_t level_bytes =
+      (size_t)s.NT * s.KS * 32 * (kBf16 ? sizeof(uint2) : sizeof(uint4));
+  const long long n_items = (long long)n_tiles * (256 / kRows);
+  const long long stride = (long long)gridDim.x * (kAnyThreads / 32);
+  for (long long item = (long long)blockIdx.x * (kAnyThreads / 32) + warp;
+       item < n_items; item += stride) {
+    const size_t p0 = (size_t)item * kRows;
+    for (int l = 0; l < s.L; ++l) {
+      const MapT* ra = wm + (p0 + g) * C + (size_t)l * s.K;
+      const MapT* rb = ra + 8 * C;
+      // The bits of r[k] (bf16: the low half), 0 past K.
+      auto val = [&](const MapT* r, int k) -> unsigned {
+        if (k >= s.K) return 0u;
+        if constexpr (kBf16) {
+          return (unsigned)__bfloat16_as_ushort(__ldg(r + k));
+        } else {
+          return __float_as_uint(__ldg(r + k));
+        }
+      };
+      auto a_frag = [&](int ks, unsigned* a) {
+        if constexpr (kBf16) {
+          const int k = 16 * ks + 2 * t4;
+          a[0] = val(ra, k) | val(ra, k + 1) << 16;
+          a[1] = val(rb, k) | val(rb, k + 1) << 16;
+          a[2] = val(ra, k + 8) | val(ra, k + 9) << 16;
+          a[3] = val(rb, k + 8) | val(rb, k + 9) << 16;
+        } else {
+          const int k = 8 * ks + 2 * t4;
+          a[0] = val(ra, k);
+          a[1] = val(rb, k);
+          a[2] = val(ra, k + 1);
+          a[3] = val(rb, k + 1);
+        }
+      };
+      auto w_at = [&](int h, int m) -> float {
+        const unsigned v = val(h ? rb : ra, m);
+        return __uint_as_float(kBf16 ? v << 16 : v);
+      };
+      auto raw_at = [&](int h, int q, float v) {
+        raw[(p0 + g + 8 * h) * lpq + (size_t)l * s.PQ + q] = v;
+      };
+      float n2a = 0.0f, n2b = 0.0f;
+      qf_level<kBf16>(static_cast<const char*>(frag) + l * level_bytes, s,
+                      a_frag, w_at, raw_at, n2a, n2b);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        n2a += __shfl_xor_sync(0xffffffffu, n2a, off);
+        n2b += __shfl_xor_sync(0xffffffffu, n2b, off);
+      }
+      if (t4 == 0) {
+        nrm2[(p0 + g) * s.L + l] = n2a;
+        nrm2[(p0 + g + 8) * s.L + l] = n2b;
+      }
+    }
+  }
+}
+
+template <bool kBf16, typename MapT>
+int launch_query_any(const MapT* wm, const float* phi, const float* gram,
+                     int n_tiles, int levels, int K, int pq, float* raw,
+                     float* nrm2, void* frag, long long frag_words,
+                     void* stream) {
+  cudaGetLastError();  // drop a stale error so only this launch reports
+  if (levels < 1 || K < 1 || pq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QShape s = qf_shape(kBf16, levels, K, pq);
+  if (frag_words < qf_words(kBf16, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = qf_split<kBf16>(phi, gram, s, frag, st);
+  if (err != 0) return err;
+  auto kernel = query_any_kernel<kBf16, MapT>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kAnyThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long items = (long long)n_tiles * (256 / kRows);
+  const long long need = (items + kAnyThreads / 32 - 1) / (kAnyThreads / 32);
+  const long long most = (long long)sms * per_sm;
+  const int grid = (int)(need < most ? need : most);
+  if (grid > 0)
+    kernel<<<grid, kAnyThreads, 0, st>>>(wm, frag, s, n_tiles, raw, nrm2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16, typename MapT>
+int occupancy_any(int* out) {
+  cudaGetLastError();
+  auto kernel = query_any_kernel<kBf16, MapT>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kAnyThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = 0;
+  out[2] = attr.numRegs;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = kAnyThreads;
+  return 0;
+}
+
 }  // namespace
+
+// Any L, K and PQ (wm [T, 256, L*K], f32 or, with bf16, bf16; phi [L, K,
+// PQ] and gram [L, K, K] f32, bf16-rounded with bf16): raw [T, 256, L*PQ],
+// nrm2 [T, 256, L]. frag: scratch of frag_words 32-bit words (at least
+// L * NT * KS * 32 * (bf16 ? 2 : 4), ops/query.py::kernel_plan).
+extern "C" int lsv2_query_map_tiles_any(int bf16, const void* wm,
+                                        const float* phi, const float* gram,
+                                        int n_tiles, int levels, int K,
+                                        int pq, float* raw, float* nrm2,
+                                        void* frag, long long frag_words,
+                                        void* stream) {
+  return bf16 ? launch_query_any<true>(
+                    static_cast<const __nv_bfloat16*>(wm), phi, gram,
+                    n_tiles, levels, K, pq, raw, nrm2, frag, frag_words,
+                    stream)
+              : launch_query_any<false>(static_cast<const float*>(wm), phi,
+                                        gram, n_tiles, levels, K, pq, raw,
+                                        nrm2, frag, frag_words, stream);
+}
+
+// query_any_kernel's occupancy (see lsv2_query_occupancy).
+extern "C" int lsv2_query_any_occupancy(int bf16, int* out) {
+  return bf16 ? occupancy_any<true, __nv_bfloat16>(out)
+              : occupancy_any<false, float>(out);
+}
 
 extern "C" int lsv2_query_map_tiles(const float* wm, const float* phi,
                                     const float* gram, int n_tiles,

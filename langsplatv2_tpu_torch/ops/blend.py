@@ -27,7 +27,10 @@ the Gram query of kernel K3 from the channel accumulators, so the
 [T, 256, L*K] map is never written. The products take the weights, phi
 and gram rounded to bf16 (the TPU kernel's MXU pass); the last factor of
 nrm2 and its band sum use the f32 accumulator. `blend_tiles_query_plain`
-is the fast16 plain blend followed by those products in torch.
+is the fast16 plain blend followed by those products in torch. It takes
+every L, K and PQ with L*K <= 256 (fast16's u8 indices):
+`query.kernel_plan(L, K, PQ, bf16=True)` says which epilogue runs; past
+192 channels a tile takes a cluster of two blocks (csrc/blend.cu).
 
 Level bands (`banded`, JAX's banded=True, pallas_blend.py:386-401): in the
 fast16 and query modes slot k of a row belongs to level k // (topk / L),
@@ -59,11 +62,10 @@ import torch
 
 from . import kernels
 from .projection import BLOCK
-from .query import KERNEL_K, KERNEL_MAX_PQ, round_bf16
+from .query import kernel_plan, round_bf16
 
 P = BLOCK * BLOCK
 FAST16_PAIRS = 12      # (index, weight) slots of a fast16 row
-QUERY_MAX_LEVELS = 3   # fused query: 192 channels fill shared memory
 LEVEL_BAND = 64        # codebook rows a level band
 DENSE_GROUP = 192      # dense mode: channels a launch (shared accumulators)
 BATCH = 24             # csrc/blend.cu kQuickBatch: entries a batch
@@ -233,13 +235,16 @@ def pair_counts_plain(g_sorted, tile_start, tile_count, geom, grid_x,
 def kernel_occupancy(mode: str, channels: int, topk: int) -> dict:
     """K2's instantiation `mode` ("f32", "fast16", "fast16 cells", "query",
     "query cells", "dense", "rgb": the f32 blend without channels, "dense
-    narrow": dense launches of at most 64 columns) at this width (CUDA
-    only): resident blocks and warps an SM, dynamic shared bytes,
-    registers and local (spill, stack) bytes a thread, from the CUDA
-    runtime."""
+    narrow": dense launches of at most 64 columns, "query any" and "query
+    pair" (+ " cells"): the fused query at other shapes, one block or two a
+    tile) at this width (CUDA only): resident blocks and warps an SM,
+    dynamic shared bytes, registers and local (spill, stack) bytes a
+    thread, from the CUDA runtime."""
     code = {"f32": (0, 0), "fast16": (1, 0), "fast16 cells": (1, 1),
             "query": (2, 0), "query cells": (2, 1), "dense": (3, 0),
-            "rgb": (4, 0), "dense narrow": (5, 0)}[mode]
+            "rgb": (4, 0), "dense narrow": (5, 0), "query any": (6, 0),
+            "query any cells": (6, 1), "query pair": (7, 0),
+            "query pair cells": (7, 1)}[mode]
     return kernels.occupancy("lsv2_blend_occupancy", *code, channels, topk)
 
 
@@ -436,7 +441,7 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
     [T, 256, L], final_T [T, 256]), all f32: raw[t,p,l*PQ+q] =
     sum_k wm[l,k] phi[l,k,q], nrm2[t,p,l] = sum_k (wm_l gram_l)[k] wm[l,k].
     `banded` and `cells_bf16` as for
-    `blend_tiles_fast16`. On CUDA, K = 64, L <= 3 and PQ <= 16."""
+    `blend_tiles_fast16`."""
     dev = rows.device
     n_tiles = grid_x * grid_y
     L, K, PQ = phi.shape
@@ -453,12 +458,6 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
                                        banded, cells_bf16)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_query: unsupported device {dev}")
-    if K != KERNEL_K or not (1 <= L <= QUERY_MAX_LEVELS
-                             and 1 <= PQ <= KERNEL_MAX_PQ):
-        raise NotImplementedError(
-            f"the fused query takes K={KERNEL_K} codebook rows, at most "
-            f"{QUERY_MAX_LEVELS} levels and {KERNEL_MAX_PQ} prompts a level "
-            f"(as K3), not K={K}, L={L}, PQ={PQ}")
     kernels.check_tensor(g_sorted, "g_sorted", torch.int32, (None,), dev)
     kernels.check_tensor(tile_start, "tile_start", torch.int32, (n_tiles,),
                          dev)
@@ -481,13 +480,19 @@ def blend_tiles_query(g_sorted, tile_start, tile_count, rows, bg,
     nrm2 = torch.empty((n_tiles, P, L), device=dev)
     final_t = torch.empty((n_tiles, P), device=dev)
     P_ = kernels.ptr
-    kernels.launch(
-        "lsv2_blend_tiles_query", P_(g_sorted), P_(tile_start),
-        P_(tile_count), P_(rows), P_(bg), P_(phi_b), P_(gram_b), n_tiles,
-        grid_x, topk, L, PQ, per_level, int(cells_bf16), P_(rgb), P_(raw),
-        P_(nrm2), P_(final_t),
-        P_(stats) if stats is not None else kernels.NULL,
-        kernels.stream(rgb))
+    args = (P_(g_sorted), P_(tile_start), P_(tile_count), P_(rows), P_(bg),
+            P_(phi_b), P_(gram_b), n_tiles, grid_x, topk, L)
+    outs = (P_(rgb), P_(raw), P_(nrm2), P_(final_t),
+            P_(stats) if stats is not None else kernels.NULL)
+    plan = kernel_plan(L, K, PQ, bf16=True)
+    if plan["route"] == "main":
+        kernels.launch("lsv2_blend_tiles_query", *args, PQ, per_level,
+                       int(cells_bf16), *outs, kernels.stream(rgb))
+    else:
+        frag = torch.empty(plan["frag_words"], dtype=torch.int32, device=dev)
+        kernels.launch("lsv2_blend_tiles_query_any", *args, K, PQ, per_level,
+                       int(cells_bf16), *outs, P_(frag), plan["frag_words"],
+                       kernels.stream(rgb))
     blend_tiles_query.launches += 1
     return rgb, raw, nrm2, final_t
 

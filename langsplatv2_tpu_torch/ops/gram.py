@@ -19,9 +19,14 @@ chain in torch ops) on CPU tensors. `gram_loss_fused` wires them into a
 torch.autograd.Function; `train/trainer.py::gram_cos_loss_tiles` is the
 differentiable XLA formulation it is held against. The kernels are bound by
 the bytes of the weight map (and of its gradient); csrc/gram.cu says how
-their design meets that.
+their design meets that. They take every M and K the Pallas kernels take:
+`kernel_plan` (a pure function of the shapes) gives the instantiation and
+the launches, each launch's widths a `Pass`.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,8 +34,89 @@ from . import kernels
 from .projection import BLOCK
 
 P = BLOCK * BLOCK
-BWD_K = 64                  # codebook rows a layer the backward kernel takes
-BWD_M = (64, 128, 192)      # its widths of G (layers 0..lay)
+PANEL = 64          # csrc/gram.cu kPanel: G's split blocks are PANEL^2
+STAGE_PANELS = 4    # kMaxStagePanels: the widest shared stage (256 columns)
+ROW_BLOCK = 128     # kRowBlock: d_G rows an unstaged launch accumulates
+
+
+class Pass(NamedTuple):
+    """One launch's widths (csrc/gram.cu `Pass`): G [M, M], the layer width
+    K (0 for K6a), the contraction's k-panels n_k and the output column
+    panels n_out; the output columns before layer lay's block, no, padded
+    to po; the block's map columns [c0, c0 + kb) (kb <= 64) and its first
+    column j0 in d_phi and d_G; the first d_G row r0; whether the launch
+    writes d_w and d_phi (dw) and d_w's zeros outside the block
+    (zero_rest)."""
+    M: int
+    K: int
+    n_k: int
+    n_out: int
+    no: int
+    po: int
+    c0: int
+    kb: int
+    j0: int
+    r0: int
+    dw: int
+    zero_rest: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def kernel_plan(M: int, K: int | None = None, C: int | None = None) -> dict:
+    """The launches of K6a (K None) or K6b (layer width K, M = (lay+1)*K) on
+    G [M, M] and a map of C columns (default M): `kpk`, the stage's
+    64-column k-panels (0: unstaged, M > 256), `any` (the run-time-width
+    instantiation, unless K6a's M or K6b's K = 64 and M is 64, 128, 192 or
+    256 on a C that is a multiple of 4), the `passes` in launch order and
+    `gsplit_floats`, the scratch of G's split fragments. Output columns
+    are the map columns outside layer lay's block in order, padded to a
+    whole panel, then the block (K6a: the M columns); K6b's layer goes in
+    blocks of at most 64 columns, one pass each, and unstaged in row blocks
+    of ROW_BLOCK d_G rows."""
+    C = M if C is None else C
+    if not 0 < M <= C:
+        raise ValueError(f"G [{M}, {M}] on a map of {C} columns")
+    n_k = _ceil(M, PANEL)
+    staged = n_k <= STAGE_PANELS
+    kpk = n_k if staged else 0
+    if K is None:
+        fast = staged and M == PANEL * n_k and C % 4 == 0
+        passes = [Pass(M, 0, n_k, n_k, M, PANEL * n_k, M, 0, 0, 0, 0, 0)]
+    else:
+        if K < 1 or M % K:
+            raise ValueError(f"G [{M}, {M}] is not whole layers of K={K}")
+        lo = M - K
+        fast = K == PANEL and M % PANEL == 0 and staged and C % 4 == 0
+        passes = []
+        for jb in range(_ceil(K, PANEL)):
+            kb = min(PANEL, K - PANEL * jb)
+            no = M - kb
+            po = _ceil(no, PANEL) * PANEL
+            for rb in range(1 if staged else _ceil(M, ROW_BLOCK)):
+                passes.append(Pass(M, K, n_k, po // PANEL + 1, no, po,
+                                   lo + PANEL * jb, kb, PANEL * jb,
+                                   ROW_BLOCK * rb, int(rb == 0),
+                                   int(rb == 0 and jb == 0)))
+        if kpk == 1 and any(p.n_out > 1 for p in passes):
+            kpk = 2       # G resident in shared memory only as one block
+    return dict(kpk=kpk, any=not fast, passes=passes,
+                gsplit_floats=max(2 * PANEL * PANEL * p.n_out * p.n_k
+                                  for p in passes))
+
+
+def out_columns(p: Pass) -> list[int]:
+    """The map column of each output column of a pass (-1: padding), as
+    csrc/gram.cu::out_col."""
+    cols = []
+    for n in range(PANEL * p.n_out):
+        if n < p.po:
+            cols.append((n if n < p.c0 else n + p.kb) if n < p.no else -1)
+        else:
+            cols.append(p.c0 + n - p.po if n - p.po < p.kb else -1)
+    return cols
 
 
 def prep(codebooks, gt_table, lay: int):
@@ -80,6 +166,23 @@ def gram_tiles_fwd_plain(seg_tiles, wmap_tiles, rhs, gfull, eps: float):
     return (c["num"] / (c["a"] * c["b"])).sum(-1)
 
 
+def _launch(bwd: bool, plan: dict, seg_tiles, wmap_tiles, rhs, gfull,
+            eps: float, inv_hw: float, upstream, out, dphi, dg):
+    """Every pass of `plan` (one csrc/gram.cu launch each), in order."""
+    t, _, c = wmap_tiles.shape
+    gsplit = torch.empty(plan["gsplit_floats"], device=wmap_tiles.device)
+    ptr, null = kernels.ptr, kernels.NULL
+    for p in plan["passes"]:
+        widths = (ctypes.c_int * len(p))(*p)
+        kernels.launch(
+            "lsv2_gram", int(bwd), plan["kpk"], int(plan["any"]),
+            ptr(seg_tiles), ptr(wmap_tiles), ptr(rhs), ptr(gfull), t, c,
+            ctypes.cast(widths, ctypes.c_void_p), eps, inv_hw,
+            ptr(upstream) if bwd else null, ptr(out),
+            ptr(dphi) if bwd else null, ptr(dg) if bwd else null,
+            ptr(gsplit), kernels.stream(out))
+
+
 def gram_tiles_fwd(seg_tiles, wmap_tiles, rhs, gfull, eps: float = 1e-8):
     """Per-tile sums of sim [T] for seg_tiles [T, 256] i32, wmap_tiles
     [T, 256, C] f32 (its first M columns used), rhs [S, M+1], G [M, M]."""
@@ -87,11 +190,9 @@ def gram_tiles_fwd(seg_tiles, wmap_tiles, rhs, gfull, eps: float = 1e-8):
     if dev.type == "cpu":
         return gram_tiles_fwd_plain(seg_tiles, wmap_tiles, rhs, gfull, eps)
     t, c, m = _check(seg_tiles, wmap_tiles, rhs, gfull)
-    partial = torch.empty(t, device=dev)
-    ptr = kernels.ptr
-    kernels.launch("lsv2_gram_fwd", ptr(seg_tiles), ptr(wmap_tiles),
-                   ptr(rhs), ptr(gfull), t, c, m, eps, ptr(partial),
-                   kernels.stream(partial))
+    partial = torch.zeros(t, device=dev)
+    _launch(False, kernel_plan(m, None, c), seg_tiles, _aligned(wmap_tiles),
+            rhs, gfull, eps, 0.0, None, partial, None, None)
     gram_tiles_fwd.launches += 1
     return partial
 
@@ -137,20 +238,12 @@ def gram_tiles_bwd(seg_tiles, wmap_tiles, rhs, gfull, lay: int, k: int,
     t, c, m = _check(seg_tiles, wmap_tiles, rhs, gfull)
     if (lay + 1) * k != m:
         raise ValueError(f"layer {lay} of K={k} does not match G [{m}, {m}]")
-    if k != BWD_K or m not in BWD_M or c % 4:
-        raise NotImplementedError(
-            f"the gram backward kernel takes K={BWD_K}, M in {BWD_M} and a "
-            f"map width that is a multiple of 4, not K={k}, M={m}, C={c}")
     upstream = upstream.reshape(1).to(torch.float32).contiguous()
     dw = torch.empty_like(wmap_tiles)
     dphi = torch.zeros((rhs.shape[0], k), device=dev)
     dg = torch.zeros((m, k), device=dev)
-    gsplit = torch.empty(2 * m * m, device=dev)   # G's split B fragments
-    ptr = kernels.ptr
-    kernels.launch("lsv2_gram_bwd", ptr(seg_tiles), ptr(wmap_tiles),
-                   ptr(rhs), ptr(gfull), t, c, m, k, lay, eps, inv_hw,
-                   ptr(upstream), ptr(dw), ptr(dphi), ptr(dg), ptr(gsplit),
-                   kernels.stream(dw))
+    _launch(True, kernel_plan(m, k, c), seg_tiles, _aligned(wmap_tiles), rhs,
+            gfull, eps, inv_hw, upstream, dw, dphi, dg)
     gram_tiles_bwd.launches += 1
     return dw, dphi, dg
 
@@ -158,11 +251,21 @@ def gram_tiles_bwd(seg_tiles, wmap_tiles, rhs, gfull, lay: int, k: int,
 gram_tiles_bwd.launches = 0
 
 
-def bwd_occupancy(m: int) -> dict:
-    """K6b's instantiation at G [m, m] (CUDA only): resident blocks and
-    warps an SM, dynamic shared bytes, registers and local (spill, stack)
-    bytes a thread, from the CUDA runtime."""
-    return kernels.occupancy("lsv2_gram_bwd_occupancy", m)
+def occupancy(bwd: bool, m: int, k: int | None = None, c: int | None = None
+              ) -> dict:
+    """The instantiation `kernel_plan` picks for K6a (bwd False) or K6b at
+    G [m, m] (CUDA only): resident blocks and warps an SM, dynamic shared
+    bytes, registers and local (spill, stack) bytes a thread, from the CUDA
+    runtime."""
+    plan = kernel_plan(m, k if bwd else None, c)
+    return kernels.occupancy("lsv2_gram_occupancy", int(bwd), plan["kpk"],
+                             int(plan["any"]))
+
+
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernels' 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(seg_tiles, wmap_tiles, rhs, gfull):
@@ -171,9 +274,9 @@ def _check(seg_tiles, wmap_tiles, rhs, gfull):
         raise ValueError(f"gram kernels: unsupported device {dev}")
     t, _, c = wmap_tiles.shape
     m = gfull.shape[0]
-    if m % 16 or m > c:
-        raise ValueError(f"G [{m}, {m}]: M must be a multiple of 16 and at "
-                         f"most the map's {c} channels")
+    if not 0 < m <= c:
+        raise ValueError(f"G [{m}, {m}]: M must be at most the map's {c} "
+                         f"channels")
     kernels.check_tensor(seg_tiles, "seg_tiles", torch.int32, (t, P), dev)
     kernels.check_tensor(wmap_tiles, "wmap_tiles", torch.float32, (t, P, c),
                          dev)

@@ -65,6 +65,8 @@ ENTRY_POINTS = {
     # g_sorted tile_start tile_count rows bg phi gram num_tiles grid_x topk
     # levels pq per_level cells_bf16 rgb raw nrm2 final_t stats stream
     "lsv2_blend_tiles_query": [_P] * 7 + [_I] * 7 + [_P] * 6,
+    # the same with K after levels, then frag frag_words before the stream
+    "lsv2_blend_tiles_query_any": [_P] * 7 + [_I] * 8 + [_P] * 6 + [_L, _P],
     # g_sorted tile_start tile_count geom feats bg num_tiles grid_x stride
     # c0 channels rgb feat final_t stats stream
     "lsv2_blend_tiles_dense": [_P] * 6 + [_I] * 5 + [_P] * 5,
@@ -78,6 +80,11 @@ ENTRY_POINTS = {
     "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,
     # bf16 levels pq out[5]
     "lsv2_query_occupancy": [_I] * 3 + [_P],
+    # bf16 wm phi gram n_tiles levels K pq raw nrm2 frag frag_words stream
+    "lsv2_query_map_tiles_any": [_I] + [_P] * 3 + [_I] * 4 + [_P] * 3
+    + [_L, _P],
+    # bf16 out[5]
+    "lsv2_query_any_occupancy": [_I, _P],
     # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
     # num_entries dfeat stream
     "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
@@ -85,13 +92,12 @@ ENTRY_POINTS = {
     "lsv2_feature_bwd_occupancy": [_P],
     # g_win kept geom qi cot num_tiles grid_x cap channels topk dproj stream
     "lsv2_feature_bwd_topk": [_P] * 5 + [_I] * 5 + [_P] * 2,
-    # seg w rhs gfull num_tiles C M eps partial stream
-    "lsv2_gram_fwd": [_P] * 4 + [_I] * 3 + [_F] + [_P] * 2,
-    # seg w rhs gfull num_tiles C M K lay eps inv_hw upstream dw dphi dg
-    # gsplit stream
-    "lsv2_gram_bwd": [_P] * 4 + [_I] * 5 + [_F] * 2 + [_P] * 6,
-    # M out[5]
-    "lsv2_gram_bwd_occupancy": [_I, _P],
+    # bwd kpk any seg w rhs gfull num_tiles C pass[12] eps inv_hw upstream
+    # out dphi dg gsplit stream
+    "lsv2_gram": [_I] * 3 + [_P] * 4 + [_I] * 2 + [_P] + [_F] * 2
+    + [_P] * 6,
+    # bwd kpk any out[5]
+    "lsv2_gram_occupancy": [_I] * 3 + [_P],
     # g_sorted tile_start tile_count geom pack num_tiles grid_x dgrad stream
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
     # out[5]

@@ -11,6 +11,12 @@ kernel's bf16 mode. As in the Pallas kernel (`mm_dt`), phi and gram are
 then rounded to bf16 too, the products accumulate in f32 and nrm2's band
 sum runs at f32: its plain version is `query_map_tiles_plain` on the
 widened map and the rounded constants.
+
+Shapes: the kernel takes every L, K and PQ the Pallas kernel takes.
+`kernel_plan` (a pure function of the shapes) says which of its two
+designs a call runs and how the general one cuts the work: K padded to the
+mma k-step, a level's [gram | phi] columns in n-tiles of 8 taken four at a
+time (the prompts in chunks of 32), the levels one after another.
 """
 from __future__ import annotations
 
@@ -19,9 +25,40 @@ import torch
 from . import kernels
 
 P = 256
-KERNEL_K = 64     # codebook rows per level the kernel is built for
-KERNEL_MAX_PQ = 16
-KERNEL_MAX_LEVELS = 3
+KERNEL_K = 64     # the main path's design: codebook rows a level,
+KERNEL_MAX_PQ = 16  # prompts a level
+KERNEL_MAX_LEVELS = 3  # and levels (csrc/query.cu kK, kMaxPQ, kMaxLevels)
+N_TILE = 8        # an mma n-tile's columns
+N_GROUP = 4       # n-tiles a warp accumulates at once (query_frag.cuh)
+
+
+def kernel_plan(L: int, K: int, PQ: int, bf16: bool) -> dict:
+    """How the kernel computes raw and nrm2 for L levels of K codebook rows
+    and PQ prompts a level (csrc/query.cu, query_frag.cuh): `route` "main"
+    (K = 64, L <= 3, PQ <= 16: the main path's design) or "any"; for
+    "any", the mma k-step (8 for the f32 map's TF32, 16 for bf16),
+    `k_pad` = K rounded up to it, the gram n-tiles `nt_gram` = k_pad / 8
+    and a level's n-tiles `nt` (then ceil(PQ / 8) of phi), `chunks`, the
+    [first, end) n-tiles a warp accumulates at once, `pq_chunks`, the
+    prompts [q0, q1) of each chunk that holds any, `levels`, the order the
+    levels run in, and `frag_words`, the scratch of B's fragments (32-bit
+    words)."""
+    if min(L, K, PQ) < 1:
+        raise ValueError(f"no query of L={L}, K={K}, PQ={PQ}")
+    route = ("main" if K == KERNEL_K and L <= KERNEL_MAX_LEVELS
+             and PQ <= KERNEL_MAX_PQ else "any")
+    step = 16 if bf16 else 8
+    k_pad = -(-K // step) * step
+    nt_gram = k_pad // N_TILE
+    nt = nt_gram + -(-PQ // N_TILE)
+    chunks = [(a, min(a + N_GROUP, nt)) for a in range(0, nt, N_GROUP)]
+    pq_chunks = [(max(a, nt_gram) * N_TILE - k_pad,
+                  min(b * N_TILE - k_pad, PQ))
+                 for a, b in chunks if b > nt_gram]
+    return dict(route=route, k_step=step, k_pad=k_pad, nt_gram=nt_gram,
+                nt=nt, chunks=chunks, pq_chunks=pq_chunks,
+                levels=list(range(L)),
+                frag_words=L * nt * (k_pad // step) * 32 * (2 if bf16 else 4))
 
 
 def query_map_tiles_plain(wm_tiles, phi, gram):
@@ -53,13 +90,6 @@ def _check(wm_tiles, phi):
     if p != P or c != L * K:
         raise ValueError(f"weight-map tiles {tuple(wm_tiles.shape)} do not "
                          f"match phi {tuple(phi.shape)}")
-    if wm_tiles.device.type == "cuda" and (
-            K != KERNEL_K or not 1 <= PQ <= KERNEL_MAX_PQ
-            or not 1 <= L <= KERNEL_MAX_LEVELS):
-        raise NotImplementedError(
-            f"the query kernel takes K={KERNEL_K} codebook rows, at most "
-            f"{KERNEL_MAX_LEVELS} levels and {KERNEL_MAX_PQ} prompts a "
-            f"level, not K={K}, L={L}, PQ={PQ}")
     if wm_tiles.device.type not in ("cpu", "cuda"):
         raise ValueError(f"query_map_tiles: unsupported device "
                          f"{wm_tiles.device}")
@@ -75,8 +105,18 @@ def _launch(name, wm_tiles, phi, gram, dtype):
     raw = torch.empty((t, P, L * PQ), device=dev)
     nrm2 = torch.empty((t, P, L), device=dev)
     ptr = kernels.ptr
-    kernels.launch(name, ptr(wm_tiles), ptr(phi), ptr(gram), t, L, PQ,
-                   ptr(raw), ptr(nrm2), kernels.stream(raw))
+    bf16 = dtype == torch.bfloat16
+    plan = kernel_plan(L, K, PQ, bf16)
+    # The main design loads the map 16 bytes at a time.
+    if plan["route"] == "main" and wm_tiles.data_ptr() % 16 == 0:
+        kernels.launch(name, ptr(wm_tiles), ptr(phi), ptr(gram), t, L, PQ,
+                       ptr(raw), ptr(nrm2), kernels.stream(raw))
+    else:
+        frag = torch.empty(plan["frag_words"], dtype=torch.int32, device=dev)
+        kernels.launch("lsv2_query_map_tiles_any", int(bf16),
+                       ptr(wm_tiles), ptr(phi), ptr(gram), t, L, K, PQ,
+                       ptr(raw), ptr(nrm2), ptr(frag), plan["frag_words"],
+                       kernels.stream(raw))
     return raw, nrm2
 
 
@@ -116,8 +156,12 @@ def query_map_tiles_bf16(wm_tiles: torch.Tensor, phi: torch.Tensor,
 query_map_tiles_bf16.launches = 0
 
 
-def kernel_occupancy(bf16: bool, levels: int, pq: int) -> dict:
-    """The kernel's mode (bf16 or f32 map) at L levels and PQ prompts (CUDA
-    only): resident blocks and warps an SM, dynamic shared bytes, registers
-    and local (spill, stack) bytes a thread, from the CUDA runtime."""
+def kernel_occupancy(bf16: bool, levels: int, pq: int, k: int = KERNEL_K
+                     ) -> dict:
+    """The kernel's mode (bf16 or f32 map) at L levels, PQ prompts and K
+    codebook rows, in the design `kernel_plan` picks (CUDA only): resident
+    blocks and warps an SM, dynamic shared bytes, registers and local
+    (spill, stack) bytes a thread, from the CUDA runtime."""
+    if kernel_plan(levels, k, pq, bf16)["route"] == "any":
+        return kernels.occupancy("lsv2_query_any_occupancy", int(bf16))
     return kernels.occupancy("lsv2_query_occupancy", int(bf16), levels, pq)

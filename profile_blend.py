@@ -54,13 +54,14 @@ PHASES = ["prologue", "(a) alpha", "(b) walk + staging", "(c) accumulate",
 
 def build_library(source: Path, name: str) -> ctypes.CDLL:
     """nvcc `source` (and csrc/errors.cu) into OUT/lib<name>.so, as
-    kernels.build builds blend.cu; the blend entry points' argument types
-    set."""
+    kernels.build builds blend.cu, headers from its own directory first,
+    then this commit's csrc; the blend entry points' argument types set."""
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / f"lib{name}.so"
     cmd = [kernels._nvcc(), *kernels.ARCH, *kernels.COMMON,
-           *kernels.SOURCES["blend.cu"], "-shared", "-o", str(lib),
-           str(source), str(kernels.CSRC / "errors.cu")]
+           *kernels.SOURCES["blend.cu"], f"-I{source.parent}",
+           f"-I{kernels.CSRC}", "-shared", "-o", str(lib), str(source),
+           str(kernels.CSRC / "errors.cu")]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode:
         sys.exit(f"profile_blend: nvcc {source} failed\n{done.stdout}"
@@ -90,7 +91,8 @@ def marked_source() -> Path:
 
     insert("namespace {\n", "__device__ unsigned long long g_phase[8];\n",
            False)
-    insert("  const int tile = blockIdx.x;\n",
+    insert("  const int tile = kQA == 2 ? (int)(blockIdx.x >> 1) : "
+           "(int)blockIdx.x;\n",
            "  long long t_prev = clock64(), t_begin = t_prev;\n"
            "  unsigned long long ph[8] = {};\n"
            "#define MARK(k) if (threadIdx.x == 0) { const long long t = "

@@ -805,3 +805,197 @@ def test_rgb_bwd_kernel_edges(cuda):
     for leaf, w in zip(leaves, want):
         s = max(float(w.abs().max()), 1e-30)
         torch.testing.assert_close(leaf.grad / s, w / s, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Shapes past the main path's designs: K3, K2q, K6a and K6b take every shape
+# the JAX kernels take (tests/test_torch_port_f2.py holds the plain versions
+# to JAX's at these shapes), each within its existing limit of its plain
+# version.
+
+def _query_consts(levels, k, pq, dev, seed):
+    """phi [L, K, PQ] standard normal and gram [L, K, K] of 32-d codebooks,
+    as test_query_kernels_match_plain draws them."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    phi = torch.randn(levels, k, pq, device=dev, generator=gen)
+    cb = torch.randn(levels, k, 32, device=dev, generator=gen)
+    return phi, torch.einsum("lkd,lmd->lkm", cb, cb).contiguous()
+
+
+@pytest.mark.parametrize("k", [20, 32])
+@pytest.mark.parametrize("pq", [17, 33])
+def test_query_kernels_any_shape(cuda, pq, k):
+    """K3 in both modes at L = 4, K = 20 and 32, PQ = 17 and 33 (the
+    general design) against its plain version (rtol/atol 1e-5), on 3 tiles
+    and on 1001 (16,016 warp items, not a multiple of the persistent
+    grid's warps)."""
+    phi, gm = _query_consts(4, k, pq, cuda, pq + k)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    for t in (3, 1001):
+        wm = torch.rand(t, 256, 4 * k, device=cuda, generator=gen)
+        for x, plain in ((wm, query.query_map_tiles_plain),
+                         (wm.to(torch.bfloat16),
+                          query.query_map_tiles_bf16_plain)):
+            out = query.query_map_tiles(x, phi, gm)
+            ref = plain(x, phi, gm)
+            assert out[0].shape == (t, 256, 4 * pq)
+            for a, b in zip(out, ref):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _fused_any_case(dev, levels, k, pq, seed):
+    proj, ops, gx, gy = _case(dev)
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, gx * gy)
+    count = count.clone()
+    count[0] = 0
+    topk = 12 // levels
+    qw, qi = quick_pairs(ops.shape[0], levels=levels, k=k, topk=topk)
+    rows = blend.pack_fast16_rows(
+        proj.xy, proj.conic, ops, proj.rgb, torch.as_tensor(qw, device=dev),
+        torch.as_tensor(qi.astype(np.int32), device=dev))
+    phi, gram = _query_consts(levels, k, pq, dev, seed)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    return (g, start, count, rows, bg, gx), gy, levels * topk, phi, gram
+
+
+@pytest.mark.parametrize("cells", [False, True], ids=["f32", "bf16_cells"])
+@pytest.mark.parametrize("levels,k,pq", [(4, 32, 17), (3, 64, 17),
+                                         (8, 32, 17), (1, 256, 5)])
+def test_fused_query_kernel_any_shape(cuda, levels, k, pq, cells):
+    """K2q past its main-path design against its plain version: rgb and T
+    atol 3e-5, raw and nrm2 within 1e-5 of their largest, the pair counts
+    equal. PQ = 17 at K = 32 and 64 (one block a tile); L*K = 256 (a
+    cluster of two blocks a tile, each holding 128 channels): 8 levels of
+    32, and one level of 256 that straddles the two halves."""
+    args, gy, slots, phi, gram = _fused_any_case(cuda, levels, k, pq, 7)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = blend.blend_tiles_query(*args, gy, slots, phi, gram, stats=stats,
+                                  cells_bf16=cells)
+    ref = blend.blend_tiles_query_plain(*args, slots, phi, gram,
+                                        cells_bf16=cells)
+    assert out[1].shape == (args[2].shape[0], 256, levels * pq)
+    for i in (0, 3):
+        torch.testing.assert_close(out[i], ref[i], atol=3e-5, rtol=0)
+    for i in (1, 2):
+        scale = float(ref[i].abs().max())
+        assert scale > 0
+        assert float((out[i] - ref[i]).abs().max()) <= 1e-5 * scale
+    assert float(out[1][0].abs().max()) == 0.0       # the empty tile
+    assert bool((out[3][0] == 1.0).all())
+    unpacked = blend.unpack_fast16_rows(args[3], slots)[0]
+    _assert_counts(stats, *args[:3], unpacked, args[5], cells)
+
+
+def _gram_case(pattern, m, k, tiles, seed, dev, extra: int = 0):
+    """gram_pattern_case's inputs on the card, the map `extra` columns
+    wider than M (the layers above lay)."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    case = gram_pattern_case(pattern, m, tiles=tiles, seed=seed, k=k)
+    rng = np.random.default_rng(seed + 1)
+    w = np.concatenate([case["w"], rng.standard_normal(
+        (tiles, 256, extra)).astype(np.float32)], axis=2)
+    lay = m // k - 1
+    rhs, gfull = gram.prep(torch.as_tensor(case["codebooks"], device=dev),
+                           torch.as_tensor(case["table"], device=dev), lay)
+    return (torch.as_tensor(case["seg"], device=dev),
+            torch.as_tensor(w, device=dev), rhs, gfull), lay
+
+
+# (M, K, map columns past M): M = 8 .. 320, K = 7 .. 96: one k-panel with
+# G resident, the ring, layer blocks past the first panel, map rows that are
+# not whole 16-byte vectors (4-byte copies), K = 64 at M = 64, 192 and 256
+# on the compile-time-width code (a map width that is a multiple of 4) and
+# on the run-time-width one, two layer blocks (K = 96) and the unstaged
+# route (M = 320).
+GRAM_WIDTHS = [(8, 8, 0), (21, 7, 5), (24, 8, 3), (32, 32, 0), (64, 32, 4),
+               (96, 32, 5), (64, 64, 0), (64, 64, 5), (192, 64, 0),
+               (192, 64, 5), (256, 64, 0), (256, 64, 3), (192, 96, 0),
+               (320, 64, 0)]
+
+
+@pytest.mark.parametrize("pattern", GRAM_PATTERNS)
+@pytest.mark.parametrize("m,k,extra", GRAM_WIDTHS)
+def test_gram_kernels_any_width(cuda, m, k, extra, pattern):
+    """K6a (per-tile sums rtol 1e-5, atol 1e-3) and K6b (1e-4 of the
+    largest entry: atomics in another order) against their plain versions
+    at every width of GRAM_WIDTHS on the segment patterns, 3 tiles each; a
+    tile of -1 only gives zero sums and gradients."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    (seg, w, rhs, gfull), lay = _gram_case(pattern, m, k, 3, m + k, cuda,
+                                           extra)
+    out = gram.gram_tiles_fwd(seg, w, rhs, gfull)
+    ref = gram.gram_tiles_fwd_plain(seg, w, rhs, gfull, 1e-8)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+    args = (seg, w, rhs, gfull, lay, k, 1e-8, 1.0 / seg.numel(),
+            torch.tensor(1.5, device=cuda))
+    got = gram.gram_tiles_bwd(*args)
+    _assert_scaled_close(got, gram.gram_tiles_bwd_plain(*args), 1e-4)
+    if pattern == "masked":
+        assert not bool(out.any())
+        assert not any(bool(a.any()) for a in got)
+
+
+@pytest.mark.parametrize("m,k", [(8, 8), (64, 64), (96, 32), (256, 64)])
+def test_gram_kernels_any_width_ragged_grid(cuda, m, k):
+    """K6a and K6b on 1001 tiles (2002 half-tile chunks, not a multiple of
+    the persistent grid) mixing the three segment patterns."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    case = gram_pattern_case("warp_segments", m, tiles=1001, seed=5, k=k)
+    case["seg"][1::7] = -1
+    case["seg"][3::11] = np.random.default_rng(6).permutation(300)[:256]
+    lay = m // k - 1
+    rhs, gfull = gram.prep(torch.as_tensor(case["codebooks"], device=cuda),
+                           torch.as_tensor(case["table"], device=cuda), lay)
+    seg = torch.as_tensor(case["seg"], device=cuda)
+    w = torch.as_tensor(case["w"], device=cuda)
+    torch.testing.assert_close(gram.gram_tiles_fwd(seg, w, rhs, gfull),
+                               gram.gram_tiles_fwd_plain(seg, w, rhs, gfull,
+                                                         1e-8),
+                               rtol=1e-5, atol=1e-3)
+    args = (seg, w, rhs, gfull, lay, k, 1e-8, 1.0 / seg.numel(),
+            torch.tensor(0.5, device=cuda))
+    _assert_scaled_close(gram.gram_tiles_bwd(*args),
+                         gram.gram_tiles_bwd_plain(*args), 1e-4)
+
+
+def test_no_plain_version_on_the_card(cuda, monkeypatch):
+    """The wrappers called with CUDA tensors at shapes past the main path's
+    designs launch their kernels and never a plain version: every plain
+    function is patched to raise, and each wrapper's launch count grows."""
+    from langsplatv2_tpu_torch.ops import gram
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((query, "query_map_tiles_plain"),
+                      (query, "query_map_tiles_bf16_plain"),
+                      (blend, "blend_tiles_query_plain"),
+                      (blend, "blend_tiles_fast16_plain"),
+                      (blend, "blend_tiles_plain"),
+                      (gram, "gram_tiles_fwd_plain"),
+                      (gram, "gram_tiles_bwd_plain"), (gram, "_chain")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = {f: f.launches for f in (
+        query.query_map_tiles, query.query_map_tiles_bf16,
+        blend.blend_tiles_query, gram.gram_tiles_fwd, gram.gram_tiles_bwd)}
+    phi, gm = _query_consts(4, 32, 17, cuda, 1)
+    wm = torch.rand(5, 256, 128, device=cuda)
+    assert query.query_map_tiles(wm, phi, gm)[0].shape == (5, 256, 68)
+    query.query_map_tiles(wm.to(torch.bfloat16), phi, gm)
+    args, gy, slots, phi8, gram8 = _fused_any_case(cuda, 8, 32, 17, 2)
+    blend.blend_tiles_query(*args, gy, slots, phi8, gram8)
+    for m, k in ((8, 8), (64, 32), (256, 64)):
+        (seg, w, rhs, gfull), lay = _gram_case("warp_segments", m, k, 2, 3,
+                                               cuda)
+        gram.gram_tiles_fwd(seg, w, rhs, gfull)
+        gram.gram_tiles_bwd(seg, w, rhs, gfull, lay, k, 1e-8, 1e-3,
+                            torch.tensor(1.0, device=cuda))
+    torch.cuda.synchronize()
+    grown = {f.__name__: f.launches - n for f, n in before.items()}
+    assert grown == {"query_map_tiles": 1, "query_map_tiles_bf16": 1,
+                     "blend_tiles_query": 1, "gram_tiles_fwd": 3,
+                     "gram_tiles_bwd": 3}, grown

@@ -187,13 +187,13 @@ GRAM_PATTERNS = ("warp_segments", "masked", "distinct")
 
 
 def gram_pattern_case(pattern: str, m: int, tiles: int = 1, seed: int = 0,
-                      segments: int = 300) -> dict:
-    """Inputs of the Gram-loss backward at G [m, m] (layer m / 64 - 1 of
-    K = 64) whose tiles [tiles, 256] (tile-pixel order) all follow one
+                      segments: int = 300, k: int = 64) -> dict:
+    """Inputs of the Gram-loss backward at G [m, m] (layer m / k - 1 of
+    K = k) whose tiles [tiles, 256] (tile-pixel order) all follow one
     segment pattern: "warp_segments", two pixel rows (32 pixels) a segment
     with ~5% -1 holes; "masked", every pixel -1; "distinct", 256 distinct
     ids. The map w [tiles, 256, m] has ~10% zero pixels; codebooks
-    [m / 64, 64, 32] and the table [segments, 32] are standard normal."""
+    [m / k, k, 32] and the table [segments, 32] are standard normal."""
     rng = np.random.default_rng(seed)
     seg = np.empty((tiles, 256), np.int32)
     for t in range(tiles):
@@ -207,7 +207,7 @@ def gram_pattern_case(pattern: str, m: int, tiles: int = 1, seed: int = 0,
     w = rng.standard_normal((tiles, 256, m)).astype(np.float32)
     w[rng.uniform(size=(tiles, 256)) < 0.1] = 0.0
     return dict(seg=seg, w=w,
-                codebooks=rng.standard_normal((m // 64, 64, 32)).astype(
+                codebooks=rng.standard_normal((m // k, k, 32)).astype(
                     np.float32),
                 table=rng.standard_normal((segments, 32)).astype(np.float32))
 
