@@ -10,8 +10,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    spill bytes and its occupancy at the main path's width (blocks and
    warps an SM, shared bytes); fails on a spill; the same report for K3
    (csrc/query.cu, f32 and bf16 map, at L = 3, PQ = 5), K6b
-   (csrc/gram.cu, M = 64, 128, 192), K4 (csrc/feature_bwd.cu) and K7
-   (csrc/rgb_bwd.cu);
+   (csrc/gram.cu, M = 64, 128, 192), K4 (csrc/feature_bwd.cu), K7
+   (csrc/rgb_bwd.cu), K1 (csrc/expand.cu, every SUBDIV) and K5
+   (csrc/feature_bwd_topk.cu, at C = 64, topk 4);
 3. kernel checks on a reduced scene (50k Gaussians, 512x512): each CUDA
    kernel against its plain PyTorch version on the card — K1 expansion
    exact, K2 blend (quick and rgb) atol 3e-5, K2 f32 and fast16 on rows
@@ -168,7 +169,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    random weights) and evaluate_psnr on one frame, timed; evaluate (three
    level models) against evaluate_quick (their merge) on a reduced scene
    (50k Gaussians, 512x512): levels and localization equal, mean IoU
-   within 1e-4.
+   within 1e-4;
+20. the shapes past the main path's kernel designs: a 1080p frame with 13
+   positives (PQ = 17 a level) in f32, bf16 and fused, counted, K3, bf16
+   K3 and K2q on its inputs against their plain versions and timed; 4
+   feature steps at codebook_size 32 (K6a, K6b, K4 on a step's inputs);
+   K6a and K6b at M = 256; and K1 on the edge shapes only the card runs
+   at scale (`wide_expand_case`: rects over all 8,160 tiles of a 1080p
+   grid among runs of zero-tile Gaussians, max_entries past the total,
+   cutting a whole-grid rect mid-rect and on a block edge), both modes
+   against the plain version (entries equal, with_alpha 2's lm within 2
+   f32 ulps, words equal), timed.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -521,8 +532,8 @@ def qg_build_report() -> dict:
     and bf16 map, the main path's design at L = 3, PQ = 5 and the general
     one), every instantiation of K6a and K6b (csrc/gram.cu: k-panels of the
     stage, 0 unstaged; compile-time or run-time widths), K4 and K7 and each
-    one's occupancy; fails on a missing instantiation, a spill or one that
-    does not fit."""
+    one's occupancy, K5 (at C = 64, topk 4) and K1 (every SUBDIV); fails
+    on a missing instantiation, a spill or one that does not fit."""
     want = {"K3 f32": ("query_kernelILb0E",
                        lambda: query.kernel_occupancy(False, L, MAIN_PQ)),
             "K3 bf16": ("query_kernelILb1E",
@@ -546,8 +557,14 @@ def qg_build_report() -> dict:
         "lsv2_feature_bwd_occupancy"))
     want["K7"] = ("rgb_bwd_kernel", lambda: kernels.occupancy(
         "lsv2_rgb_bwd_occupancy"))
+    want["K5"] = ("feature_bwd_topk_kernel", lambda: kernels.occupancy(
+        "lsv2_feature_bwd_topk_occupancy", TRAIN_K, TRAIN_TOPK))
+    for sub in (0, 1, 2, 4, 8, 16):
+        want[f"K1 s={sub}"] = (f"expand_kernelILi{sub}E",
+                               lambda a=sub: kernels.occupancy(
+                                   "lsv2_expand_occupancy", a))
     found = [r for src in ("query.cu", "gram.cu", "feature_bwd.cu",
-                           "rgb_bwd.cu")
+                           "rgb_bwd.cu", "feature_bwd_topk.cu", "expand.cu")
              for r in kernels.ptxas_report(src)]
     rep = {}
     for label, (pattern, occupancy) in want.items():
@@ -3708,6 +3725,99 @@ def small_k_training(dev) -> dict:
     return r
 
 
+def wide_expand_case(dev, n: int = 100_000, whole: int = 16, seed: int = 7):
+    """K1's edge shapes at the scale of a 1080p frame (phase 20,
+    profile_expand.py): a 120 x 68 tile grid and n Gaussians, `whole` of
+    them (spread over the list) with rects over all 8,160 tiles whose far
+    tiles the cull kills, runs of 8 that touch no tile (~30%), the rest
+    rects of 1-20 tiles; centres, conics, depths and opacities from a
+    seed. Returns (proj, opacities, grid_x, grid_y, cuts): max_entries past
+    the total, in the middle of the first and of the middle whole-grid
+    rect, and one slot past a block edge (csrc/expand.cu's 2,048 slots)
+    inside the latter."""
+    rng = np.random.default_rng(seed)
+    gx, gy = 120, 68
+    w = rng.integers(1, 6, n)
+    h = rng.integers(1, 5, n)
+    x0 = rng.integers(0, gx - w + 1)
+    y0 = rng.integers(0, gy - h + 1)
+    w[np.repeat(rng.uniform(size=-(-n // 8)) < 0.3, 8)[:n]] = 0
+    big = np.linspace(n // (2 * whole), n - 1, whole).astype(np.int64)
+    x0[big], y0[big], w[big], h[big] = 0, 0, gx, gy
+    lo = np.stack([x0, y0], 1) * 16.0
+    hi = np.stack([x0 + np.maximum(w, 1), y0 + h], 1) * 16.0
+    xy = rng.uniform(lo, hi)
+    sig = rng.uniform(3.0, 15.0, (n, 2))
+    rho = rng.uniform(-0.6, 0.6, n)
+    xy[big], sig[big], rho[big] = (8.0 * gx, 8.0 * gy), 16.0 * gx / 6, 0.0
+    det = (sig[:, 0] * sig[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sig[:, 1] ** 2 / det,
+                      -rho * sig[:, 0] * sig[:, 1] / det,
+                      sig[:, 0] ** 2 / det], 1)
+    tiles = (w * h).astype(np.int32)
+    T = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    proj = projection.ProjectedGaussians(
+        xy=T(xy), depth=T(rng.uniform(2.0, 12.0, n)), conic=T(conic),
+        radius=T(np.where(tiles > 0, 8, 0), torch.int32), rgb=None,
+        rect_min=T(np.stack([x0, y0], 1), torch.int32),
+        rect_max=T(np.stack([x0 + w, y0 + h], 1), torch.int32),
+        tiles_touched=T(tiles, torch.int32))
+    ends = np.cumsum(tiles, dtype=np.int64)
+    mid = [int(ends[big[k]] - tiles[big[k]] // 2) for k in (0, whole // 2)]
+    cuts = [int(ends[-1]) + 1000, *mid, (mid[1] // 2048 + 1) * 2048 + 1]
+    return proj, T(rng.uniform(0.2, 0.95, n)), gx, gy, cuts
+
+
+def k1_edge_shapes(dev) -> dict:
+    """Phase 20 (binning): K1 on wide_expand_case at each cut, without and
+    with with_alpha, against its plain version (entries and total equal,
+    lm within 2 f32 ulps and 0 where the plain version's is, the lm words
+    equal); timed at the first cut (a tail past the total)."""
+    proj, op, gx, gy, cuts = wide_expand_case(dev)
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    n_tiles = int(proj.tiles_touched.sum())
+    r = dict(gaussians=op.shape[0], slots=n_tiles, cuts=cuts, checks=[])
+    for sub in (0, CAPPED["subdiv"]):
+        for cut in cuts:
+            out = expand.expand_entries(proj, op, gx, gy, cut,
+                                        with_alpha=sub)
+            ref = expand.expand_entries_plain(proj, op, offsets, gx, gy, cut,
+                                              True, float(np.float32(255.0)),
+                                              sub)
+            c = dict(with_alpha=sub, max_entries=cut, total=int(out[3]),
+                     entries_differ=sum(int((a != b).sum()) for a, b in
+                                        zip(out[:3], ref[:3])))
+            if sub:
+                lm, lm_ref = out[4], ref[3]
+                spacing = torch.abs(torch.nextafter(lm_ref, torch.full_like(
+                    lm_ref, -math.inf)) - lm_ref)
+                live = lm_ref != 0
+                c["lm_zeros_differ"] = int(((lm == 0) != ~live).sum())
+                c["lm_ulps"] = float(((lm - lm_ref).abs()[live]
+                                      / spacing[live]).max())
+                c["words_differ"] = sum(
+                    int((a != b).sum()) for a, b in zip(
+                        budget.pack_lm_words(lm),
+                        budget.pack_lm_words(lm_ref)))
+            r["checks"].append(c)
+            del out, ref
+            if (c["total"] != min(n_tiles, cut) or c["entries_differ"]
+                    or c.get("lm_zeros_differ") or c.get("lm_ulps", 0) > 2.0
+                    or c.get("words_differ")):
+                fail(f"phase 20: K1 on the whole-grid shapes differs from "
+                     f"its plain version: {c}")
+        r[f"ms_with_alpha_{sub}"] = cuda_ms(lambda: expand.expand_entries(
+            proj, op, gx, gy, cuts[0], with_alpha=sub), 20)[0]
+    log(f"phase 20 K1 on {n_tiles} slots of whole-grid shapes "
+        f"({r['gaussians']} Gaussians, 120 x 68 tiles), cuts {cuts}: equal "
+        f"to the plain version in both modes; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items() if k.startswith("ms_")))
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase20_kernel_rows(p20s, p20t) -> dict:
     """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
     (1080p), K6a and K6b at K = 32 (a feature step)."""
@@ -3788,6 +3898,7 @@ def main() -> None:
         model, clip, consts, plans,
         {k: v["relevancy_iou"] for k, v in bf16["loads"].items()}, dev)
     p20s = many_prompts_serving(model, plans, dev)
+    p20s["K1 edges"] = k1_edge_shapes(dev)
     del model, clip, consts
     torch.cuda.empty_cache()
 
@@ -3884,6 +3995,8 @@ def main() -> None:
         qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6a": "K6a kpk=1",
               "K6b": "K6b kpk=1", "K4": "K4", "K7": "K7",
               "K3pq17": "K3 any f32", "K3bf16pq17": "K3 any bf16",
+              "K5": "K5", "K1": "K1 s=0",
+              "K1_with_alpha": f"K1 s={CAPPED['subdiv']}",
               "K6aK32": "K6a kpk=1 any", "K6bK32": "K6b kpk=1 any"}
         if k in qg:
             occ = qg_report[qg[k]]["occupancy"]

@@ -1,6 +1,7 @@
 // Tensor-core products (f32-accurate 3xTF32, and bf16) and asynchronous
 // copies, shared by query.cu (K3), blend.cu (K2q), gram.cu (K6a, K6b),
-// feature_bwd.cu (K4) and rgb_bwd.cu (K7).
+// feature_bwd.cu (K4), rgb_bwd.cu (K7) and feature_bwd_topk.cu (K5, the
+// copies only).
 //
 // 3xTF32: x = big + small, both TF32; a.b ~ as.bb + ab.bs + ab.bb on
 // mma.sync m16n8k8 with f32 sums (the dropped as.bs is ~2^-22 of a.b).

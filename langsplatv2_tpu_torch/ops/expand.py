@@ -5,11 +5,13 @@
 `_expand_kernel`). On a CUDA tensor it launches csrc/expand.cu; on a CPU
 tensor it runs `expand_entries_plain`, which the GPU checks also use as
 the oracle. The kernel is bound by bytes on the card (each Gaussian's
-state read once, 12 B written an entry); csrc/expand.cu says how its
-design meets that. `with_alpha=s` is the `subdiv` branch of
-`_expand_one_chunk` (:327-348): each entry also gets log1p(-alpha_max)
-over each of the s x s sub-boxes of its tile, the bound of the round-4
-budget chain (ops/budget.py::pack_lm_words onwards). `sort_entries`
+state read once, 12 B written a slot); csrc/expand.cu says how its
+design meets that. On CUDA the wrapper is the scan (`torch.cumsum`) and
+one launch: the kernel writes every slot and `total`. `with_alpha=s` is
+the `subdiv` branch of `_expand_one_chunk` (:327-348): each entry also
+gets log1p(-alpha_max) over each of the s x s sub-boxes of its tile, the
+bound of the round-4 budget chain (ops/budget.py::pack_lm_words
+onwards). `sort_entries`
 replaces `pack_sort_keys` + `sorted_binning_from_keys`: those were
 `lax.sort`, not Pallas, so the library sort is the port's sort too.
 """
@@ -140,14 +142,15 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
     dev = proj.xy.device
     n = proj.xy.shape[0]
     tiles = proj.tiles_touched
-    offsets = torch.cumsum(tiles, 0, dtype=torch.int64) - tiles
-    total = torch.clamp(tiles.sum(dtype=torch.int64), max=max_entries).int()
+    ends = torch.cumsum(tiles, 0, dtype=torch.int64)
     # JAX multiplies by a Python float cast to f32: keep that constant.
     inv_cull_alpha = float(np.float32(1.0 / cull_alpha))
     if dev.type == "cpu":
-        out = expand_entries_plain(proj, opacities, offsets, grid_x, grid_y,
-                                   max_entries, exact_cull, inv_cull_alpha,
-                                   with_alpha)
+        total = torch.clamp(tiles.sum(dtype=torch.int64),
+                            max=max_entries).int()
+        out = expand_entries_plain(proj, opacities, ends - tiles, grid_x,
+                                   grid_y, max_entries, exact_cull,
+                                   inv_cull_alpha, with_alpha)
         return (*out[:3], total, *out[3:])
     if dev.type != "cuda":
         raise ValueError(f"expand_entries: unsupported device {dev}")
@@ -160,19 +163,21 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
             ("rect_max", proj.rect_max, torch.int32, (n, 2)),
             ("tiles_touched", tiles, torch.int32, (n,))):
         kernels.check_tensor(t, name, dtype, shape, dev)
-    sentinel = grid_x * grid_y
-    tile = torch.full((max_entries,), sentinel, dtype=torch.int32, device=dev)
-    depth = torch.zeros(max_entries, dtype=torch.float32, device=dev)
-    gauss = torch.zeros(max_entries, dtype=torch.int32, device=dev)
-    lm = torch.zeros((with_alpha * with_alpha, max_entries),
+    # The kernel writes every slot, dead ones included, and total.
+    tile = torch.empty(max_entries, dtype=torch.int32, device=dev)
+    depth = torch.empty(max_entries, dtype=torch.float32, device=dev)
+    gauss = torch.empty(max_entries, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    lm = torch.empty((with_alpha * with_alpha, max_entries),
                      dtype=torch.float32, device=dev) if with_alpha else None
     P = kernels.ptr
     kernels.launch(
         "lsv2_expand_entries", P(proj.xy), P(proj.depth), P(proj.conic),
         P(opacities), P(proj.rect_min), P(proj.rect_max), P(tiles),
-        P(offsets), n, grid_x, max_entries, sentinel, int(exact_cull),
+        P(ends), n, grid_x, max_entries, grid_x * grid_y, int(exact_cull),
         inv_cull_alpha, P(tile), P(depth), P(gauss), with_alpha,
-        P(lm) if with_alpha else kernels.NULL, kernels.stream(tile))
+        P(lm) if with_alpha else kernels.NULL, P(total),
+        kernels.stream(tile))
     expand_entries.launches += 1
     if not with_alpha:
         return tile, depth, gauss, total

@@ -30,17 +30,18 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # multiply-add), as their plain PyTorch versions do: the entry sets of K1
 # and K8, the alpha / termination tests of K2 and K9's compares then agree
 # bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
-# blend.cu, query.cu, gram.cu, feature_bwd.cu and rgb_bwd.cu are built with
-# ptxas's report (registers, shared memory, spills of each instantiation),
-# kept in BUILD_DIR/<source stem>.log: `ptxas_report`.
+# expand.cu, blend.cu, query.cu, gram.cu, feature_bwd.cu,
+# feature_bwd_topk.cu and rgb_bwd.cu are built with ptxas's report
+# (registers, shared memory, spills of each instantiation), kept in
+# BUILD_DIR/<source stem>.log: `ptxas_report`.
 # Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
-    "expand.cu": ["-fmad=false"],
+    "expand.cu": ["-fmad=false", "-Xptxas=-v"],
     "cascade.cu": ["-fmad=false"],
     "blend.cu": ["-fmad=false", "-Xptxas=-v"],
     "query.cu": ["-Xptxas=-v"],
     "feature_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
-    "feature_bwd_topk.cu": ["-fmad=false"],
+    "feature_bwd_topk.cu": ["-fmad=false", "-Xptxas=-v"],
     "gram.cu": ["-Xptxas=-v"],
     "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "probe.cu": ["-fmad=false"],
@@ -51,11 +52,13 @@ SOURCES = {
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 ENTRY_POINTS = {
-    # xy depth conic opacity rect_min rect_max tiles offsets n grid_x
+    # xy depth conic opacity rect_min rect_max tiles ends n grid_x
     # max_entries sentinel exact_cull inv_cull_alpha tile depth gauss subdiv
-    # lm stream
+    # lm total stream
     "lsv2_expand_entries": [_P] * 8 + [_I] * 5 + [_F] + [_P] * 3 + [_I]
-    + [_P] * 2,
+    + [_P] * 3,
+    # subdiv out[5]
+    "lsv2_expand_occupancy": [_I, _P],
     # g_sorted tile_start tile_count geom qw qi bg num_tiles grid_x topk
     # channels rgb feat final_t stats stream
     "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
@@ -92,6 +95,8 @@ ENTRY_POINTS = {
     "lsv2_feature_bwd_occupancy": [_P],
     # g_win kept geom qi cot num_tiles grid_x cap channels topk dproj stream
     "lsv2_feature_bwd_topk": [_P] * 5 + [_I] * 5 + [_P] * 2,
+    # channels topk out[5]
+    "lsv2_feature_bwd_topk_occupancy": [_I, _I, _P],
     # bwd kpk any seg w rhs gfull num_tiles C pass[12] eps inv_hw upstream
     # out dphi dg gsplit stream
     "lsv2_gram": [_I] * 3 + [_P] * 4 + [_I] * 2 + [_P] + [_F] * 2

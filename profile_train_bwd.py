@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K4 (langsplatv2_tpu_torch/csrc/feature_bwd.cu) and K7 (csrc/rgb_bwd.cu)
-on the card, at the shapes of the training paths.
+"""K4 (langsplatv2_tpu_torch/csrc/feature_bwd.cu), K5
+(csrc/feature_bwd_topk.cu) and K7 (csrc/rgb_bwd.cu) on the card, at the
+shapes of the training paths.
 
     python3 profile_train_bwd.py [--parent DIR] [--phases]
 
@@ -8,22 +9,27 @@ Each case is timed through its wrapper (CUDA events, 20 launches after a
 warm-up): K4 at C = 64 on one step of chip_smoke.py's feature slice
 (300k Gaussians, 544x960, L = 1, K = 64, top-4, at the live budget the
 trainer sets; the cotangent is that step's K6b d_w) and at C = 192 on the same step's blend with a seeded
-[T, 256, 192] cotangent, and K7 on one step of chip_smoke.py's geometry
-slice (300k Gaussians, 544x960, SH 3, the first camera; the loss's own
-cotangents).
+[T, 256, 192] cotangent, K5 on one step of chip_smoke.py's capped
+feature slice (phase 11: the same scene and camera, tile budget 1e-6,
+cap 128, top-4, C = 64; the cotangent is that step's K6b d_w), and K7 on
+one step of chip_smoke.py's geometry slice (300k Gaussians, 544x960, SH
+3, the first camera; the loss's own cotangents).
 --parent DIR  a checkout of another commit (`git archive REV | tar -x -C
-              DIR`): its csrc/feature_bwd.cu and csrc/rgb_bwd.cu are built
-              into a second library and each case runs parent, this,
-              this, parent.
---phases      both sources rebuilt with -DLSV2_PHASES
+              DIR`): its csrc/feature_bwd.cu, csrc/feature_bwd_topk.cu and
+              csrc/rgb_bwd.cu are built into a second library and each
+              case runs parent, this, this, parent.
+--phases      the sources rebuilt with -DLSV2_PHASES
               (csrc/phase_marks.cuh): clock64 of thread 0 of each block,
               each phase's share of its cycles. K4: staging wait, replay,
-              product, cross-warp sum, writes; K7: staging wait, chain,
-              reductions, writes; and the cycles a batch (thread 0).
+              product, cross-warp sum, writes; K5: staging wait, replay,
+              products and reductions, cross-warp sum and writes; K7:
+              staging wait, chain, reductions, writes; and the cycles a
+              batch (thread 0).
 Prints the card's name and power limit first, then, for this commit's
-library and the parent's, K4's and K7's SASS instructions, tensor-core
-(HMMA) and shuffle (SHFL) instructions (cuobjdump, where the toolkit has
-it). Needs a CUDA device.
+library and the parent's, K4's, K5's and K7's SASS instructions,
+tensor-core (HMMA) and shuffle (SHFL) instructions (cuobjdump, where the
+toolkit has it). The SHFL count is static: K5's reductions sit in a loop
+over the batches (and, in this commit, over topk). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -41,20 +47,24 @@ import chip_smoke as cs
 from langsplatv2_tpu_torch.ops import gram, kernels, rgb_train, train
 
 OUT = Path("build") / "profile_train_bwd"
-SOURCES = ("feature_bwd.cu", "rgb_bwd.cu")
-ENTRIES = ("lsv2_feature_bwd", "lsv2_rgb_bwd")
+SOURCES = ("feature_bwd.cu", "feature_bwd_topk.cu", "rgb_bwd.cu")
+ENTRIES = ("lsv2_feature_bwd", "lsv2_feature_bwd_topk", "lsv2_rgb_bwd")
 PHASES = {"K4": ("lsv2_feature_bwd_phases",
                  ["staging wait", "replay", "product", "cross-warp sum",
                   "writes"]),
+          "K5": ("lsv2_feature_bwd_topk_phases",
+                 ["staging wait", "replay", "products and reductions",
+                  "cross-warp sum and writes"]),
           "K7": ("lsv2_rgb_bwd_phases",
                  ["staging wait", "chain", "reductions", "writes"])}
-KERNEL_NAMES = {"K4": "feature_bwd_kernel", "K7": "rgb_bwd_kernel"}
+KERNEL_NAMES = {"K4": "feature_bwd_kernel",
+                "K5": "feature_bwd_topk_kernel", "K7": "rgb_bwd_kernel"}
 
 
 def build_library(csrc: Path, name: str, extra=()):
-    """nvcc csrc's feature_bwd.cu and rgb_bwd.cu (each with this commit's
-    flags for it) and this commit's errors.cu into OUT/lib<name>.so; the
-    entry points' argument types set."""
+    """nvcc csrc's SOURCES (each with this commit's flags for it) and this
+    commit's errors.cu into OUT/lib<name>.so; the entry points' argument
+    types set."""
     OUT.mkdir(parents=True, exist_ok=True)
     lib = OUT / f"lib{name}.so"
     objs, procs = [], []
@@ -119,6 +129,24 @@ def feature_cases(dev) -> dict:
                 *args, cot192, gx, gy)}
 
 
+def capped_cases(dev) -> dict:
+    """K5's wrapper call on one capped feature step (chip_smoke.py phase
+    11's scene, first camera, its settings)."""
+    model, rng = cs.train_scene(cs.TRAIN_N, 0, dev)
+    cs.write_gt(rng, "prof_cap", 1, cs.TRAIN_H, cs.TRAIN_W)
+    cam = cs.train_cameras("prof_cap", (cs.TRAIN_YAW_DEG[0],), cs.TRAIN_H,
+                           cs.TRAIN_W)[0]
+    x = cs.capped_step_inputs(model, cam, 2 ** 21, dev)
+    s = x["settings"]
+    args = (x["g"], x["kept"], x["geom"], x["qi"], x["cot"])
+    print(f"capped feature step: {x['kept_total']} kept entries in "
+          f"{s.grid_x * s.grid_y} windows of {s.tile_budget_cap}, "
+          f"{x['n_eval']} evaluated and {x['n_inc']} included pairs",
+          flush=True)
+    return {"K5 topk=4 C=64 544x960": lambda: train.feature_grads_topk(
+        *args, s.grid_x, s.grid_y, s.tile_budget_cap)}
+
+
 def rgb_cases(dev) -> dict:
     """K7's wrapper call on one geometry step (the first camera)."""
     model, images = cs.rgb_scene(cs.RGB_N, cs.TRAIN_H, cs.TRAIN_W, 1, 0, dev)
@@ -134,8 +162,8 @@ def rgb_cases(dev) -> dict:
 
 
 def sass_counts(lib: Path) -> dict:
-    """{K4 / K7: (SASS instructions, {HMMA / SHFL opcode: count})} for the
-    kernels in `lib`; empty without cuobjdump."""
+    """{K4 / K5 / K7: (SASS instructions, {HMMA / SHFL opcode: count})}
+    for the kernels in `lib`; empty without cuobjdump."""
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
@@ -204,7 +232,7 @@ def main() -> None:
         marked = build_library(kernels.CSRC, "phases", ["-DLSV2_PHASES"])[0]
         for readout, _ in PHASES.values():
             getattr(marked, readout).argtypes = [ctypes.c_void_p]
-    calls = {**feature_cases(dev), **rgb_cases(dev)}
+    calls = {**feature_cases(dev), **capped_cases(dev), **rgb_cases(dev)}
     for name, fn in calls.items():
         times = {}
         for side, lib in (("parent", parent), ("this", this), ("this", this),

@@ -16,9 +16,12 @@ from langsplatv2_tpu_torch.ops import blend, budget, cascade, expand, probe, \
 from langsplatv2_tpu_torch.ops import projection
 
 from torch_port_fixtures import (BWD_DARK_TILE, BWD_END_AT, BWD_END_TILE,
-                                 GRAM_PATTERNS, bwd_edge_case, camera,
-                                 check_golden_eval, golden_eval,
-                                 gram_pattern_case, quick_pairs, scene)
+                                 CAPPED_DARK_TILE, CAPPED_END_AT,
+                                 CAPPED_END_TILE, GRAM_PATTERNS,
+                                 bwd_edge_case, camera, capped_edge_case,
+                                 check_golden_eval, expand_edge_case,
+                                 golden_eval, gram_pattern_case,
+                                 quick_pairs, scene)
 
 
 @pytest.fixture
@@ -999,3 +1002,161 @@ def test_no_plain_version_on_the_card(cuda, monkeypatch):
     assert grown == {"query_map_tiles": 1, "query_map_tiles_bf16": 1,
                      "blend_tiles_query": 1, "gram_tiles_fwd": 3,
                      "gram_tiles_bwd": 3}, grown
+
+
+# ------------------------------------------- K1 and K5 on their edge cases
+# (tests/torch_port_fixtures.py::expand_edge_case and capped_edge_case;
+# tests/test_torch_port_expand_edges.py holds the plain versions to JAX's
+# Pallas kernels on the same cases).
+
+EXPAND_FIELDS = ("xy", "depth", "conic", "radius", "rgb", "rect_min",
+                 "rect_max", "tiles_touched")
+EXPAND_SLOTS = 2048   # csrc/expand.cu's slots a block
+
+
+def _expand_scene(name: str, dev):
+    """The edge scene `name` as CUDA tensors, with its max_entries cuts:
+    "live" and "empty" (8 x 6 tiles, one block of slots; in "live" one
+    Gaussian's rect is 0 tiles wide with tiles_touched > 0, which both
+    versions read as width 1), "wide" (a 1080p grid, 120 x 68 tiles, three
+    draws: whole-grid rects of 8,160 tiles over 4-5 blocks, cut mid-rect, on
+    block boundaries and one slot on either side), "unit" (6,000 rects of
+    one tile, every third of none: a block's slots have ~3,000 owners, more
+    than the kernel stages in one pass), "none" (no Gaussian at all)."""
+    if name == "none":
+        c = expand_edge_case(seed=0, live=False)
+        c.update({k: c[k][:0] for k in EXPAND_FIELDS + ("opacities",)})
+        c["cuts"] = [37]
+    elif name == "unit":
+        c = expand_edge_case(seed=4)
+        rng = np.random.default_rng(4)
+        n = 6000
+        lo = np.stack([rng.integers(0, 8, n), rng.integers(0, 6, n)], 1)
+        hi = lo + 1
+        hi[::3, 0] = lo[::3, 0]
+        tiles = ((hi[:, 0] - lo[:, 0]) * (hi[:, 1] - lo[:, 1])).astype(
+            np.int32)
+        c.update(xy=(lo * 16 + rng.uniform(0, 16, (n, 2))).astype(np.float32),
+                 depth=rng.uniform(1, 9, n).astype(np.float32),
+                 conic=np.tile(np.float32([0.02, 0.0, 0.02]), (n, 1)),
+                 radius=np.where(tiles > 0, 8, 0).astype(np.int32),
+                 rgb=np.zeros((n, 3), np.float32),
+                 rect_min=lo.astype(np.int32), rect_max=hi.astype(np.int32),
+                 tiles_touched=tiles,
+                 opacities=rng.uniform(0.1, 0.95, n).astype(np.float32))
+        total = int(tiles.sum())
+        c["cuts"] = [total + 5, total - 1, EXPAND_SLOTS + 1]
+    elif name == "wide":
+        c = expand_edge_case(seed=3, grid=(120, 68), copies=3)
+        total = int(c["tiles_touched"].sum())
+        c["cuts"] += [EXPAND_SLOTS * k + d for k in (1, 4, 9)
+                      for d in (-1, 0, 1)] + [total - 1, total]
+    else:
+        c = expand_edge_case(seed=0, live=name == "live")
+        if name == "live":
+            c["rect_max"][5, 0] = c["rect_min"][5, 0]
+    proj = projection.ProjectedGaussians(*[
+        torch.as_tensor(c[k], device=dev) for k in EXPAND_FIELDS])
+    return proj, torch.as_tensor(c["opacities"], device=dev), c
+
+
+def _expand_both(proj, ops, gx, gy, cut, exact_cull, with_alpha):
+    out = expand.expand_entries(proj, ops, gx, gy, cut,
+                                exact_cull=exact_cull, with_alpha=with_alpha)
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    ref = expand.expand_entries_plain(proj, ops, offsets, gx, gy, cut,
+                                      exact_cull, 255.0, with_alpha)
+    return out, ref
+
+
+@pytest.mark.parametrize("exact_cull,with_alpha",
+                         [(False, 0), (True, 0), (True, 1), (True, 2)],
+                         ids=["nocull", "cull", "alpha1", "alpha2"])
+@pytest.mark.parametrize("scene_name",
+                         ["live", "empty", "wide", "unit", "none"])
+def test_expand_kernel_edges(cuda, scene_name, exact_cull, with_alpha):
+    """K1 against its plain version at every cut: tile, depth, gauss and
+    total equal; with_alpha's lm within 2 f32 ulps, 0 where the plain
+    version's is, and the lm words equal."""
+    proj, ops, c = _expand_scene(scene_name, cuda)
+    gx, gy = c["grid_x"], c["grid_y"]
+    n_tiles = int(c["tiles_touched"].sum())
+    for cut in c["cuts"]:
+        out, ref = _expand_both(proj, ops, gx, gy, cut, exact_cull,
+                                with_alpha)
+        assert int(out[3]) == min(n_tiles, cut), cut
+        for a, b in zip(out[:3], ref[:3]):
+            assert torch.equal(a, b), cut
+        if with_alpha:
+            lm, lm_ref = out[4], ref[3]
+            assert lm.shape == lm_ref.shape == (with_alpha ** 2, cut)
+            assert torch.equal(lm == 0, lm_ref == 0), cut
+            assert float(f32_ulps(lm, lm_ref).max()) <= 2.0, cut
+            for a, b in zip(budget.pack_lm_words(lm),
+                            budget.pack_lm_words(lm_ref)):
+                assert torch.equal(a, b), cut
+
+
+def test_expand_writes_every_slot(cuda, monkeypatch):
+    """The wrapper allocates its outputs uninitialised: with every buffer
+    it allocates filled with 0xFF bytes first (NaN as f32, -1 as int32:
+    a poisoned caching allocator, made deterministic; which freed block
+    the allocator hands out depends on what the process allocated
+    before), K1 with_alpha must still give total, the dead slots, the
+    tail past total and lm's zeros exactly, equal to the plain version."""
+    proj, ops, c = _expand_scene("live", cuda)
+    gx, gy = c["grid_x"], c["grid_y"]
+    cut = (1 << 20) + 37                    # a tail of a million slots
+    real_empty, made = torch.empty, []
+
+    def poisoned_empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        t.reshape(-1).view(torch.uint8).fill_(0xFF)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", poisoned_empty)
+    out = expand.expand_entries(proj, ops, gx, gy, cut, with_alpha=2)
+    monkeypatch.undo()
+    assert len(made) == 5, "tile, depth, gauss, total and lm"
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    ref = expand.expand_entries_plain(proj, ops, offsets, gx, gy, cut, True,
+                                      255.0, 2)
+    assert int(out[3]) == int(c["tiles_touched"].sum())
+    total = int(out[3])
+    assert 0 < total < cut
+    for a, b in zip(out[:3], ref[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(out[4] == 0, ref[3] == 0)
+    assert float(f32_ulps(out[4], ref[3]).max()) <= 2.0
+    dead = out[0] == gx * gy
+    assert bool(dead[total:].all()) and bool(dead[:total].any())
+    assert not out[1][dead].any() and not out[2][dead].any()
+    assert not out[4][:, dead].any()
+
+
+@pytest.mark.parametrize("channels", [32, 64])
+@pytest.mark.parametrize("topk", [1, 3, 4])
+@pytest.mark.parametrize("cap", [64, 128])
+def test_feature_bwd_topk_kernel_edges(cuda, cap, topk, channels):
+    """K5 against its plain version (1e-5 of the largest output) on the
+    capped edge windows; slots at or past kept, after the ending entry and
+    of the dark run are exactly 0."""
+    c = capped_edge_case(cap, topk, channels, seed=cap + topk + channels)
+    t = {k: torch.as_tensor(c[k], device=cuda)
+         for k in ("g_win", "kept", "geom", "qi", "cot")}
+    gx, gy = c["grid_x"], c["grid_y"]
+    args = (t["g_win"], t["kept"], t["geom"], t["qi"], t["cot"])
+    out = train.feature_grads_topk(*args, gx, gy, cap)
+    ref = train.feature_grads_topk_plain(*args, gx, cap)
+    scale = float(ref.abs().max())
+    assert scale > 1e-2
+    torch.testing.assert_close(out / scale, ref / scale, atol=1e-5, rtol=0)
+    zero = torch.arange(cap, device=cuda)[None, :] >= t["kept"][:, None]
+    zero[CAPPED_END_TILE, CAPPED_END_AT:] = True
+    zero[CAPPED_DARK_TILE, 8:32] = True
+    zero = zero.reshape(-1)
+    assert float(out[zero].abs().max()) == 0.0
+    assert float(out[~zero].abs().max()) > 0.0

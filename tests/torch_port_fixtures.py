@@ -260,3 +260,123 @@ def bwd_edge_case(seed: int = 0, tail: int = 5) -> dict:
     start = (np.cumsum(count) - count).astype(np.int32)
     return dict(g=np.arange(geom.shape[0], dtype=np.int32), start=start,
                 count=count, geom=geom, grid_x=gx, grid_y=gy)
+
+
+# K1's edge cases, on an 8 x 6 tile grid (128 x 96 pixels) unless a test
+# asks for another: runs of zero-tile Gaussians before, between and after
+# the live ones, one whole-grid rect whose far tiles the cull kills, and
+# rects of 1 to 20 tiles.
+EXPAND_GRID = (8, 6)
+
+
+def _expand_rects(rng, gx: int, gy: int) -> list:
+    rects = [(3, 2, 3, 4)] * 3                    # zero-tile run first
+    rects.append((0, 0, gx, gy))                  # the whole grid
+    for i in range(24):
+        if i in (6, 15):
+            rects += [(1, 1, 1, 1), (5, 0, 7, 0), (2, 3, 2, 5), (0, 0, 0, 0)]
+        w, h = int(rng.integers(1, 6)), int(rng.integers(1, 5))
+        x0 = int(rng.integers(0, gx - w + 1))
+        y0 = int(rng.integers(0, gy - h + 1))
+        rects.append((x0, y0, x0 + w, y0 + h))
+    return rects + [(4, 4, 4, 6)] * 2             # zero-tile run last
+
+
+def expand_edge_case(seed: int = 0, live: bool = True,
+                     grid: tuple = EXPAND_GRID, copies: int = 1) -> dict:
+    """Projected Gaussians (numpy: xy, depth, conic, radius, rgb, rect_min,
+    rect_max, tiles_touched with tiles = rect width * height, and
+    opacities) for K1's edges, `copies` draws of the sequence one after
+    another, and `cuts`: max_entries values that leave a tail past the
+    total, cut the whole-grid rect (the first live one) in the middle, and
+    cut one slot before and one after the end of a rect that a zero-tile
+    run follows. With live=False every Gaussian touches 0 tiles (no live
+    entry)."""
+    rng = np.random.default_rng(seed)
+    gx, gy = grid
+    rects = [r for _ in range(copies) for r in _expand_rects(rng, gx, gy)]
+    r = np.array(rects, np.int32)
+    if not live:
+        r[:, 2] = r[:, 0]
+    n = r.shape[0]
+    tiles = ((r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])).astype(np.int32)
+    # Centres inside the rect, covariances of 3-15 pixels, some tilted; the
+    # whole-grid Gaussians sit at the grid's centre with sigma a sixth of
+    # its width, so the cull kills its far tiles.
+    lo, hi = r[:, :2] * 16.0, np.maximum(r[:, 2:], r[:, :2] + 1) * 16.0
+    xy = rng.uniform(lo, hi).astype(np.float32)
+    sig = rng.uniform(3.0, 15.0, (n, 2))
+    rho = rng.uniform(-0.6, 0.6, n)
+    whole = (r[:, 2] - r[:, 0] == gx) & (r[:, 3] - r[:, 1] == gy)
+    xy[whole] = (8.0 * gx, 8.0 * gy)
+    sig[whole] = 16.0 * gx / 6
+    rho[whole] = 0.0
+    det = (sig[:, 0] * sig[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sig[:, 1] ** 2 / det,
+                      -rho * sig[:, 0] * sig[:, 1] / det,
+                      sig[:, 0] ** 2 / det], 1).astype(np.float32)
+    ends = np.cumsum(tiles)
+    b = int(ends[9])
+    cuts = ([int(ends[-1]) + 37, int(ends[3] - tiles[3] // 2), b - 1, b + 1]
+            if live else [37, 1])
+    return dict(
+        xy=xy, depth=rng.uniform(1.0, 9.0, n).astype(np.float32),
+        conic=conic, radius=np.where(tiles > 0, 8, 0).astype(np.int32),
+        rgb=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        rect_min=np.ascontiguousarray(r[:, :2]),
+        rect_max=np.ascontiguousarray(r[:, 2:]), tiles_touched=tiles,
+        opacities=rng.uniform(0.1, 0.95, n).astype(np.float32),
+        cuts=cuts, grid_x=gx, grid_y=gy)
+
+
+# K5's windows: kept counts on the batch (32) edges, a window one short of
+# full and a full one, a window whose every pixel ends on entry
+# CAPPED_END_AT, one whose entries 8..31 no pixel includes, and an empty
+# last tile, on a 5 x 2 grid.
+CAPPED_EDGE_KEPT = (0, 1, 31, 32, 33)
+CAPPED_END_TILE, CAPPED_END_AT, CAPPED_DARK_TILE = 7, 21, 8
+
+
+def capped_edge_case(cap: int, topk: int, channels: int,
+                     seed: int = 0) -> dict:
+    """Inputs of K5 (numpy): the capped windows g_win [T * cap] (each kept
+    slot its own Gaussian, unused slots id 0), kept [T], geom [N, 9],
+    quick_indices [N, topk] in [0, channels), quick_weights [N, topk] and
+    a cotangent [T, 256, channels]; kept is CAPPED_EDGE_KEPT, cap - 1,
+    cap, the ending window (cap entries), the dark window (40) and 0."""
+    rng = np.random.default_rng(seed)
+    gx, gy = 5, 2
+    kept = list(CAPPED_EDGE_KEPT) + [cap - 1, cap, cap, 40, 0]
+    rows, g_win = [np.zeros((1, 9), np.float32)], []
+    for t, c in enumerate(kept):
+        ox, oy = (t % gx) * 16, (t // gx) * 16
+        r = np.zeros((c, 9), np.float32)
+        r[:, 0] = ox + rng.uniform(-4, 20, c)
+        r[:, 1] = oy + rng.uniform(-4, 20, c)
+        s = rng.uniform(2.0, 9.0, (c, 2))
+        r[:, 2] = 1 / s[:, 0] ** 2
+        r[:, 3] = rng.uniform(-0.3, 0.3, c) / (s[:, 0] * s[:, 1])
+        r[:, 4] = 1 / s[:, 1] ** 2
+        r[:, 5] = rng.uniform(0.2, 0.95, c)
+        r[:, 6:9] = rng.uniform(0, 1, (c, 3))
+        if t == CAPPED_END_TILE:
+            n = CAPPED_END_AT
+            r[:n + 1, 0:2] = [ox + 7.5, oy + 7.5]
+            r[:n + 1, 2:5] = [1e-6, 0.0, 1e-6]
+            r[:n, 5] = 1.0 - 1e-3 ** (1.0 / n)
+            r[n, 5] = 0.99
+        if t == CAPPED_DARK_TILE:
+            r[8:32, 5] = 0.002
+        first = sum(len(x) for x in rows)
+        rows.append(r)
+        g_win += list(range(first, first + c)) + [0] * (cap - c)
+    geom = np.concatenate(rows)
+    n = geom.shape[0]
+    qw = rng.uniform(0, 1, (n, topk)).astype(np.float32)
+    return dict(g_win=np.array(g_win, np.int32),
+                kept=np.array(kept, np.int32), geom=geom,
+                qi=rng.integers(0, channels, (n, topk)).astype(np.int32),
+                qw=qw / qw.sum(1, keepdims=True),
+                cot=rng.standard_normal((gx * gy, 256, channels)).astype(
+                    np.float32),
+                grid_x=gx, grid_y=gy, cap=cap)
