@@ -139,9 +139,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 16. the cascade binner: K8 on a reduced scene (phase 3's) against its plain
    version and the sort binning's segments (equal); at both loads of phase
    4's scene, 5 cascade frames each, counted (K8, K2 and K3 on every frame,
-   K1 never), each equal to phase 4's frame bit for bit, K8 against its
-   plain version and the sort segments (equal) and timed beside the sort
-   stage (K1 + key sort), K2 on its segments timed, and an overflow probe
+   K1 never), each equal to phase 4's frame bit for bit, their CUDA-event
+   stages printed beside phase 4's f32 frame's, K8 against its plain
+   version and the sort segments (equal) and timed beside the sort stage
+   (K1 + key sort), its device operations besides the depth sort's at most
+   cascade.LAUNCHES, K2 on its segments timed, and an overflow probe
    (budget half the kept total: the flag set, the total within it);
 17. the round-4 capped chain (scripts/profile_capped_stages.py:10-13) on
    phase 4's scene and budgets, budget 1e-6, cap 128, subdiv 2: the
@@ -156,9 +158,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    and the relevancy IoU against the exact bf16 frame beside phase 10's;
 18. K9, the cell-chain probe, on [512, 256, 256] in f32 and bf16, counted,
    each against its plain version (f32 1e-5 of the largest, bf16 2 bf16
-   ulps of the largest), timed: G chains/s, the bf16/f32 ratio, the bound
-   with its basis, the SASS instructions a chain by unit, and the
-   ex2.approx.bf16x2 what-if (not K9's arithmetic);
+   ulps of the largest, no element different), timed: G chains/s,
+   bf16_over_f32_rate, each form's bound as the largest of five floors
+   (bytes, MUFU, FP32 lanes, packed lanes, issue slots) with its basis, the
+   pairs whose bf16 chain ran again with expf, the SASS instructions a
+   chain by unit (static, and on the bf16 form's common path, probe.cu
+   built once more with -DLSV2_PROBE_HOT_PATH), and the ex2.approx.bf16x2
+   what-if (not K9's arithmetic);
 19. the eval drivers: the golden fixture (tests/golden/eval_golden.npz)
    through the port on the card at atol 1e-5; evaluate_quick (hash CLIP
    backend, Gram relevancy) on 4 annotated frames at 986x728, 4 prompts a
@@ -201,6 +207,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2993,6 +3000,16 @@ def check_k8(proj, op, gx: int, gy: int, budget: int, timed: bool) -> dict:
         r["bound_ms"], r["bound_by"] = k8_bound(proj, r["total"], gx * gy)
         r["device_split_us"] = device_split(lambda: cascade.cascade_binning(
             proj, op, gx, gy, budget))
+        keys = torch.randint(0, 1 << 30, (proj.depth.shape[0],),
+                             dtype=torch.int32, device=proj.depth.device)
+        r["sort_launches"] = device_split(
+            lambda: torch.sort(keys, stable=True))["launches"]
+        r["launches_besides_sort"] = (r["device_split_us"]["launches"]
+                                      - r["sort_launches"])
+        if r["launches_besides_sort"] > cascade.LAUNCHES:
+            fail(f"K8 put {r['launches_besides_sort']} operations on the "
+                 f"device besides the depth sort's {r['sort_launches']}, "
+                 f"more than its design's {cascade.LAUNCHES}")
     return r
 
 
@@ -3021,11 +3038,13 @@ def device_split(fn, top: int = 12) -> dict:
                 wall=wall, launches=launches)
 
 
-def cascade_serving(model, clip, consts, plans, dev) -> dict:
+def cascade_serving(model, clip, consts, plans, f32_loads, dev) -> dict:
     """Phase 16: K8 on a reduced scene, then at both loads of phase 4's
-    scene: counted cascade frames, K8 against its plain version and the
-    sort binning, the cascade frame against phase 4's, K8 and K2 on its
-    segments timed, and an overflow probe."""
+    scene: counted cascade frames (CUDA-event stages, printed beside phase
+    4's f32 frame's, `f32_loads`), K8 against its plain version and the
+    sort binning, the cascade frame against phase 4's, K8 (with its device
+    operations besides the depth sort's, at most cascade.LAUNCHES) and K2
+    on its segments timed, and an overflow probe."""
     h = w = 512
     small = from_numpy_params(bench_scene(50_000, seed=1), device=dev)
     view, pm, tfx, tfy = bench_camera(h, w)
@@ -3040,14 +3059,19 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
     frames = {}
     for name, (s, view, pm) in plans.items():
         sc = s._replace(binning="cascade")
-        host = []
+        host, stages = [], []
         for _ in range(FRAMES):
+            events = []
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out, relev = frame(model, sc, view, pm, clip, consts, dev)
+            out, relev = frame(model, sc, view, pm, clip, consts, dev, events)
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
-        frames[name] = (out, relev, host)
+            stages.append({b[0]: a[1].elapsed_time(b[1])
+                           for a, b in zip(events, events[1:])})
+        frames[name] = (out, relev, host,
+                        {k: statistics.median(st[k] for st in stages)
+                         for k in stages[0]})
     launches = read_counts(CASCADE_WRAPPERS)
     n = FRAMES * len(plans)
     log(f"launches on the cascade frames ({n}): {launches}")
@@ -3057,7 +3081,7 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
 
     res = {}
     for name, (s, view, pm) in plans.items():
-        out, relev, host = frames.pop(name)
+        out, relev, host, stage_ms = frames.pop(name)
         ref, _ = frame(model, s, view, pm, clip, consts, dev)
         same = [torch.equal(a, b) for a, b in (
             (out.render, ref.render),
@@ -3072,6 +3096,9 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
         del out, ref, relev
         x = stage_inputs(model, s, view, pm, consts, dev)
         r = dict(frame_ms_median=statistics.median(host), frame_ms=host,
+                 stage_ms_median=stage_ms,
+                 f32_frame_ms_median=f32_loads[name]["frame_ms_median"],
+                 f32_stage_ms_median=f32_loads[name]["stage_ms_median"],
                  kept_total=kept,
                  K8=check_k8(x["proj"], x["op"], s.grid_x, s.grid_y,
                              s.max_entries, timed=True))
@@ -3111,6 +3138,11 @@ def cascade_serving(model, clip, consts, plans, dev) -> dict:
         res[name] = r
         log(f"{name} cascade: frame median {r['frame_ms_median']:.3f} ms, "
             f"kept {kept}; overflow probe {r['overflow_probe']}")
+        log(f"{name} cascade frame stages (median ms, CUDA events): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+            + f"; phase 4's f32 frame {r['f32_frame_ms_median']:.3f} ms: "
+            + ", ".join(f"{k} {v:.3f}"
+                        for k, v in r["f32_stage_ms_median"].items()))
         for k in ("K8", "K2comb"):
             log(f"{name} cascade {k}: " + ", ".join(
                 f"{a} {b!r}" for a, b in r[k].items()))
@@ -3316,9 +3348,12 @@ def lm_capped_chain(model, clip, consts, plans, capped_iou, dev) -> dict:
 # --------------------------------------------- phase 18: K9, the cell probe
 
 PROBE_BLOCKS = 512                      # profile_vpu_bf16.py's vmapped batch
-PROBE_OPS = 8     # f32 ops a chain besides exp: 2 mul, 2 cmp, select, add,
-                  # mul, add
+PROBE_ARITH = 5   # a chain's arithmetic: a = x / 2, a * a, acc +, e * step,
+                  # x +  (an FMA would count once)
+PROBE_INSTR = 9   # the fewest instructions a chain needs: PROBE_ARITH, the
+                  # exp, 2 compares, the select (a pair's, in packed bf16)
 SFU_PER_CLOCK_SM = 16   # MUFU results a clock an SM: 4 a partition (planning)
+LANES_PER_CLOCK_SM = 128  # FP32 lanes, and 4 warp-instructions issued
 
 
 # SASS opcodes by the unit that issues them (Hopper: 128 FP32 lanes and 16
@@ -3330,14 +3365,16 @@ SASS_CLASSES = {"fp32": ("FFMA", "FMUL", "FADD"), "mufu": ("MUFU",),
                 "convert": ("F2F", "F2FP", "PRMT", "SHF", "IMAD.U32")}
 
 
-def sass_per_chain() -> dict:
+def sass_per_chain(library=None) -> dict:
     """Instructions a chain of K9's kernels, by class, from cuobjdump's
-    SASS of the built library (the 64 repetitions are unrolled; a bf16
-    thread runs two chains). Empty when cuobjdump is absent."""
+    SASS of the built library (or `library`): the static count over the
+    64 unrolled repetitions (a bf16 thread runs two chains), the bf16
+    form's out-of-line expf chain included unless `library` is
+    `probe_common_path_library()`. Empty when cuobjdump is absent."""
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
-    dump = subprocess.run([tool, "-sass", str(kernels.build()[0])],
+    dump = subprocess.run([tool, "-sass", str(library or kernels.build()[0])],
                           capture_output=True, text=True, timeout=120)
     if dump.returncode != 0:
         log(f"cuobjdump failed ({dump.returncode}): {dump.stderr[-500:]}")
@@ -3348,8 +3385,8 @@ def sass_per_chain() -> dict:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             fn = ("f32" if "chain_f32" in name else "bf16"
-                  if "chain_bf16ILb0" in name else "bf16_ex2"
-                  if "chain_bf16ILb1" in name else None)
+                  if "chain_bf16ILi0" in name else "bf16_ex2"
+                  if "chain_bf16ILi2" in name else None)
             if fn:
                 counts[fn] = dict.fromkeys(("all", *SASS_CLASSES), 0)
             continue
@@ -3367,41 +3404,85 @@ def sass_per_chain() -> dict:
                  for cls, n in c.items()} for fn, c in counts.items()}
 
 
-def cell_probe(dev) -> dict:
-    """Phase 18: K9 in f32 and bf16 on [512, 256, 256], counted, each
-    against its plain version (f32 1e-5 of the largest, bf16 2 bf16 ulps
-    of the largest), timed beside its plain version and its bound; the
-    rates in G chains/s, the bf16/f32 ratio, and the ex2.approx.bf16x2
-    what-if (not K9's arithmetic) timed beside it."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.rand((PROBE_BLOCKS, 256, 256), generator=gen, device=dev) \
-        * 2 - 1
-    chains = x.numel() * probe.REPS
+def probe_common_path_library() -> Path:
+    """csrc/probe.cu built alone with -DLSV2_PROBE_HOT_PATH (the bf16
+    chain's fallback left out, its check kept), for counting the common
+    path's SASS; fails the run if nvcc does."""
+    out = Path("build") / "chip_smoke_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libprobe_common.so"
+    done = subprocess.run(
+        [kernels._nvcc(), *kernels.ARCH, *kernels.COMMON,
+         *kernels.SOURCES["probe.cu"], "-DLSV2_PROBE_HOT_PATH", "-shared",
+         "-o", str(lib), str(kernels.CSRC / "probe.cu")],
+        capture_output=True, text=True, timeout=300)
+    if done.returncode:
+        fail(f"nvcc probe.cu -DLSV2_PROBE_HOT_PATH: {done.stdout[-2000:]}"
+             f"{done.stderr[-2000:]}")
+    return lib
+
+
+def probe_floors(chains: int, elements: int, dev) -> dict:
+    """K9's five floors (ms) and each form's bound: bytes (8 B an element),
+    the MUFU (one exp a chain at SFU_PER_CLOCK_SM results a clock an SM),
+    the FP32 lanes (f32: PROBE_ARITH a chain at 128 lanes a clock an SM),
+    the packed lanes (bf16: the same arithmetic, two a lane) and the issue
+    slots (PROBE_INSTR a chain in f32, a pair in bf16, at 4
+    warp-instructions a clock an SM), at the card's highest SM clock."""
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = n_sm * LANES_PER_CLOCK_SM * clock_mhz * 1e6
+    sfu = n_sm * SFU_PER_CLOCK_SM * clock_mhz * 1e6
+    floors = dict(bytes=elements * 8 / HBM_BYTES_PER_S * 1e3,
+                  mufu=chains / sfu * 1e3,
+                  fp32_lanes=chains * PROBE_ARITH / lanes * 1e3,
+                  packed_lanes=chains * PROBE_ARITH / 2 / lanes * 1e3,
+                  issue_f32=chains * PROBE_INSTR / lanes * 1e3,
+                  issue_bf16=chains * PROBE_INSTR / 2 / lanes * 1e3)
+    forms = {"f32": ("bytes", "mufu", "fp32_lanes", "issue_f32"),
+             "bf16": ("bytes", "mufu", "packed_lanes", "issue_bf16")}
+    res = dict(floors=floors, clock_mhz=clock_mhz, sms=n_sm,
+               old_bound_ms=max(floors["bytes"], floors["mufu"],
+                                chains * 8 / F32_FLOPS * 1e3))
+    for form, keys in forms.items():
+        top = max(keys, key=lambda k: floors[k])
+        res[form] = dict(
+            bound_ms=floors[top],
+            bound_by="bytes" if top == "bytes" else "operations",
+            bound_basis="largest of " + ", ".join(
+                f"{k} {floors[k]:.4f}" for k in keys) + f" ms: {top}")
+    return res
+
+
+def cell_probe(dev) -> dict:
+    """Phase 18: K9 in f32 and bf16 on [512, 256, 256], counted, each
+    against its plain version (f32 1e-5 of the largest, bf16 2 bf16 ulps
+    of the largest, and the elements that differ at all), timed beside its
+    plain version and its bound (`probe_floors`, the earlier one-floor
+    bound beside it); the rates in G chains/s, the bf16/f32 ratio, the
+    pairs whose bf16 chain ran again with expf, SASS a chain (static and on
+    the bf16 form's common path), and the ex2.approx.bf16x2 what-if (not
+    K9's arithmetic) timed beside it."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((PROBE_BLOCKS, 256, 256), generator=gen, device=dev) \
+        * 2 - 1
+    chains = x.numel() * probe.REPS
+    fl = probe_floors(chains, x.numel(), dev)
+    clock_mhz, n_sm = fl["clock_mhz"], fl["sms"]
     sfu_rate = n_sm * SFU_PER_CLOCK_SM * clock_mhz * 1e6
-    t_ops = chains * PROBE_OPS / F32_FLOPS * 1e3
-    t_exp = chains / sfu_rate * 1e3
-    t_bytes = x.numel() * 8 / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_exp, t_bytes)
-    basis = (f"max of bytes {t_bytes:.4f} ms (8 B an element), f32 ops "
-             f"{t_ops:.4f} ms ({PROBE_OPS} a chain at 67 TFLOP/s) and exp "
-             f"{t_exp:.4f} ms (one a chain at {n_sm} SMs x "
-             f"{SFU_PER_CLOCK_SM} a clock x {clock_mhz:.0f} MHz = "
-             f"{sfu_rate / 1e12:.3f} T/s, a planning estimate)")
+    basis = "; ".join(f"{d}: {fl[d]['bound_basis']}" for d in ("f32", "bf16"))
     zero_counts({"K9": probe.cell_chain})
     outs = {d: probe.cell_chain(x, dt) for d, dt in
             (("f32", torch.float32), ("bf16", torch.bfloat16))}
     launches = read_counts({"K9": probe.cell_chain})["K9"]
     if launches != 2:
         fail(f"K9 launched {launches} times, not 2")
-    res = dict(blocks=PROBE_BLOCKS, chains=chains, bound_ms=bound_ms,
-               bound_by="bytes" if t_bytes >= max(t_ops, t_exp)
-               else "operations", bound_basis=basis, launches=launches,
-               exp_bound_ms=t_exp, ops_bound_ms=t_ops)
+    res = dict(blocks=PROBE_BLOCKS, chains=chains, bound_basis=basis,
+               launches=launches, floors_ms=fl["floors"],
+               old_bound_ms=fl["old_bound_ms"])
     for d, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ref = probe.cell_chain_plain(x, dt)
         big = float(ref.abs().max())
@@ -3410,24 +3491,23 @@ def cell_probe(dev) -> dict:
                else 2 * 2.0 ** (math.floor(math.log2(big)) - 7))
         r = dict(max_abs_err=err, limit=lim, largest=big,
                  elements_differ=int((outs[d] != ref).sum()))
-        if not err <= lim:
-            fail(f"K9 {d} differs from its plain version by {err} "
-                 f"(limit {lim})")
+        if not err <= lim or r["elements_differ"]:
+            fail(f"K9 {d} differs from its plain version: {r}")
         del ref
         r["ms"] = cuda_ms(lambda: probe.cell_chain(x, dt), 10)[0]
         r["plain_ms"] = cuda_ms(lambda: probe.cell_chain_plain(x, dt), 1)[0]
         r["library_ms"] = None
-        r["bound_ms"], r["bound_by"] = res["bound_ms"], res["bound_by"]
+        r["bound_ms"], r["bound_by"] = fl[d]["bound_ms"], fl[d]["bound_by"]
+        r["bound_basis"] = fl[d]["bound_basis"]
         r["gchains_per_s"] = chains / (r["ms"] * 1e-3) / 1e9
         res[d] = r
-    out = torch.empty_like(x)
-    what_if = lambda: kernels.launch(  # noqa: E731
-        "lsv2_cell_chain", kernels.ptr(x), kernels.ptr(out), x.numel(), 2,
-        kernels.stream(x))
-    res["bf16_ex2_what_if_ms"] = cuda_ms(what_if, 10)[0]
+    res["bf16_ex2_what_if_ms"], out = cuda_ms(
+        lambda: probe.kernel_mode(x, probe.WHAT_IF)[0], 10)
     res["bf16_ex2_what_if_err"] = float((out - outs["bf16"]).abs().max())
     res["bf16_over_f32_rate"] = res["f32"]["ms"] / res["bf16"]["ms"]
-    res["sass_per_chain"] = sass_per_chain()
+    res["bf16_pairs_fell_back"] = probe.kernel_mode(x, 1)[1]
+    res["sass_per_chain_static"] = sass_per_chain()
+    res["sass_per_chain"] = sass_per_chain(probe_common_path_library())
     # What each rate alone would take: every instruction at one warp
     # instruction a clock a scheduler (4 an SM, 128 lanes), the FP32-pipe
     # ones at 128 lanes a clock an SM, MUFU at SFU_PER_CLOCK_SM.
@@ -3437,13 +3517,17 @@ def cell_probe(dev) -> dict:
         fp32_pipe=chains * (c["fp32"] + c["packed_bf16"]) / lane_rate * 1e3,
         mufu=chains * c["mufu"] / sfu_rate * 1e3)
         for fn, c in res["sass_per_chain"].items()}
-    log(f"K9 SASS a chain: {res['sass_per_chain']}; issue-rate times "
-        f"{res['pipe_ms']}")
+    log(f"K9 SASS a chain (common path): {res['sass_per_chain']}; static "
+        f"(the out-of-line expf chain included): "
+        f"{res['sass_per_chain_static']}; issue-rate times {res['pipe_ms']}")
     log(f"K9 cell probe on {x.shape}: f32 {res['f32']['ms']:.4f} ms = "
         f"{res['f32']['gchains_per_s']:.1f} G chains/s, bf16 "
         f"{res['bf16']['ms']:.4f} ms = {res['bf16']['gchains_per_s']:.1f} "
-        f"G chains/s, bf16/f32 rate {res['bf16_over_f32_rate']:.3f}; bound "
-        f"{bound_ms:.4f} ms ({basis}); bf16 with ex2.approx.bf16x2 (what-if) "
+        f"G chains/s, bf16_over_f32_rate {res['bf16_over_f32_rate']:.3f}; "
+        f"bounds {basis} (the earlier bound {res['old_bound_ms']:.4f}: "
+        f"bytes, the MUFU and 8 ops a chain at 67 TFLOP/s); "
+        f"{res['bf16_pairs_fell_back']} of {x.numel() // 2} bf16 pairs ran "
+        f"the chain again with expf; bf16 with ex2.approx.bf16x2 (what-if) "
         f"{res['bf16_ex2_what_if_ms']:.4f} ms, {res['bf16_ex2_what_if_err']}"
         f" from K9 bf16")
     for d in ("f32", "bf16"):
@@ -3893,7 +3977,7 @@ def main() -> None:
         {name: {v: r["frame_ms_median"] for v, r in load.items()
                 if v in ("exact", "capped")}
          for name, load in bf16["loads"].items()}, dev)
-    casc = cascade_serving(model, clip, consts, plans, dev)
+    casc = cascade_serving(model, clip, consts, plans, path["loads"], dev)
     lmc = lm_capped_chain(
         model, clip, consts, plans,
         {k: v["relevancy_iou"] for k, v in bf16["loads"].items()}, dev)

@@ -15,11 +15,14 @@ a TPU core cannot gather; here each level moves 4-byte Gaussian ids and
 the blend gathers the per-Gaussian state itself (K2 f32 on these segments
 takes the place of K2's `combined` layout).
 
-`cascade_binning` launches csrc/cascade.cu (a count pass and a write pass
-a level) on CUDA tensors; the exclusive scans of the per-chunk counts in
-between are torch (JAX scans its counts in XLA, `_bases`). On CPU tensors
-`cascade_binning_plain` gives the same outputs with an expansion and a
-stable sort a level.
+`cascade_binning` launches csrc/cascade.cu on CUDA tensors: a level is a
+stable multi-bucket counting sort (totals, one scan of them, a write
+pass), so a call is a zero fill, the depth keys with level 0's totals and
+scan, torch.sort, the level-0 write (offsets by a decoupled look-back),
+level 1's culled totals, chunk counts and scan, the chunk offsets, and the
+level-1 write: LAUNCHES device launches besides the sort's own. No value
+is read back to the host. On CPU tensors `cascade_binning_plain` gives
+the same outputs with an expansion and a stable sort a level.
 
 Budget: one budget, max_entries, for both levels (JAX's budget1..3 default
 to its budget4). A child (tile row, tile) whose segment would end past it
@@ -27,14 +30,18 @@ is dropped with every child after it, and the overflow flag is set.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import kernels
 from .expand import _cull_mask
 from .projection import ProjectedGaussians
 
-CHUNK = 256       # items a block of the partition kernel
-MAX_FAN = 1024    # tiles a side the kernel takes (shared-memory counters)
+CHUNK = 256       # items a block of the partition kernels
+MAX_FAN = 1024    # tiles a side the kernels take (shared-memory counters)
+MAX_BUDGET = (1 << 30) - 1   # entries: level 0's look-back words' 30 bits
+LAUNCHES = 6      # device launches a call besides torch.sort's
 
 
 def depth_order(depth) -> torch.Tensor:
@@ -95,48 +102,29 @@ def cascade_binning_plain(proj: ProjectedGaussians, opacities, grid_x: int,
             torch.tensor(overflow, device=dev))
 
 
-def _level_offsets(counts, chunk_first, budget: int):
-    """From the count pass's [fan, chunks] counts (child-major, so that the
-    scans run along rows): the write pass's offsets [fan, chunks] (int32,
-    -1 for a disabled child), and the children's bases, totals and enabled
-    flags [buckets, fan]."""
-    dev = counts.device
-    fan, n_chunks = counts.shape
-    prefix = torch.zeros((fan, n_chunks + 1), dtype=torch.int64, device=dev)
-    prefix[:, 1:] = torch.cumsum(counts, 1)
-    cf = chunk_first.long()
-    totals = (prefix[:, cf[1:]] - prefix[:, cf[:-1]]).T
-    base, enabled = _bases(totals, budget)
-    bucket = torch.clamp(torch.searchsorted(
-        cf[1:], torch.arange(n_chunks, device=dev), right=True),
-        max=totals.shape[0] - 1)
-    within = prefix[:, :-1] - prefix[:, cf[bucket]]
-    offsets = torch.where(enabled[bucket].T, base[bucket].T + within, -1)
-    return offsets.int().contiguous(), base, totals, enabled
-
-
-def _run_level(level: int, in_ids, bucket_base, bucket_count, chunk_first,
-               n_chunks: int, fan: int, budget: int, proj, opacities,
-               inv_cull_alpha: float):
-    """Count pass, scan, write pass of one level. Returns (out [budget]
-    ids, bases, totals, enabled [buckets, fan])."""
-    dev = in_ids.device
-    P = kernels.ptr
-    counts = torch.zeros((fan, n_chunks), dtype=torch.int32, device=dev)
-    out = torch.zeros(budget, dtype=torch.int32, device=dev)
-    geo = (P(proj.rect_min), P(proj.rect_max), P(proj.tiles_touched),
-           P(proj.xy), P(proj.conic), P(opacities), inv_cull_alpha)
-    head = (P(in_ids), P(bucket_base), P(bucket_count), P(chunk_first),
-            bucket_base.shape[0], fan, n_chunks, level)
-    kernels.launch("lsv2_cascade_level", *head, 0, *geo, P(counts),
-                   kernels.NULL, kernels.NULL, kernels.stream(counts))
-    offsets, base, totals, enabled = _level_offsets(counts, chunk_first,
-                                                    budget)
-    kernels.check_tensor(offsets, "offsets", torch.int32, (fan, n_chunks),
-                         dev)
-    kernels.launch("lsv2_cascade_level", *head, 1, *geo, kernels.NULL,
-                   P(offsets), P(out), kernels.stream(counts))
-    return out, base, totals, enabled
+def workspace_plan(n: int, grid_x: int, grid_y: int, budget: int) -> dict:
+    """Sizes of the CUDA path's buffers, in int32 words. chunks1 bounds
+    level 1's live chunks (enabled rows hold at most `budget` items, so at
+    most budget / CHUNK full chunks and one partial chunk a row): the grid
+    of the level-1 passes, whose blocks past the live chunks, counted on
+    the device, do no chunk. zbuf (zeroed): the rows' difference array, 3
+    tickets, the tiles' totals. The workspace: a 32-byte record a
+    Gaussian (first, for 16-byte alignment), keep bits [budget] (two words
+    each), level 0's output [budget], the row bases, counts and chunk
+    starts and level 0's overflow, the depth keys, level 0's look-back
+    words and level 1's chunk counts [chunks, children]."""
+    chunks0 = -(-n // CHUNK)
+    chunks1 = -(-budget // CHUNK) + grid_y
+    sizes = dict(gauss=8 * n, mask1=2 * budget, rows=budget,
+                 meta=3 * grid_y + 2, keys=n, status0=chunks0 * grid_y,
+                 counts1=chunks1 * grid_x)
+    offsets, words = {}, 0
+    for k, size in sizes.items():
+        offsets[k] = words
+        words += size
+    return dict(chunks0=chunks0, chunks1=chunks1,
+                zbuf=grid_y + 1 + 3 + grid_x * grid_y, words=words,
+                offsets=offsets)
 
 
 def cascade_binning(proj: ProjectedGaussians, opacities, grid_x: int,
@@ -165,26 +153,40 @@ def cascade_binning(proj: ProjectedGaussians, opacities, grid_x: int,
             ("rect_max", proj.rect_max, torch.int32, (n, 2)),
             ("tiles_touched", proj.tiles_touched, torch.int32, (n,))):
         kernels.check_tensor(t, name, dtype, shape, dev)
+    if budget > MAX_BUDGET:
+        raise ValueError(f"the cascade takes a budget of at most {MAX_BUDGET}"
+                         f" entries, not {budget}")
     i32 = dict(dtype=torch.int32, device=dev)
-    order = depth_order(proj.depth).int()
-    c0 = -(-n // CHUNK)
-    rows, base0, totals0, en0 = _run_level(
-        0, order, torch.zeros(1, **i32), torch.full((1,), n, **i32),
-        torch.tensor([0, c0], **i32), c0, grid_y, budget, proj, opacities,
-        inv_cull_alpha)
-    row_count = (totals0 * en0)[0].int()
-    chunk_first = torch.zeros(grid_y + 1, **i32)
-    chunk_first[1:] = torch.cumsum(-(-row_count // CHUNK), 0)
-    # enabled rows hold at most `budget` items: a bound on their chunks
-    c1 = -(-budget // CHUNK) + grid_y
-    g, base1, totals1, en1 = _run_level(
-        1, rows, base0[0].int(), row_count, chunk_first, c1, grid_x, budget,
-        proj, opacities, inv_cull_alpha)
-    count = (totals1 * en1).reshape(-1).int()
-    overflow = ((totals0 * ~en0).sum() + (totals1 * ~en1).sum()) > 0
+    plan = workspace_plan(n, grid_x, grid_y, budget)
+    zbuf = torch.zeros(plan["zbuf"], **i32)
+    ws = torch.empty(plan["words"], **i32)
+    g = torch.empty(budget, **i32)
+    start = torch.empty(grid_x * grid_y, **i32)
+    count = torch.empty(grid_x * grid_y, **i32)
+    total = torch.empty((), **i32)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    P = kernels.ptr
+    at = {k: ctypes.c_void_p(ws.data_ptr() + 4 * off)
+          for k, off in plan["offsets"].items()}
+    keys = ws[plan["offsets"]["keys"]:][:n]
+
+    def run(stage: int, order=kernels.NULL):
+        kernels.launch(
+            "lsv2_cascade", stage, n, grid_x, grid_y, budget, plan["chunks1"],
+            P(proj.depth), P(proj.rect_min), P(proj.rect_max),
+            P(proj.tiles_touched), P(proj.xy), P(proj.conic), P(opacities),
+            inv_cull_alpha, order, at["gauss"], P(zbuf), at["meta"],
+            at["keys"], at["status0"], at["counts1"], at["rows"],
+            at["mask1"], P(g), P(start), P(count), P(total), P(overflow),
+            kernels.stream(zbuf))
+
+    run(0)
+    order = torch.sort(keys, stable=True).indices
+    run(1, P(order))
+    for stage in (2, 3, 4):
+        run(stage)
     cascade_binning.launches += 1
-    return (g, torch.where(en1, base1, 0).reshape(-1).int(), count,
-            count.sum(dtype=torch.int32), overflow)
+    return g, start, count, total, overflow
 
 
 cascade_binning.launches = 0

@@ -30,21 +30,20 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # multiply-add), as their plain PyTorch versions do: the entry sets of K1
 # and K8, the alpha / termination tests of K2 and K9's compares then agree
 # bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
-# expand.cu, blend.cu, query.cu, gram.cu, feature_bwd.cu,
-# feature_bwd_topk.cu and rgb_bwd.cu are built with ptxas's report
+# Every source but errors.cu is built with ptxas's report
 # (registers, shared memory, spills of each instantiation), kept in
 # BUILD_DIR/<source stem>.log: `ptxas_report`.
 # Headers (csrc/*.cuh) enter the build hash.
 SOURCES = {
     "expand.cu": ["-fmad=false", "-Xptxas=-v"],
-    "cascade.cu": ["-fmad=false"],
+    "cascade.cu": ["-fmad=false", "-Xptxas=-v"],
     "blend.cu": ["-fmad=false", "-Xptxas=-v"],
     "query.cu": ["-Xptxas=-v"],
     "feature_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "feature_bwd_topk.cu": ["-fmad=false", "-Xptxas=-v"],
     "gram.cu": ["-Xptxas=-v"],
     "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
-    "probe.cu": ["-fmad=false"],
+    "probe.cu": ["-fmad=false", "-Xptxas=-v"],
     "errors.cu": [],
 }
 
@@ -73,11 +72,10 @@ ENTRY_POINTS = {
     # g_sorted tile_start tile_count geom feats bg num_tiles grid_x stride
     # c0 channels rgb feat final_t stats stream
     "lsv2_blend_tiles_dense": [_P] * 6 + [_I] * 5 + [_P] * 5,
-    # in_ids bucket_base bucket_count chunk_first buckets fan chunks level
-    # write rect_min rect_max tiles_touched xy conic opacity inv_cull_alpha
-    # counts offsets out stream
-    "lsv2_cascade_level": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_F]
-    + [_P] * 4,
+    # stage n grid_x grid_y budget chunks1 depth rect_min rect_max
+    # tiles_touched xy conic opacity inv_cull_alpha order gauss zbuf meta
+    # keys status0 counts1 rows mask1 out start count total overflow stream
+    "lsv2_cascade": [_I] * 6 + [_P] * 7 + [_F] + [_P] * 15,
     # wm phi gram n_tiles levels pq raw nrm2 stream
     "lsv2_query_map_tiles": [_P] * 3 + [_I] * 3 + [_P] * 3,
     "lsv2_query_map_tiles_bf16": [_P] * 3 + [_I] * 3 + [_P] * 3,
@@ -107,8 +105,8 @@ ENTRY_POINTS = {
     "lsv2_rgb_bwd": [_P] * 5 + [_I] * 2 + [_P] * 2,
     # out[5]
     "lsv2_rgb_bwd_occupancy": [_P],
-    # in out n mode stream
-    "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P],
+    # in out n mode stats stream
+    "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P, _P],
     # mode cells channels topk out[5]
     "lsv2_blend_occupancy": [_I] * 4 + [_P],
 }

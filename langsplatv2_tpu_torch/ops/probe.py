@@ -9,10 +9,12 @@ f32 against bf16, the question behind K2's bf16 cell math
     acc += m ? e : 1/2;  x += e * step(1e-3)
 in `dtype` (the compares in f32 on the values rounded to dtype, as JAX
 does); the output is acc in f32. On a CUDA tensor `cell_chain` launches
-csrc/probe.cu (f32: a thread an element; bf16: a thread a bf16x2 pair),
-on a CPU tensor it runs `cell_chain_plain`, the same chain in torch ops on
-a `dtype` tensor (XLA's bf16 semantics: each mul and add rounded to bf16,
-exp computed in f32 and rounded).
+csrc/probe.cu (f32: a thread an element; bf16: a thread a bf16x2 pair
+on packed instructions, its exp through ex2.approx where that provably
+rounds as expf does, else expf), on a CPU tensor it runs
+`cell_chain_plain`, the same chain in torch ops on a `dtype` tensor (XLA's
+bf16 semantics: each mul and add rounded to bf16, exp computed in f32 and
+rounded).
 """
 from __future__ import annotations
 
@@ -24,7 +26,14 @@ from . import kernels
 
 REPS = 64
 LIM = float(np.float32(0.999))          # JAX's jnp.float32(0.999)
+# The largest bf16 value not above LIM (the next is 1.0): on bf16 values,
+# f32(v) <= LIM is v <= BF16_LIM and f32(v) >= -LIM is v >= -BF16_LIM, the
+# packed compares of the bf16 kernel.
+BF16_LIM = 0.99609375
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/probe.cu's modes besides DTYPES': 2 the ex2.approx.bf16x2 what-if
+# (not K9's arithmetic), 3 the bf16 form's exp(-s) alone on s pairs.
+WHAT_IF, EXP_ONLY = 2, 3
 
 
 def cell_chain_plain(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -59,9 +68,24 @@ def cell_chain(x, dtype=torch.float32, *, device=None) -> torch.Tensor:
         raise ValueError(f"cell_chain: {n} elements, need an even count")
     out = torch.empty_like(x)
     kernels.launch("lsv2_cell_chain", kernels.ptr(x), kernels.ptr(out), n,
-                   DTYPES[dtype], kernels.stream(x))
+                   DTYPES[dtype], kernels.NULL, kernels.stream(x))
     cell_chain.launches += 1
     return out
 
 
 cell_chain.launches = 0
+
+
+def kernel_mode(x: torch.Tensor, mode: int):
+    """csrc/probe.cu in `mode` on a CUDA tensor x (f32, an even element
+    count), not counted in `launches`: (out, the pairs that fell back to
+    expf: in mode 1 the pairs whose chain ran again with expf, in
+    EXP_ONLY the pairs whose exp did; 0 in modes 0 and WHAT_IF)."""
+    if x.device.type != "cuda":
+        raise ValueError("kernel_mode runs the CUDA kernel only")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    stats = torch.zeros(1, dtype=torch.int64, device=x.device)
+    kernels.launch("lsv2_cell_chain", kernels.ptr(x), kernels.ptr(out),
+                   x.numel(), mode, kernels.ptr(stats), kernels.stream(x))
+    return out, int(stats[0])

@@ -17,8 +17,10 @@ from langsplatv2_tpu_torch.ops import projection
 
 from torch_port_fixtures import (BWD_DARK_TILE, BWD_END_AT, BWD_END_TILE,
                                  CAPPED_DARK_TILE, CAPPED_END_AT,
-                                 CAPPED_END_TILE, GRAM_PATTERNS,
+                                 CAPPED_END_TILE, CASCADE_EDGES,
+                                 CASCADE_FIELDS, GRAM_PATTERNS,
                                  bwd_edge_case, camera, capped_edge_case,
+                                 cascade_budgets, cascade_edge_case,
                                  check_golden_eval, expand_edge_case,
                                  golden_eval, gram_pattern_case,
                                  quick_pairs, scene)
@@ -1160,3 +1162,176 @@ def test_feature_bwd_topk_kernel_edges(cuda, cap, topk, channels):
     zero = zero.reshape(-1)
     assert float(out[zero].abs().max()) == 0.0
     assert float(out[~zero].abs().max()) > 0.0
+
+
+# ------------------------------------------------ K8 and K9 on their edges
+# (tests/torch_port_fixtures.py::cascade_edge_case; the same scenes are held
+# against JAX on the CPU in tests/test_torch_port_cascade_edges.py).
+
+def _cascade_scene(kind: str, dev):
+    c = cascade_edge_case(kind)
+    proj = projection.ProjectedGaussians(
+        *(torch.as_tensor(c[k], device=dev) for k in CASCADE_FIELDS))
+    return c, proj, torch.as_tensor(c["opacities"], device=dev)
+
+
+def _rows_total(c) -> int:
+    alive = c["tiles_touched"] > 0
+    return int((c["rect_max"][:, 1] - c["rect_min"][:, 1])[alive].sum())
+
+
+def _cascade_equal(proj, ops, gx, gy, budget):
+    out = cascade.cascade_binning(proj, ops, gx, gy, budget)
+    ref = cascade.cascade_binning_plain(proj, ops, gx, gy, budget, 255.0)
+    for name, a, b in zip(("g", "start", "count", "total", "overflow"), out,
+                          ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), f"{name} differs at budget {budget}"
+    return out
+
+
+@pytest.mark.parametrize("kind", CASCADE_EDGES)
+def test_cascade_kernel_edges(cuda, kind):
+    """K8 equal to its plain version, every output, at the budget edges of
+    tests/torch_port_fixtures.py::cascade_budgets: overflow at level 0 only
+    ("level0") and at level 1 only ("level1"), grid_x 1 ("column") and
+    1,024 ("widest"), rects wider than the 64 tiles the keep bits cover
+    ("wide", "widest"), rows of exactly 255, 256, 257 and 512 items and
+    1,280 Gaussians ("chunks"), no live Gaussian and none at all."""
+    c, proj, ops = _cascade_scene(kind, cuda)
+    gx, gy = c["grid_x"], c["grid_y"]
+    full = _cascade_equal(proj, ops, gx, gy, 1 << 17)
+    assert not bool(full[4])
+    rows_total = _rows_total(c)
+    budgets = cascade_budgets(kind, rows_total, full[2].cpu().numpy())
+    flags = {b: bool(_cascade_equal(proj, ops, gx, gy, b)[4])
+             for b in budgets}
+    least = max(int(full[3]), rows_total)
+    assert flags[least] is False
+    if kind not in ("dead", "none"):
+        assert flags[least - 1] is True
+    if kind == "level0":
+        assert flags[rows_total - 1] is True
+    if kind == "level1":
+        assert rows_total < int(full[3]) and flags[rows_total] is True
+    if kind in ("wide", "widest"):
+        width = c["rect_max"][:, 0] - c["rect_min"][:, 0]
+        assert (width > 64).any() and int(full[3]) > 0
+
+
+def test_cascade_writes_every_slot(cuda, monkeypatch):
+    """The wrapper allocates its workspace and outputs uninitialised: with
+    every buffer it allocates filled with 0xFF bytes first, K8 must still
+    give every output of the plain version exactly (the ids past the total
+    zero), at a budget with a tail past the total and at one that cuts both
+    levels."""
+    real_empty, made = torch.empty, []
+
+    def poisoned_empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        t.reshape(-1).view(torch.uint8).fill_(0xFF)
+        made.append(t)
+        return t
+
+    for kind in ("chunks", "wide"):
+        c, proj, ops = _cascade_scene(kind, cuda)
+        gx, gy = c["grid_x"], c["grid_y"]
+        full = cascade.cascade_binning(proj, ops, gx, gy, 1 << 17)
+        for budget in (int(full[3]) + 4099, int(full[3]) // 2):
+            made.clear()
+            monkeypatch.setattr(torch, "empty", poisoned_empty)
+            out = cascade.cascade_binning(proj, ops, gx, gy, budget)
+            monkeypatch.undo()
+            assert len(made) == 6, "workspace, g, start, count, total, flag"
+            ref = cascade.cascade_binning_plain(proj, ops, gx, gy, budget,
+                                                255.0)
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+            assert not bool(out[0][int(out[3]):].any())
+
+
+def _device_ops(fn) -> int:
+    """Kernels and memory operations one call of fn puts on the device."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_cascade_launches_a_call(cuda):
+    """One K8 call puts cascade.LAUNCHES operations on the device besides
+    torch.sort's depth sort (the same sort of an int32 key of the same
+    length, profiled alone), and reads nothing back to the host."""
+    proj, ops, gx, gy = _case(cuda)
+    n = proj.depth.shape[0]
+    keys = torch.randint(0, 1 << 30, (n,), dtype=torch.int32, device=cuda)
+    sort_ops = _device_ops(lambda: torch.sort(keys, stable=True))
+    call_ops = _device_ops(lambda: cascade.cascade_binning(
+        proj, ops, gx, gy, 2 ** 17))
+    assert sort_ops > 0
+    assert call_ops - sort_ops == cascade.LAUNCHES, (call_ops, sort_ops)
+
+
+def test_cell_chain_bf16_fallback(cuda):
+    """K9 bf16's exp fallback. Its exp alone (mode EXP_ONLY) on the s in
+    [0, 2) whose expf(-s) lies within 4 f32 steps of a bf16 rounding
+    midpoint (the approximation is within 12 steps of expf, so each takes
+    the fallback), beside s = 1/2, equals torch's bf16 exp and counts a
+    fallback for each. No such s is the bf16 square of a bf16 value, so the
+    chain meets none: there, pairs with a lane whose s passes 2 (x near 3)
+    run the chain again with expf, and the output equals the plain version
+    element for element, in bf16 and in f32."""
+    s = torch.arange(0, 0x4000, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(cuda)
+    low = torch.exp(-s.float()).view(torch.int32) & 0xFFFF
+    near = s[(low - 0x8000).abs() <= 4]
+    assert near.numel() > 0
+    pairs = torch.stack([near, torch.full_like(near, 0.5)], 1).reshape(-1)
+    out, fell_back = probe.kernel_mode(pairs.float(), probe.EXP_ONLY)
+    assert torch.equal(out, torch.exp(-pairs).float())
+    assert fell_back == near.numel()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = 2.9 + 0.4 * torch.rand(3000, generator=gen, device=cuda)
+    small = torch.rand(3000, generator=gen, device=cuda) * 2 - 1
+    x = torch.stack([big, small], 1).reshape(-1)
+    out, fell_back = probe.kernel_mode(x, 1)
+    assert fell_back == 3000
+    ref = probe.cell_chain_plain(x, torch.bfloat16)
+    assert int((out != ref).sum()) == 0
+    assert torch.equal(probe.cell_chain(x, torch.float32),
+                       probe.cell_chain_plain(x, torch.float32))
+
+
+def test_bf16_exp_on_every_bf16_input(cuda):
+    """The bf16 kernel's exp (ex2.approx where it provably rounds as expf
+    does, expf elsewhere) against torch's bf16 exp on every non-negative
+    bf16 s, NaNs and infinity included: equal bit for bit (NaN where
+    torch's is NaN); the fallback is taken for s >= 2 and near
+    midpoints."""
+    s = torch.arange(0, 1 << 15, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(cuda)
+    out, fell_back = probe.kernel_mode(s.float(), probe.EXP_ONLY)
+    want = torch.exp(-s).float()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], want[~nan])
+    outside = (s.float() >= 2) | torch.isnan(s)
+    assert fell_back >= int(outside.reshape(-1, 2).any(1).sum())
+
+
+@pytest.mark.parametrize("n", [2, 2 * 257, 2 * 256 * 3 + 2])
+def test_cell_chain_small_and_ragged(cuda, n):
+    """K9 at n = 2 (one bf16 pair) and at odd pair counts over several
+    256-thread blocks: both forms equal their plain versions element for
+    element."""
+    x = torch.rand(n, generator=torch.Generator().manual_seed(n)) * 2 - 1
+    x = x.to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = probe.cell_chain(x, dtype)
+        ref = probe.cell_chain_plain(x, dtype)
+        assert out.shape == (n,) and int((out != ref).sum()) == 0
+

@@ -99,3 +99,20 @@ def test_cell_chain_matches_jax_kernel(dtype, tmp_path):
     else:
         assert err <= 2 * _bf16_ulp(big), (err, differ)
         assert differ <= ref.size // 100, f"{differ} elements differ"
+
+
+def test_bf16_compare_limits_are_exact():
+    """The bf16 kernel compares packed bf16 values against +-BF16_LIM; over
+    all 65,536 bf16 bit patterns (NaNs, infinities, signed zeros
+    included), f32(v) <= LIM equals v <= BF16_LIM and f32(v) >= -LIM equals
+    v >= -BF16_LIM, BF16_LIM is a bf16 value, and the next bf16 value above
+    it is past LIM."""
+    v = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    lim = torch.tensor(probe.BF16_LIM, dtype=torch.bfloat16)
+    assert float(lim) == probe.BF16_LIM
+    assert bool(((v.float() <= probe.LIM) == (v <= lim)).all())
+    assert bool(((v.float() >= -probe.LIM) == (v >= -lim)).all())
+    above = (torch.tensor(probe.BF16_LIM, dtype=torch.bfloat16).view(
+        torch.int16) + 1).view(torch.bfloat16)
+    assert float(above) > probe.LIM > probe.BF16_LIM

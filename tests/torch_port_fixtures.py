@@ -329,6 +329,121 @@ def expand_edge_case(seed: int = 0, live: bool = True,
         cuts=cuts, grid_x=gx, grid_y=gy)
 
 
+# K8's edges (tests/test_torch_port_cascade_edges.py against JAX on the CPU,
+# tests/test_torch_port_gpu.py the kernel against its plain version):
+# "level0": rects one tile wide, so level 1 keeps at most what level 0 does
+# and only level 0 can run past a budget; "level1": rects one row high and
+# up to 30 wide, so only level 1 can; "wide": rects of 65-90 tiles on a
+# 90 x 3 grid (past the 64 tiles an item's keep bits cover) whose far tiles
+# the cull drops; "widest": a 1,024 x 2 grid, rects up to 1,024 wide;
+# "column": a 1 x 20 grid; "chunks": rows of exactly 256, 255, 257, 512 and
+# 0 items, 1,280 Gaussians in all (the kernel's 256-item chunk edges);
+# "dead": no Gaussian touches a tile; "none": no Gaussian at all. Depths
+# repeat (ties go by id) and a few are negative (the order reads |depth|).
+CASCADE_EDGES = ("level0", "level1", "wide", "widest", "column", "chunks",
+                 "dead", "none")
+CASCADE_FIELDS = ("xy", "depth", "conic", "radius", "rgb", "rect_min",
+                  "rect_max", "tiles_touched")
+
+
+def _cascade_rects(kind: str, rng):
+    """(grid_x, grid_y, rects [n, 4] x0 y0 x1 y1, pixel sigmas [n, 2])."""
+    def spans(n, extent, lo_w, hi_w):
+        w = rng.integers(lo_w, hi_w + 1, n)
+        w = np.minimum(w, extent)
+        x0 = rng.integers(0, extent - w + 1)
+        return x0, x0 + w
+
+    if kind == "level0":
+        gx, gy, n = 6, 10, 300
+        x0 = rng.integers(0, gx, n)
+        y0, y1 = spans(n, gy, 3, 8)
+        r = np.stack([x0, y0, x0 + 1, y1], 1)
+        sig = np.stack([rng.uniform(2, 5, n), rng.uniform(30, 60, n)], 1)
+    elif kind == "level1":
+        gx, gy, n = 40, 4, 200
+        x0, x1 = spans(n, gx, 5, 30)
+        y0 = rng.integers(0, gy, n)
+        r = np.stack([x0, y0, x1, y0 + 1], 1)
+        sig = np.stack([rng.uniform(40, 160, n), rng.uniform(2, 5, n)], 1)
+    elif kind in ("wide", "widest"):
+        gx, gy, n = (90, 3, 60) if kind == "wide" else (1024, 2, 40)
+        x0, x1 = spans(n, gx, 65 if kind == "wide" else 1, gx)
+        y0, y1 = spans(n, gy, 1, gy)
+        r = np.stack([x0, y0, x1, y1], 1)
+        sig = np.stack([rng.uniform(60, 16 * gx / 5, n),
+                        rng.uniform(4, 12, n)], 1)
+    elif kind == "column":
+        gx, gy, n = 1, 20, 150
+        y0, y1 = spans(n, gy, 1, 6)
+        r = np.stack([np.zeros(n, int), y0, np.ones(n, int), y1], 1)
+        sig = rng.uniform(3, 20, (n, 2))
+    elif kind == "chunks":
+        gx, gy = 4, 5
+        y0 = np.repeat(np.arange(5), [256, 255, 257, 512, 0])
+        n = y0.shape[0]
+        x0, x1 = spans(n, gx, 1, 4)
+        r = np.stack([x0, y0, x1, y0 + 1], 1)
+        sig = rng.uniform(3, 30, (n, 2))
+    elif kind in ("dead", "none"):
+        gx, gy, n = 8, 6, 50 if kind == "dead" else 0
+        x0 = rng.integers(0, gx, n)
+        y0 = rng.integers(0, gy, n)
+        r = np.stack([x0, y0, x0, y0 + 1], 1).reshape(n, 4)
+        sig = rng.uniform(3, 20, (n, 2))
+    else:
+        raise ValueError(kind)
+    return gx, gy, r.astype(np.int32), sig
+
+
+def cascade_edge_case(kind: str, seed: int = 0) -> dict:
+    """Projected Gaussians (numpy, as `expand_edge_case`) for K8's edge
+    `kind` (CASCADE_EDGES), with grid_x and grid_y. Centres lie inside the
+    rect, so the cull keeps the centre's tiles and drops far ones."""
+    rng = np.random.default_rng(seed)
+    gx, gy, r, sig = _cascade_rects(kind, rng)
+    n = r.shape[0]
+    tiles = ((r[:, 2] - r[:, 0]) * (r[:, 3] - r[:, 1])).astype(np.int32)
+    lo, hi = r[:, :2] * 16.0, np.maximum(r[:, 2:], r[:, :2] + 1) * 16.0
+    xy = rng.uniform(lo, hi).astype(np.float32).reshape(n, 2)
+    rho = rng.uniform(-0.5, 0.5, n)
+    det = (sig[:, 0] * sig[:, 1]) ** 2 * (1 - rho ** 2)
+    conic = np.stack([sig[:, 1] ** 2 / det,
+                      -rho * sig[:, 0] * sig[:, 1] / det,
+                      sig[:, 0] ** 2 / det], 1).astype(np.float32)
+    depth = (rng.integers(2, 40, n) / 4.0).astype(np.float32)
+    depth[rng.random(n) < 0.05] *= -1.0
+    return dict(
+        xy=xy, depth=depth, conic=conic.reshape(n, 3),
+        radius=np.where(tiles > 0, 8, 0).astype(np.int32),
+        rgb=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        rect_min=np.ascontiguousarray(r[:, :2]),
+        rect_max=np.ascontiguousarray(r[:, 2:]), tiles_touched=tiles,
+        opacities=rng.uniform(0.1, 0.95, n).astype(np.float32),
+        grid_x=gx, grid_y=gy)
+
+
+def cascade_budgets(kind: str, rows_total: int, count_full) -> list:
+    """Budgets at the edges of `kind` from the rows' total (level 0's
+    entries) and the per-tile counts without a budget: the kept total and
+    one below it, the least budget that neither level runs past (the larger
+    of the two totals) and one below it, a tile's segment end and one
+    below it, and for "level0" one below the rows' total and half of it.
+    Each is at least 0."""
+    count_full = np.asarray(count_full).astype(np.int64)
+    ends = np.cumsum(count_full)
+    total = int(ends[-1]) if ends.size else 0
+    mid = int(ends[ends.size // 2]) if ends.size else 0
+    least = max(total, rows_total)
+    budgets = [least + 1000, least, least - 1, total, total - 1, mid,
+               mid - 1]
+    if kind == "level0":
+        budgets += [rows_total - 1, rows_total // 2]
+    elif kind == "level1":
+        budgets += [rows_total, (rows_total + total) // 2]
+    return sorted({max(b, 0) for b in budgets})
+
+
 # K5's windows: kept counts on the batch (32) edges, a window one short of
 # full and a full one, a window whose every pixel ends on entry
 # CAPPED_END_AT, one whose entries 8..31 no pixel includes, and an empty
