@@ -185,7 +185,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    grid among runs of zero-tile Gaussians, max_entries past the total,
    cutting a whole-grid rect mid-rect and on a block edge), both modes
    against the plain version (entries equal, with_alpha 2's lm within 2
-   f32 ulps, words equal), timed.
+   f32 ulps, words equal), timed;
+21. training from a scene directory: a COLMAP scene written to
+   build/chip_smoke_scene (scripts/profile_train.py's 300,000 points and
+   colours, 8 PINHOLE cameras on a yaw arc at 544x960, seeded PNG images,
+   phase 7's GT files) trained in process through
+   langsplatv2_tpu_torch.train.cli's main with the default device: the
+   geometry phase (24 iterations, accum_iter 2), feature phases from its
+   checkpoint with the k-means codebooks (--cos_loss --topk 4): 24
+   iterations, 24 at cam_batch 4, 16 at cam_batch 4 capped (budget
+   1e-6), 8 in pixel space (l1, normalize, accum_iter 2), and a resume of
+   the cam_batch run for 4 more; each run's launch counts (zeroed just
+   before, read just after; the kernels of its route above 0, the others
+   0), finite losses that fall over 8 cameras (runs of 16 iterations or
+   more), no expansion at max_entries, step times, scene load and k-means
+   times, no fresh moments on the resume; then the trained model saved as
+   a reference .pth and read back, its quick frame bit-equal to the .npz
+   model's, the checkpoints' save and load times.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -374,6 +390,16 @@ MANY_PQ_WRAPPERS = {"K3": query.query_map_tiles,
                "K2q": blend.blend_tiles_query}
 SMALL_K, SMALL_K_ITERS = 32, 4
 SMALL_K_WRAPPERS = {"K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
+# Phase 21: training from a scene directory through the CLI, at phase 7's
+# width (300,000 points, 544x960, L = 1, K = 64, top-4) with 8 cameras on
+# a yaw arc. create_from_pcd's 3-NN scales make the Gaussians wider than
+# phase 7's, hence the larger entry budget.
+SCENE_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                  "K4": train.feature_grads, "K5": train.feature_grads_topk,
+                  "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd,
+                  "K7": rgb_train.rgb_grads}
+SCENE_YAW_DEG = tuple(-7.0 + 2.0 * i for i in range(8))
+SCENE_MAX_ENTRIES = 2 ** 23
 SERVE_LOAD = "986x728"                 # the server's load (bench.py:1013)
 SERVE_REQUESTS = 24
 REUSE_PX = 4.0
@@ -903,20 +929,21 @@ def train_scene(n: int, seed: int, dev, k: int = TRAIN_K):
     return init_language_features(model, 1, k, generator=gen), rng
 
 
-def write_gt(rng, prefix: str, n_cams: int, h: int, w: int, cell: int = 48):
+def write_gt(rng, prefix: str, n_cams: int, h: int, w: int, cell: int = 48,
+             out_dir: str = GT_DIR):
     """A TRAIN_S x 512 segment table and, per camera, a segment map of
     cell x cell blocks with ~5% of pixels at -1, as <name>_f.npy and
-    <name>_s.npy (all 4 SAM levels alike) under GT_DIR."""
-    os.makedirs(GT_DIR, exist_ok=True)
+    <name>_s.npy (all 4 SAM levels alike) under `out_dir`."""
+    os.makedirs(out_dir, exist_ok=True)
     table = rng.normal(size=(TRAIN_S, 512)).astype(np.float32)
     for i in range(n_cams):
         ids = rng.integers(0, TRAIN_S, (-(-h // cell), -(-w // cell)))
         seg = np.repeat(np.repeat(ids, cell, 0), cell, 1)[:h, :w]
         seg = seg.astype(np.int32)
         seg[rng.uniform(size=(h, w)) < 0.05] = -1
-        np.save(os.path.join(GT_DIR, f"{prefix}{i}_s.npy"),
+        np.save(os.path.join(out_dir, f"{prefix}{i}_s.npy"),
                 np.broadcast_to(seg, (4, h, w)))
-        np.save(os.path.join(GT_DIR, f"{prefix}{i}_f.npy"), table)
+        np.save(os.path.join(out_dir, f"{prefix}{i}_f.npy"), table)
 
 
 def train_cameras(prefix: str, yaws, h: int, w: int, images=None) -> list:
@@ -3902,6 +3929,203 @@ def k1_edge_shapes(dev) -> dict:
     return r
 
 
+def write_scene_dir(root: Path, h: int = TRAIN_H, w: int = TRAIN_W) -> None:
+    """Phase 21's scene directory: COLMAP sparse/0 (binary) with
+    scripts/profile_train.py's 300,000 points and colours (its draws in its
+    order), 8 PINHOLE cameras on a yaw arc (60 degrees vertical field of
+    view, centres off the origin), one seeded U(0, 1) PNG a camera at its
+    native size, and language_features/<image>_{s,f}.npy as write_gt
+    builds them."""
+    from PIL import Image
+
+    from langsplatv2_tpu_torch.scene import colmap
+
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-4, 4, (TRAIN_N, 2)),
+                          rng.uniform(2.0, 12.0, (TRAIN_N, 1))], 1)
+    cols = rng.uniform(0, 1, (TRAIN_N, 3))
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    focal = h / (2 * math.tan(math.radians(60) / 2))
+    colmap.write_intrinsics_binary(str(sparse / "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", w, h,
+                               np.array([focal, focal, w / 2, h / 2]))})
+    # images.bin holds world-to-camera rotations: a camera turned by t about
+    # y has the quaternion of a turn by -t.
+    colmap.write_extrinsics_binary(str(sparse / "images.bin"), {
+        i + 1: colmap.ColmapImage(
+            i + 1, np.array([math.cos(math.radians(-deg) / 2), 0.0,
+                             math.sin(math.radians(-deg) / 2), 0.0]),
+            np.array([0.05, -0.03, 0.1]), 1, f"cam{i}.png")
+        for i, deg in enumerate(SCENE_YAW_DEG)})
+    colmap.write_points3d_binary(str(sparse / "points3D.bin"), pts, cols)
+    (root / "images").mkdir()
+    for i in range(len(SCENE_YAW_DEG)):
+        Image.fromarray((rng.uniform(size=(h, w, 3)) * 255).astype(
+            np.uint8)).save(root / "images" / f"cam{i}.png")
+    write_gt(rng, "cam", len(SCENE_YAW_DEG), h, w,
+             out_dir=str(root / "language_features"))
+
+
+def scene_dir_path(dev, smi: str) -> dict:
+    """Phase 21: train both phases from a scene directory through
+    `python -m langsplatv2_tpu_torch.train.cli`'s main, in process on the
+    card: the geometry phase (24 iterations, accum_iter 2), then feature
+    phases from its checkpoint (k-means codebooks, --cos_loss --topk 4):
+    (a) 24 iterations, (b) 24 at cam_batch 4, (c) 16 at cam_batch 4 on
+    the capped route, (d) 8 in pixel space (l1, normalize, accum_iter 2),
+    and (b) resumed for 4 more; each run's launch counts, losses and step
+    times. Then the trained model as a reference .pth: read back, its
+    quick frame (render(include_feature=True)) bit-equal to the .npz
+    model's."""
+    import io as pyio
+    import shutil
+
+    from langsplatv2_tpu_torch.models import io as mio
+    from langsplatv2_tpu_torch.models.torch_interop import \
+        save_torch_checkpoint
+    from langsplatv2_tpu_torch.train import cli
+
+    root = Path("build") / "chip_smoke_scene"
+    shutil.rmtree(root, ignore_errors=True)
+    scene, out = root / "scene", root / "out"
+    t0 = time.perf_counter()
+    write_scene_dir(scene)
+    write_s = time.perf_counter() - t0
+    base = ["-s", str(scene), "--max_entries", str(SCENE_MAX_ENTRIES)]
+    feature = ["--include_feature", "--start_checkpoint",
+               str(out / "g_-1" / "chkpnt24.npz"), "--feature_level", "1",
+               "--cos_loss", "--topk", "4"]
+    runs = [
+        ("geometry", ["-m", str(out / "g"), "--iterations", "24",
+                      "--accum_iter", "2"], 1,
+         ("K1", "K2", "K7"), ("K4", "K5", "K6a", "K6b")),
+        ("a", ["-m", str(out / "a"), *feature, "--iterations", "24"], 1,
+         ("K1", "K2", "K4", "K6a", "K6b"), ("K5", "K7")),
+        ("b", ["-m", str(out / "b"), *feature, "--iterations", "24",
+               "--cam_batch", "4"], 4,
+         ("K1", "K2", "K4", "K6a", "K6b"), ("K5", "K7")),
+        ("c", ["-m", str(out / "c"), *feature, "--iterations", "16",
+               "--cam_batch", "4", "--tile_budget", "1e-6"], 4,
+         ("K1", "K2", "K5", "K6a", "K6b"), ("K4", "K7")),
+        ("d", ["-m", str(out / "d"), *feature, "--iterations", "8",
+               "--l1_loss", "--normalize", "--accum_iter", "2"], 1,
+         ("K1", "K2", "K4"), ("K5", "K6a", "K6b", "K7")),
+        ("b resumed", ["-m", str(out / "b"), "--include_feature",
+                       "--start_checkpoint",
+                       str(out / "b_1" / "chkpnt24.npz"), "--feature_level",
+                       "1", "--cos_loss", "--topk", "4", "--iterations",
+                       "28", "--cam_batch", "4"], 4,
+         ("K1", "K2", "K4", "K6a", "K6b"), ("K5", "K7")),
+    ]
+    res = {"scene_write_s": write_s, "runs": {}}
+    for name, argv, group, launched, idle in runs:
+        zero_counts(SCENE_WRAPPERS)
+        captured = pyio.StringIO()
+        stdout, sys.stdout = sys.stdout, captured
+        t0 = time.perf_counter()
+        try:
+            summary = cli.main(base + argv)
+        finally:
+            sys.stdout = stdout
+        wall = time.perf_counter() - t0
+        launches = read_counts(SCENE_WRAPPERS)
+        it_ms = summary["iteration_ms"]
+        steps = [sum(it_ms[i:i + group]) for i in range(0, len(it_ms), group)]
+        r = dict(first_iter=summary["first_iter"],
+                 last_iter=summary["last_iter"], wall_s=wall,
+                 scene_s=summary["scene_s"], kmeans_s=summary["kmeans_s"],
+                 losses=summary["losses"], step_ms=steps,
+                 step_ms_median=statistics.median(steps),
+                 ms_per_camera=statistics.median(steps) / group,
+                 launches=launches, live_budget=summary["live_budget"],
+                 exp_budget=summary["exp_budget"],
+                 total_entries_max=max(summary["total_entries"]),
+                 output=captured.getvalue().splitlines())
+        res["runs"][name] = r
+        losses = r["losses"]
+        log(f"phase 21 {name}: iterations {r['first_iter'] + 1}.."
+            f"{r['last_iter']}, median step {r['step_ms_median']:.3f} ms "
+            f"({group} camera(s) a step, {r['ms_per_camera']:.3f} ms a "
+            f"camera), loss first {losses[0]!r} last {losses[-1]!r}, scene "
+            f"load {r['scene_s']:.3f} s, k-means "
+            + ("-" if r["kmeans_s"] is None else f"{r['kmeans_s']:.3f} s")
+            + f", {wall:.1f} s in all; launches {launches} ({smi})")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"phase 21 {name}: non-finite loss {losses}")
+        if any(launches[k] == 0 for k in launched) or any(
+                launches[k] for k in idle):
+            fail(f"phase 21 {name}: launches {launches}, expected "
+                 f"{launched} and none of {idle}")
+        if max(summary["total_entries"]) >= SCENE_MAX_ENTRIES:
+            fail(f"phase 21 {name}: the expansion reached max_entries")
+        if len(losses) >= 16 and not (statistics.mean(losses[-8:])
+                                      < statistics.mean(losses[:8])):
+            # Eight cameras: the first and the last eight iterations each
+            # see every camera once.
+            fail(f"phase 21 {name}: the loss did not fall: {losses}")
+    resumed = res["runs"]["b resumed"]
+    if resumed["first_iter"] != 24 or any(
+            "resuming with fresh moments" in line
+            for line in resumed["output"]):
+        fail("phase 21: the resume did not restore its Adam moments")
+    if res["runs"]["a"]["kmeans_s"] is None:
+        fail("phase 21: no k-means codebooks")
+    res["launches"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                       for k in SCENE_WRAPPERS}
+
+    npz = out / "b_1" / "chkpnt28.npz"
+    pth = root / "chkpnt28.pth"
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        v = fn()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t
+
+    (model_n, it_n), load_npz_s = timed(
+        lambda: mio.load_checkpoint_auto(str(npz), device=dev))
+    _, save_npz_s = timed(lambda: mio.save_checkpoint(
+        str(root / "resaved.npz"), model_n, None, it_n))
+    _, save_pth_s = timed(lambda: save_torch_checkpoint(str(pth), model_n,
+                                                        it_n))
+    (model_t, it_t), load_pth_s = timed(
+        lambda: mio.load_checkpoint_auto(str(pth), device=dev))
+    cam = train_cameras("cam", (0.0,), TRAIN_H, TRAIN_W)[0]
+    s = make_settings(cam, model_n.active_sh_degree, 1.0, SCENE_MAX_ENTRIES)
+    frames = []
+    with torch.no_grad():
+        for m in (model_t, model_n):
+            frames.append(render(
+                s, m, cam.world_view_transform, cam.full_proj_transform,
+                cam.camera_center, np.zeros(3, np.float32),
+                include_feature=True, topk=TRAIN_TOPK, device=dev))
+    (ft, fn) = frames
+    equal = all(torch.equal(a, b) for a, b in (
+        (ft.render, fn.render),
+        (ft.language_feature_weight_map, fn.language_feature_weight_map),
+        (ft.final_transmittance, fn.final_transmittance)))
+    res["checkpoint"] = dict(
+        iteration=it_n, npz_capacity=model_n.capacity,
+        pth_capacity=model_t.capacity, load_npz_s=load_npz_s,
+        save_npz_s=save_npz_s, save_pth_s=save_pth_s, load_pth_s=load_pth_s,
+        frames_equal=equal, frame_total_entries=int(fn.total_entries))
+    log(f"phase 21 checkpoint (iteration {it_n}): .npz save "
+        f"{save_npz_s:.3f} s, load {load_npz_s:.3f} s; reference .pth save "
+        f"{save_pth_s:.3f} s, load {load_pth_s:.3f} s; quick frame from the "
+        f".pth model (capacity {model_t.capacity}) equal to the .npz "
+        f"model's ({model_n.capacity}): {equal}; launches over the phase "
+        f"{res['launches']} ({smi})")
+    if it_t != it_n or not equal:
+        fail("phase 21: the .pth model's frame differs from the .npz one's")
+    if int(fn.total_entries) >= SCENE_MAX_ENTRIES or not bool(
+            torch.isfinite(fn.language_feature_weight_map).all()):
+        fail("phase 21: the checkpoint frame saturated or is not finite")
+    del model_n, model_t, frames, ft, fn
+    return res
+
+
 def phase20_kernel_rows(p20s, p20t) -> dict:
     """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
     (1080p), K6a and K6b at K = 32 (a feature step)."""
@@ -3999,6 +4223,9 @@ def main() -> None:
     p20t = small_k_training(dev)
     probe_res = cell_probe(dev)
     eval_res = eval_path(dev)
+    torch.cuda.empty_cache()
+    scene_res = scene_dir_path(dev, smi)
+    torch.cuda.empty_cache()
     new_rows = {**new_kernel_rows(lmc, probe_res),
                 **phase20_kernel_rows(p20s, p20t)}
 
@@ -4106,7 +4333,7 @@ def main() -> None:
                        frame_traces=traces,
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res, many_prompts_serving=p20s,
-                       small_k_training=p20t),
+                       small_k_training=p20t, scene_dir_training=scene_res),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

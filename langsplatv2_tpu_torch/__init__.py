@@ -13,9 +13,12 @@ the same K1/K2 forward, the fused Gram-space loss (K6a forward, K6b
 backward), the W-replay feature backward (K4) and Adam; the geometry
 (RGB) phase (K7); capped feature training (K5) and fast16 serving; and the
 render server (`serve/`) with temporal binning reuse (`ops/temporal.py`)
-and the fused Gram-query frame (K2's query mode, K2q). Kernels are built from `csrc/` with nvcc at first use
-(`ops/kernels.py`); on CPU tensors every kernel wrapper runs its plain
-PyTorch version instead.
+and the fused Gram-query frame (K2's query mode, K2q); and training a
+scene from its directory (`train/cli.py`: the scene loaders, the
+reference's `.pth` checkpoints, k-means codebooks, both phases with
+gradient accumulation, camera batches and the pixel-space loss). Kernels
+are built from `csrc/` with nvcc at first use (`ops/kernels.py`); on CPU
+tensors every kernel wrapper runs its plain PyTorch version instead.
 
 Entry points take `device=`; they run on "cuda" unless the caller passes
 `device="cpu"`, and raise when CUDA is asked for but absent.

@@ -1,5 +1,5 @@
 """Model persistence: 3DGS PLY export/import and full checkpoints
-(port of langsplatv2_tpu/models/io.py:26-130, 171-185).
+(port of langsplatv2_tpu/models/io.py).
 
 - PLY in the reference schema (scene/gaussian_model.py:269-350): x y z,
   nx ny nz, f_dc_*, f_rest_* channel-major, opacity, scale_*, rot_*.
@@ -166,3 +166,26 @@ def load_optimizer_state(path: str, optimizer: torch.optim.Optimizer) -> None:
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": torch.from_numpy(mu).to(p.device),
             "exp_avg_sq": torch.from_numpy(nu).to(p.device)}
+
+
+def load_checkpoint_auto(path: str, sh_degree: int = 3,
+                         device=None) -> tuple[GaussianModel, int]:
+    """Restore the model part of a checkpoint without an optimizer:
+    ``.pth`` / ``.pt`` is the reference's capture tuple, anything else the
+    `.npz` format. Returns (model, iteration)."""
+    if path.endswith((".pth", ".pt")):
+        from .torch_interop import load_torch_checkpoint
+        model, iteration, _ = load_torch_checkpoint(
+            path, max_sh_degree=sh_degree, device=device)
+        return model, iteration
+    return load_checkpoint(path, device=device)
+
+
+def resolve_checkpoint(dirpath: str, iteration: int) -> str:
+    """``chkpnt<iteration>`` in a model directory: the `.npz` first, then
+    the reference's `.pth` / `.pt`; the `.npz` path when none exists."""
+    for ext in (".npz", ".pth", ".pt"):
+        p = os.path.join(dirpath, f"chkpnt{iteration}{ext}")
+        if os.path.exists(p):
+            return p
+    return os.path.join(dirpath, f"chkpnt{iteration}.npz")

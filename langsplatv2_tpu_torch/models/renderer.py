@@ -7,9 +7,11 @@ model's top-k (weight, index) pairs from its logits, blended to an
 L*K-channel map that is differentiable in the weights), and RGB only, with
 SH colours: the geometry phase's mode, differentiable in the model's six
 RGB fields and in the `means2d_dummy` carrier (the JAX package's stand-in
-for torch's retain_grad on the screen-space means). The Python-side
-covariance belongs to a later slice and raises; override colours and
-Python-side SH are not ported yet.
+for torch's retain_grad on the screen-space means). `precomputed_quick`
+hands the training mode its (weight, index) pairs, so that a camera batch
+runs the top-k forward and backward once for all its cameras. The
+Python-side covariance belongs to a later slice and raises; override
+colours and Python-side SH are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
            projmatrix, campos, bg_color, *, include_feature: bool = False,
            quick_render: bool = False, topk: int = 4,
            compute_cov3d_python: bool = False, means2d_dummy=None,
-           device=None, stage_events: list | None = None) -> RenderOutput:
+           precomputed_quick: tuple | None = None, device=None,
+           stage_events: list | None = None) -> RenderOutput:
     if compute_cov3d_python:
         raise NotImplementedError(
             "compute_cov3d_python belongs to a later slice of the port: the "
@@ -71,7 +74,9 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
         quick_weights, quick_indices = model.quick_weights, model.quick_indices
         quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
     elif include_feature:
-        quick_weights, quick_indices = model.get_weights_and_indices(topk)
+        quick_weights, quick_indices = (
+            model.get_weights_and_indices(topk) if precomputed_quick is None
+            else precomputed_quick)
         quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
         quick_train = True
 

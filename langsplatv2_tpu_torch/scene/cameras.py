@@ -1,13 +1,15 @@
-"""Camera objects and the compact language-feature ground truth
-(port of langsplatv2_tpu/scene/cameras.py:24-66, 109-138).
+"""Camera objects and the language-feature ground truth
+(port of langsplatv2_tpu/scene/cameras.py:24-138).
 
 Host-side numpy, as in the JAX package: the transposed world-view and
 full-projection matrices (the row-vector convention the rasterizer reads),
-the camera centre, and `get_language_feature_compact`, which reads
-`<name>_s.npy` [4, h, w] and `<name>_f.npy` [S, 512]. Segment maps of
-another size are resized with `resize_nearest`, numpy written to OpenCV's
-INTER_NEAREST index rule (the machine with the card has no cv2). The
-per-pixel `get_language_feature` and `MiniCam` are later work.
+the camera centre, and the ground truth of SAM level `feature_level` from
+`<name>_s.npy` [4, h, w] and `<name>_f.npy` [S, 512]: compact (the
+segment table and map, `get_language_feature_compact`) or per pixel
+([512, H, W] and its mask, `get_language_feature`, through the port's
+native loader when it is built). Segment maps of another size are resized
+with `resize_nearest`, numpy written to OpenCV's INTER_NEAREST index rule
+(the machine with the card has no cv2). `MiniCam` is later work.
 """
 from __future__ import annotations
 
@@ -80,6 +82,31 @@ class Camera:
     @property
     def tanfovy(self) -> float:
         return math.tan(self.FoVy * 0.5)
+
+    def get_language_feature(self, language_feature_dir: str,
+                             feature_level: int):
+        """(features [512, H, W] f32, mask [1, H, W] bool): each pixel's
+        segment row, -1 masked (its row wraps to the last, as numpy's
+        indexing and the native loader do)."""
+        if not 0 <= feature_level <= 3:
+            raise ValueError(f"feature_level={feature_level}")
+        base = os.path.join(language_feature_dir, self.image_name)
+        from .. import native
+
+        out = native.load_language_feature(
+            base + "_s.npy", base + "_f.npy", feature_level,
+            self.image_height, self.image_width)
+        if out is not None:
+            return out
+        seg_map = np.load(base + "_s.npy")
+        feature_map = np.load(base + "_f.npy")
+        H, W = self.image_height, self.image_width
+        seg = seg_map[feature_level]
+        if seg.shape != (H, W):
+            seg = resize_nearest(seg, W, H)
+        seg = seg.astype(np.int64)
+        feat = np.transpose(feature_map[seg], (2, 0, 1)).astype(np.float32)
+        return feat, (seg != -1)[None]
 
     def get_language_feature_compact(self, language_feature_dir: str,
                                      feature_level: int):

@@ -1,2 +1,2 @@
-"""Training (port of langsplatv2_tpu/train/): the feature phase, exact
-route."""
+"""Training (port of langsplatv2_tpu/train/ and scripts/train.py): both
+phases, the flag groups and the command line."""

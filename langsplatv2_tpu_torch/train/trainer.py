@@ -1,6 +1,5 @@
-"""Training loops (port of langsplatv2_tpu/train/trainer.py:28-137,
-220-465, 549-605, 634-1056): the geometry (RGB) phase and the feature
-phase on its exact route.
+"""Training loops (port of langsplatv2_tpu/train/trainer.py): the geometry
+(RGB) phase and the feature phase.
 
 Geometry phase, `train_rgb` (reference train.py:114-267): the six RGB
 fields trained against the camera images with (1 - l) L1 + l (1 - SSIM):
@@ -16,11 +15,17 @@ fields trained against the camera images with (1 - l) L1 + l (1 - SSIM):
 
 The step updates the model in place (parameters by Adam, densification
 statistics by `add_densification_stats`); densification and the opacity
-reset return a new model and rebind the optimizer to its tensors.
+reset return a new model and rebind the optimizer to its tensors. With
+`accum_iter` > 1 the gradients of the live rows and the means2D carrier's
+are summed in a carry (`init_rgb_accum`) that Adam applies every
+accum_iter-th iteration; the densification statistics read the running
+carrier sum, and densification grows and zeroes the carry's rows as it
+does the Adam moments. The xyz schedule then reads the true iteration.
 
 Feature phase, `train_features`: geometry frozen, the language logits and
-codebooks trained against the compact GT (segment table + segment map)
-with the cosine loss in Gram space:
+codebooks trained against the camera's ground truth. The cosine-only
+configuration runs the loss in Gram space on the compact GT (segment
+table + segment map):
 
     render(include_feature=True)  preprocess -> K1 -> sort -> live-prefix
                                   clamp -> K2 quick [T, 256, L*K] map
@@ -28,6 +33,15 @@ with the cosine loss in Gram space:
     backward of the blend         K4 W-replay -> top-k projection ->
                                   index_add_ to d(quick_weights) -> logits
     Adam                          torch.optim.Adam, two named groups
+
+With l1 or normalize the loss is in pixel space (trainer.py:408-421): the
+assembled map decoded by `compute_layer_feature_map` up to the curriculum
+layer, optionally normalized, and `cos_loss` / `l1_loss` under the mask of
+the dense [512, H, W] GT (`Camera.get_language_feature`), on the same
+render and backward kernels; there is no dense kernel. The normalize
+divides by torch's norm, whose gradient at a zero vector is 0 where JAX's
+is NaN (a valid GT pixel no Gaussian covers), so the port stays finite
+where the JAX package's parameters turn NaN.
 
 With tile_budget > 0 (the default of scripts/train.sh) and a top-k width of
 at most 4, the step takes the budget-capped route instead: K1 -> sort ->
@@ -41,7 +55,15 @@ its grow-and-redo guard; on the capped route, the expansion budget
 (max_entries) per camera signature sized from the first step instead. Where
 the JAX step rolls the model back after an overflowing step, the port
 decides before the backward and the optimizer step (the forward already
-returns live_total and total_entries), so nothing is rolled back.
+returns live_total and total_entries), so nothing is rolled back and no
+gradient of a redone step is ever added. With `accum_iter` > 1 the
+gradients sum in `.grad` and Adam steps every accum_iter-th iteration, never
+on the last. `cam_batch` > 1 (Gram loss only) runs groups of cameras as
+one step (`make_feature_group_step`): the top-k pairs once a group, each
+camera's render and loss, the group's budget decision, then one backward
+over the cameras (K4 or K5 a camera, their d(quick_weights) summed), one
+top-k backward and one Adam step; groups end on absolute multiples of
+cam_batch and split at layer changes and `align_iterations`, as in JAX.
 The port reports live_total for any top-k width; the JAX package reports it
 (and clamps) only where its packed rows fit (L*topk <= 4), so at wider
 codes the two keep different budgets with the same results.
@@ -52,9 +74,7 @@ total is clamped to the budget, so an overflowing camera is truncated
 without a redo. The port accepts only a total below the budget and grows
 and redoes otherwise (ROADMAP.md Queue 3).
 
-Not ported yet, and raising NotImplementedError: camera batches
-(`cam_batch > 1`), gradient accumulation (`accum_iter > 1`, both phases),
-the pixel-space feature loss (l1 / normalize) and the viewer
+Not ported yet, and raising NotImplementedError: the viewer
 (`gui_source_path`).
 """
 from __future__ import annotations
@@ -96,15 +116,22 @@ def rgb_params(model: GaussianModel) -> dict:
             for k in RGB_PARAM_NAMES}
 
 
-def make_rgb_optimizer(opt, model: GaussianModel) -> torch.optim.Adam:
+def make_rgb_optimizer(opt, model: GaussianModel,
+                       accum_iter: int = 1) -> torch.optim.Adam:
     """Six groups with the reference rates (gaussian_model.py:244-257); the
-    xyz rate follows expon_lr_func scaled by the model's spatial_lr_scale."""
+    xyz rate follows expon_lr_func scaled by the model's spatial_lr_scale,
+    at the true iteration: update u (1-based) happens at iteration
+    u * accum_iter."""
     scale = model.spatial_lr_scale
-    xyz_schedule = expon_lr_func(
+    schedule = expon_lr_func(
         lr_init=opt.position_lr_init * scale,
         lr_final=opt.position_lr_final * scale,
         lr_delay_mult=opt.position_lr_delay_mult,
         max_steps=opt.position_lr_max_steps)
+
+    def xyz_schedule(update: int) -> float:
+        return schedule(update * accum_iter)
+
     rates = {"xyz": xyz_schedule, "features_dc": opt.feature_lr,
              "features_rest": opt.feature_lr / 20.0,
              "opacity": opt.opacity_lr, "scaling": opt.scaling_lr,
@@ -129,15 +156,29 @@ def make_feature_optimizer(opt, model: GaussianModel) -> torch.optim.Adam:
 
 # ------------------------------------------------------- the geometry step
 
+def init_rgb_accum(model: GaussianModel) -> dict:
+    """The geometry phase's accumulation carry: zero gradients of the six
+    fields and of the means2D carrier [C, 2]."""
+    return {"grads": {k: torch.zeros_like(getattr(model, k))
+                      for k in RGB_PARAM_NAMES},
+            "means2d": torch.zeros((model.capacity, 2),
+                                   device=model.xyz.device)}
+
+
 def rgb_step(settings, optimizer: torch.optim.Optimizer, lambda_dssim: float,
-             model, view, proj, campos, bg, gt_image, device=None) -> dict:
+             model, view, proj, campos, bg, gt_image, device=None,
+             accum: dict | None = None, do_update: bool = True) -> dict:
     """One geometry step: render in RGB mode with a zero means2D carrier,
     the loss (1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM), the backward,
     the gradients of dead (padding) rows hard-zeroed (masked branches can
     carry NaN there: a dead row's depth is 0), the scheduled rates, Adam,
     and the densification statistics of the visible Gaussians. The model
     is updated in place; the gradients stay in `.grad`. Returns the
-    step's metrics."""
+    step's metrics.
+
+    With an `accum` carry (init_rgb_accum) the step's gradients are added
+    to it and Adam applies the carry's sums, then zeroes it, only when
+    `do_update`; the statistics read the carrier's running sum."""
     dummy = torch.zeros((model.capacity, 2), device=model.xyz.device,
                         requires_grad=True)
     out = render(settings, model, view, proj, campos, bg,
@@ -151,27 +192,50 @@ def rgb_step(settings, optimizer: torch.optim.Optimizer, lambda_dssim: float,
     for name in RGB_PARAM_NAMES:
         g = getattr(model, name).grad
         g.masked_fill_(dead.reshape((-1,) + (1,) * (g.dim() - 1)), 0.0)
-    set_scheduled_lrs(optimizer)
-    optimizer.step()
+    means2d = dummy.grad
+    if accum is not None:
+        with torch.no_grad():
+            for name in RGB_PARAM_NAMES:
+                acc = accum["grads"][name]
+                acc += getattr(model, name).grad
+                if do_update:
+                    getattr(model, name).grad.copy_(acc)
+            accum["means2d"] += dummy.grad
+            means2d = accum["means2d"].clone()
+    if accum is None or do_update:
+        set_scheduled_lrs(optimizer)
+        optimizer.step()
+        if accum is not None:
+            for t in (*accum["grads"].values(), accum["means2d"]):
+                t.zero_()
     vis = out.visibility_filter
     with torch.no_grad():
         model.max_radii2d.copy_(torch.where(
             vis, torch.maximum(model.max_radii2d, out.radii.float()),
             model.max_radii2d))
-    gm.add_densification_stats(model, dummy.grad, vis)
+    gm.add_densification_stats(model, means2d, vis)
     return {"loss": loss.detach(), "l1": l1.detach(),
             "num_visible": vis.sum(), "max_tile_count": out.max_tile_count,
             "total_entries": out.total_entries, "means2d_grad": dummy.grad}
 
 
+def _carry_rows(carry, fn):
+    """Replace every tensor t of the accumulation carry by fn(t)."""
+    if carry is not None:
+        carry["grads"] = {k: fn(v) for k, v in carry["grads"].items()}
+        carry["means2d"] = fn(carry["means2d"])
+
+
 def run_densify(model: GaussianModel, optimizer: torch.optim.Optimizer,
                 generator: torch.Generator, opt, extent: float,
-                max_screen_size: float) -> GaussianModel:
+                max_screen_size: float,
+                carry: dict | None = None) -> GaussianModel:
     """One densification round with capacity growth on overflow (the
     capacity grows to max(C + overflow, 1.5 C), rounded up to 256, and the
     round is redone), the Adam moments of reused slots zeroed and the
     optimizer rebound to the new model's tensors. The split noise comes
-    from `generator`, one draw per attempt."""
+    from `generator`, one draw per attempt. The tensors of `carry` (the
+    accumulation carry) get the moments' row surgery in place."""
     while True:
         eps = torch.randn((2, model.capacity, 3), generator=generator,
                           device=generator.device).to(model.xyz.device)
@@ -184,11 +248,14 @@ def run_densify(model: GaussianModel, optimizer: torch.optim.Optimizer,
         if overflow == 0:
             zero_moment_rows(optimizer, placed)
             rebind(optimizer, rgb_params(new_model))
+            _carry_rows(carry, lambda t: t.masked_fill(
+                placed.reshape((-1,) + (1,) * (t.dim() - 1)), 0.0))
             return new_model
         old_cap = model.capacity
-        new_cap = max(old_cap + overflow, int(old_cap * 1.5))
-        model = gm.grow_capacity(model, -(-new_cap // 256) * 256)
+        new_cap = -(-max(old_cap + overflow, int(old_cap * 1.5)) // 256) * 256
+        model = gm.grow_capacity(model, new_cap)
         rebind(optimizer, rgb_params(model))
+        _carry_rows(carry, lambda t: gm._pad(t, new_cap))
 
 
 def apply_opacity_reset(model: GaussianModel,
@@ -263,45 +330,137 @@ def _gram_cos_core(codebooks, w, seg_flat, hw: int, lay: int, *, eps: float,
     return 1.0 - sim.sum() / hw
 
 
-# ---------------------------------------------------------------- the step
+# ---------------------------------------------------------------- the steps
+
+def pixel_loss(model, weight_map, gt_feature, feature_mask, layer_idx: int,
+               use_cos_loss: bool, use_l1_loss: bool, normalize: bool):
+    """The reference's pixel-space feature loss (train.py:146-167): the
+    [L*K, H, W] map decoded up to `layer_idx`, optionally normalized per
+    pixel, against the [512, H, W] GT under its mask. Returns (loss,
+    l1)."""
+    feat = model.compute_layer_feature_map(weight_map, layer_idx)
+    if normalize:
+        feat = feat / (torch.linalg.norm(feat, dim=0, keepdim=True) + 1e-10)
+    mask = feature_mask.to(feat.dtype)
+    pred, gt = feat * mask, gt_feature * mask
+    loss = torch.zeros((), device=feat.device)
+    l1 = torch.zeros((), device=feat.device)
+    if use_cos_loss:
+        loss = loss + losses.cos_loss(pred, gt)
+    if use_l1_loss:
+        l1 = losses.l1_loss(pred, gt)
+        loss = loss + l1
+    return loss, l1
+
+
+def _apply(model, optimizer, do_update: bool, accumulate: bool) -> None:
+    """After a step's backward: zero the logits' gradient on dead rows,
+    then step Adam when `do_update` (the gradients accumulated since the
+    last update when `accumulate`, which are then cleared)."""
+    model.language_logits.grad.masked_fill_(~model.live[:, None], 0.0)
+    if do_update:
+        optimizer.step()
+        if accumulate:
+            optimizer.zero_grad(set_to_none=False)
+
 
 def make_feature_train_step(settings, optimizer: torch.optim.Optimizer,
-                            topk: int):
-    """The feature step on the exact route with the cosine loss in Gram
-    space: the map stays in tile layout and the fused Gram loss (K6a/K6b)
-    reads it.
+                            topk: int, use_cos_loss: bool = True,
+                            use_l1_loss: bool = False,
+                            normalize: bool = False):
+    """The feature step. The cosine-only configuration keeps the map in
+    tile layout for the fused Gram loss (K6a/K6b) on the compact GT
+    (gt_a, gt_b = segment table, segment map); l1 or normalize take the
+    pixel-space loss on the assembled map and the dense GT (gt_a, gt_b =
+    [512, H, W] features, [1, H, W] mask).
 
-    Returns step(model, view, proj, campos, bg, gt_table, seg_map,
-    layer_idx=0, accept=None, device=None) -> (metrics, applied). The
-    forward runs first; when `accept(metrics)` says no, the step returns
-    without a backward or an update (the trainer's redo). Otherwise the
-    gradients of logits and codebooks are formed, the logits' zeroed on
-    dead rows, and the optimizer steps; the gradients stay in `.grad`."""
-    render_settings = settings._replace(assemble=False)
+    Returns step(model, view, proj, campos, bg, gt_a, gt_b, layer_idx=0,
+    accept=None, device=None, do_update=True, accumulate=False) ->
+    (metrics, applied). The forward runs first; when `accept(metrics)`
+    says no, the step returns without a backward or an update (the
+    trainer's redo). Otherwise the gradients of logits and codebooks are
+    formed (added to `.grad` when `accumulate`, else replacing it), the
+    logits' zeroed on dead rows, and Adam steps when `do_update`."""
+    gram = use_cos_loss and not use_l1_loss and not normalize
+    render_settings = settings._replace(assemble=False) if gram else settings
 
-    def step(model, view, proj, campos, bg, gt_table, seg_map,
-             layer_idx: int = 0, accept: Callable | None = None,
-             device=None):
+    def step(model, view, proj, campos, bg, gt_a, gt_b, layer_idx: int = 0,
+             accept: Callable | None = None, device=None,
+             do_update: bool = True, accumulate: bool = False):
         out = render(render_settings, model, view, proj, campos, bg,
                      include_feature=True, topk=topk, device=device)
-        loss = gram_loss_fused(model.codebooks,
-                               out.language_feature_weight_map, gt_table,
-                               seg_map, layer_idx)
-        metrics = {"loss": loss.detach(), "live_total": out.live_total,
+        if gram:
+            loss = gram_loss_fused(model.codebooks,
+                                   out.language_feature_weight_map, gt_a,
+                                   gt_b, layer_idx)
+            l1 = torch.zeros((), device=loss.device)
+        else:
+            loss, l1 = pixel_loss(model, out.language_feature_weight_map,
+                                  gt_a, gt_b, layer_idx, use_cos_loss,
+                                  use_l1_loss, normalize)
+        metrics = {"loss": loss.detach(), "l1": l1.detach(),
+                   "live_total": out.live_total,
                    "total_entries": out.total_entries}
         if accept is not None and not accept(metrics):
             return metrics, False
-        optimizer.zero_grad(set_to_none=False)
+        if not accumulate:
+            optimizer.zero_grad(set_to_none=False)
         loss.backward()
-        # Dead (padding) rows must not drift.
-        model.language_logits.grad.masked_fill_(~model.live[:, None], 0.0)
-        optimizer.step()
+        _apply(model, optimizer, do_update, accumulate)
         return metrics, True
 
     return step
 
 
-# ---------------------------------------------------------------- the loop
+def make_feature_group_step(settings, optimizer: torch.optim.Optimizer,
+                            topk: int):
+    """The camera-batched feature step (the JAX
+    make_feature_train_step_batched), Gram loss only: accumulation
+    semantics over a group of cameras with the top-k pairs formed once.
+
+    Returns step(model, views, bg, gts, layer_idx=0, accept=None,
+    device=None, do_update=True) -> (metrics, applied), `views` a list of
+    (view, proj, campos) and `gts` of (segment table, segment map), one a
+    camera. Each camera is rendered on the group's (weights, indices) and
+    its loss formed; `accept` sees the group's largest live_total and
+    total_entries before any gradient exists. Then one backward over the
+    group's losses (the blend backward a camera, their d(quick_weights)
+    summed), one backward of the top-k projection, the logits' gradient
+    zeroed on dead rows and one Adam step when `do_update`. metrics
+    "losses" holds each camera's loss."""
+    render_settings = settings._replace(assemble=False)
+
+    def step(model, views, bg, gts, layer_idx: int = 0,
+             accept: Callable | None = None, device=None,
+             do_update: bool = True):
+        qw, qi = model.get_weights_and_indices(topk)
+        qw_group = qw.detach().requires_grad_(True)
+        group_losses, lives, totals = [], [], []
+        for (view, proj, campos), (table, seg) in zip(views, gts):
+            out = render(render_settings, model, view, proj, campos, bg,
+                         include_feature=True, topk=topk,
+                         precomputed_quick=(qw_group, qi), device=device)
+            group_losses.append(gram_loss_fused(
+                model.codebooks, out.language_feature_weight_map, table,
+                seg, layer_idx))
+            lives.append(out.live_total)
+            totals.append(out.total_entries)
+        per_camera = torch.stack([v.detach() for v in group_losses])
+        metrics = {"loss": per_camera.sum(), "losses": per_camera,
+                   "live_total": torch.stack(lives).max(),
+                   "total_entries": torch.stack(totals).max()}
+        if accept is not None and not accept(metrics):
+            return metrics, False
+        optimizer.zero_grad(set_to_none=False)
+        torch.autograd.backward(group_losses)
+        qw.backward(qw_group.grad)
+        _apply(model, optimizer, do_update, False)
+        return metrics, True
+
+    return step
+
+
+# ---------------------------------------------------------------- the loops
 
 @dataclass
 class TrainLogs:
@@ -347,11 +506,11 @@ def train_rgb(
     degree steps up every 1000 iterations; densification runs every
     `opt.densification_interval` iterations after `opt.densify_from_iter`
     and before `opt.densify_until_iter`, its split noise drawn from a
-    torch.Generator on the device seeded with `seed`.
+    torch.Generator on the device seeded with `seed`. With `accum_iter` >
+    1 Adam steps every accum_iter-th iteration on the summed gradients,
+    never on the last iteration (reference train.py:261).
     `on_iteration(iteration, model, optimizer, metrics)` runs after each
     step and any densification."""
-    if accum_iter > 1:
-        raise _later("accum_iter > 1", "gradient accumulation (item 8)")
     if gui_source_path is not None:
         raise _later("gui_source_path", "the viewer (item 9)")
     dev = resolve_device(device)
@@ -359,7 +518,8 @@ def train_rgb(
         raise ValueError(f"the model lies on {model.xyz.device}, not {dev}")
     iterations = iterations or opt.iterations
     if optimizer is None:
-        optimizer = make_rgb_optimizer(opt, model)
+        optimizer = make_rgb_optimizer(opt, model, accum_iter)
+    accum = init_rgb_accum(model) if accum_iter > 1 else None
     generator = torch.Generator(device=dev).manual_seed(seed)
     rng = random.Random(seed)
     logs = TrainLogs()
@@ -378,8 +538,11 @@ def train_rgb(
         settings = make_settings(cam, model.active_sh_degree, 1.0,
                                  max_entries)
         view, proj, campos, bg = camera_arrays(cam, bg_color)
-        metrics = rgb_step(settings, optimizer, opt.lambda_dssim, model, view,
-                           proj, campos, bg, images[id(cam)], device=dev)
+        metrics = rgb_step(
+            settings, optimizer, opt.lambda_dssim, model, view, proj, campos,
+            bg, images[id(cam)], device=dev, accum=accum,
+            do_update=(iteration < iterations
+                       and iteration % accum_iter == 0))
         loss = float(metrics["loss"])
         logs.ema_loss = 0.4 * loss + 0.6 * logs.ema_loss
         logs.losses.append(loss)
@@ -391,13 +554,15 @@ def train_rgb(
                 size_threshold = (20.0 if iteration
                                   > opt.opacity_reset_interval else 0.0)
                 model = run_densify(model, optimizer, generator, opt, extent,
-                                    size_threshold)
+                                    size_threshold, carry=accum)
                 logs.events.append((iteration, "densify",
                                     int(model.num_live)))
             if iteration % opt.opacity_reset_interval == 0 or (
                     white_background
                     and iteration == opt.densify_from_iter):
                 model = apply_opacity_reset(model, optimizer)
+                if accum is not None:
+                    accum["grads"]["opacity"].zero_()
                 logs.events.append((iteration, "opacity_reset", None))
 
         if on_iteration is not None:
@@ -423,6 +588,7 @@ def train_features(
     max_entries: int = 2 ** 21,
     accum_iter: int = 1,
     cam_batch: int = 1,
+    align_iterations=(),
     tile_budget: float = 0.0,
     tile_budget_cap: int = 128,
     tile_budget_subdiv: int = 2,
@@ -434,33 +600,42 @@ def train_features(
     gui_source_path: str | None = None,
     device=None,
 ):
-    """The feature phase's sequential loop (reference train.py language
-    branch), the cosine-only Gram configuration. Returns (model, optimizer,
-    logs); the model's logits and codebooks are updated in place.
+    """The feature phase's loop (reference train.py language branch).
+    Returns (model, optimizer, logs); the model's logits and codebooks are
+    updated in place. The cosine-only configuration trains in Gram space
+    on the compact GT, l1 / normalize in pixel space on the dense GT.
     `tile_budget` > 0 takes the capped route where the top-k width
     (L * topk) is at most 4, as the JAX package does; `logs.exp_budget`
     then records the expansion budget per camera signature.
 
+    `accum_iter` > 1 sums gradients over accum_iter iterations; `cam_batch`
+    > 1 (cosine-only, one camera signature, not with accum_iter) runs
+    groups of cameras as one step, and `align_iterations` lists the
+    iterations whose `on_iteration` persists or evaluates state, which then
+    end a group (a mid-group callback sees the group-end state).
     `feature_cache` maps camera.image_name -> GT tensors (pass {} to keep
     them across epochs); `on_iteration(iteration, model, optimizer,
     metrics)` runs after each step."""
-    if cam_batch > 1:
-        raise _later("cam_batch > 1", "camera-batched feature steps (item 7)")
-    if accum_iter > 1:
-        raise _later("accum_iter > 1", "gradient accumulation (item 7)")
-    if use_l1_loss or normalize or not use_cos_loss:
-        raise _later("the pixel-space loss (l1 / normalize)",
-                     "pixel-space feature loss (item 7)")
     if gui_source_path is not None:
         raise _later("gui_source_path", "the viewer (item 9)")
     if model.language_logits is None or model.codebooks is None:
         raise ValueError("train_features needs language logits and "
                          "codebooks (init_language_features)")
+    gram = use_cos_loss and not use_l1_loss and not normalize
+    if cam_batch > 1:
+        if not gram:
+            raise ValueError(
+                "cam_batch > 1 requires the gram (cosine-only) config "
+                "(--cos_loss without --l1_loss/--normalize)")
+        if accum_iter != 1:
+            raise ValueError("cam_batch already accumulates; combining with "
+                             "accum_iter is unsupported")
     dev = resolve_device(device)
     if model.xyz.device.type != dev.type:
         raise ValueError(f"the model lies on {model.xyz.device}, not {dev}")
     if optimizer is None:
         optimizer = make_feature_optimizer(opt, model)
+    optimizer.zero_grad(set_to_none=True)
     rng = random.Random(seed)
     logs = TrainLogs()
     layer_num = model.codebooks.shape[0]
@@ -481,14 +656,13 @@ def train_features(
         return (camera.image_height, camera.image_width,
                 round(camera.tanfovx, 9), round(camera.tanfovy, 9))
 
-    def get_step(camera, sig):
+    def get_settings(camera, sig):
         live = 0 if tile_budget > 0.0 else live_budget.get(sig, 0)
         ebud = exp_budget.get(sig, max_entries) if capped else max_entries
-        settings = make_settings(
+        return make_settings(
             camera, model.active_sh_degree, 1.0, ebud, live_entries=live,
             tile_budget=tile_budget, tile_budget_cap=tile_budget_cap,
             tile_budget_subdiv=tile_budget_subdiv, cull_alpha=cull_alpha)
-        return make_feature_train_step(settings, optimizer, topk)
 
     def budget_check(sig):
         budgets, key = ((exp_budget, "total_entries") if capped
@@ -522,34 +696,89 @@ def train_features(
     def get_gt(cam):
         if feature_cache is not None and cam.image_name in feature_cache:
             return feature_cache[cam.image_name]
-        table, seg = cam.get_language_feature_compact(lf_dir, feature_level)
-        # A coarse 512-row grid of table sizes (padded rows are never
-        # selected by any segment id).
-        s_pad = -(-max(table.shape[0], 1) // 512) * 512
-        table = np.pad(table, ((0, s_pad - table.shape[0]), (0, 0)))
-        pair = (torch.from_numpy(table).to(dev),
-                torch.from_numpy(np.ascontiguousarray(seg)).to(dev))
+        if gram:
+            table, seg = cam.get_language_feature_compact(lf_dir,
+                                                          feature_level)
+            # A coarse 512-row grid of table sizes (padded rows are never
+            # selected by any segment id).
+            s_pad = -(-max(table.shape[0], 1) // 512) * 512
+            pair = (np.pad(table, ((0, s_pad - table.shape[0]), (0, 0))),
+                    np.ascontiguousarray(seg))
+        else:
+            pair = cam.get_language_feature(lf_dir, feature_level)
+        pair = tuple(torch.from_numpy(a).to(dev) for a in pair)
         if feature_cache is not None:
             feature_cache[cam.image_name] = pair
         return pair
 
-    viewpoint_stack: list = []
-    for iteration in range(first_iter + 1, iterations + 1):
-        if not viewpoint_stack:
-            viewpoint_stack = list(cameras)
-        cam = viewpoint_stack.pop(rng.randint(0, len(viewpoint_stack) - 1))
-        layer_idx = curriculum_layer(iteration)
-        sig = cam_sig(cam)
-        view, proj, campos, bg = camera_arrays(cam, bg_color)
-        gt_table, seg = get_gt(cam)
-        applied = False
-        while not applied:
-            metrics, applied = get_step(cam, sig)(
-                model, view, proj, campos, bg, gt_table, seg, layer_idx,
-                accept=budget_check(sig), device=dev)
+    def record(iteration, metrics):
         loss = float(metrics["loss"])
         logs.ema_loss = 0.4 * loss + 0.6 * logs.ema_loss
         logs.losses.append(loss)
         if on_iteration is not None:
             on_iteration(iteration, model, optimizer, metrics)
+
+    def next_camera(stack):
+        if not stack:
+            stack.extend(cameras)
+        return stack.pop(rng.randint(0, len(stack) - 1))
+
+    viewpoint_stack: list = []
+    if cam_batch > 1:
+        if len({cam_sig(c) for c in cameras}) != 1:
+            raise ValueError(
+                "cam_batch > 1 needs one shared camera (H, W, fov) signature "
+                f"across the dataset; got {len({cam_sig(c) for c in cameras})}")
+        align = set(align_iterations or ())
+        iteration = first_iter + 1
+        while iteration <= iterations:
+            layer_idx = curriculum_layer(iteration)
+            # Up to the next absolute multiple of cam_batch, clamped by the
+            # iterations left, the curriculum layer and any align mark.
+            g_max = cam_batch - ((iteration - 1) % cam_batch)
+            g = 1
+            while (g < g_max and iteration + g <= iterations
+                   and curriculum_layer(iteration + g) == layer_idx
+                   and (iteration + g - 1) not in align):
+                g += 1
+            cams = [next_camera(viewpoint_stack) for _ in range(g)]
+            sig = cam_sig(cams[0])
+            arrays = [camera_arrays(c, bg_color) for c in cams]
+            views = [a[:3] for a in arrays]
+            gts = [get_gt(c) for c in cams]
+            applied = False
+            while not applied:
+                step = make_feature_group_step(get_settings(cams[0], sig),
+                                               optimizer, topk)
+                metrics, applied = step(
+                    model, views, arrays[0][3], gts, layer_idx,
+                    accept=budget_check(sig), device=dev,
+                    do_update=iteration + g - 1 < iterations)
+            for j in range(g):
+                record(iteration + j, {
+                    "loss": metrics["losses"][j],
+                    "live_total": metrics["live_total"],
+                    "total_entries": metrics["total_entries"]})
+            iteration += g
+        return model, optimizer, logs
+
+    accumulate = accum_iter > 1
+    for iteration in range(first_iter + 1, iterations + 1):
+        cam = next_camera(viewpoint_stack)
+        layer_idx = curriculum_layer(iteration)
+        sig = cam_sig(cam)
+        view, proj, campos, bg = camera_arrays(cam, bg_color)
+        gt_a, gt_b = get_gt(cam)
+        do_update = not accumulate or (iteration < iterations
+                                       and iteration % accum_iter == 0)
+        applied = False
+        while not applied:
+            step = make_feature_train_step(
+                get_settings(cam, sig), optimizer, topk, use_cos_loss,
+                use_l1_loss, normalize)
+            metrics, applied = step(
+                model, view, proj, campos, bg, gt_a, gt_b, layer_idx,
+                accept=budget_check(sig), device=dev, do_update=do_update,
+                accumulate=accumulate)
+        record(iteration, metrics)
     return model, optimizer, logs

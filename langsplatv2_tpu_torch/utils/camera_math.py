@@ -40,6 +40,14 @@ def get_projection_matrix(znear: float, zfar: float, fov_x: float,
     return P
 
 
+def fov_to_focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def ndc_to_pixel(ndc, size):
     """NDC in [-1, 1] -> continuous pixel coordinate (CUDA ndc2Pix)."""
     return ((ndc + 1.0) * size - 1.0) * 0.5

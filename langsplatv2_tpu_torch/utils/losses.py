@@ -1,5 +1,5 @@
-"""Training losses: L1, SSIM, MSE, PSNR (port of
-langsplatv2_tpu/utils/losses.py:18-33, 60-104).
+"""Training losses: L1, L2, cosine, SSIM, MSE, PSNR (port of
+langsplatv2_tpu/utils/losses.py).
 
 SSIM is the reference's 11x11 Gaussian window (sigma 1.5) with same
 padding (utils/loss_utils.py:41-71). Its five window filters run as one
@@ -20,6 +20,29 @@ import torch.nn.functional as F
 
 def l1_loss(pred, gt):
     return (pred - gt).abs().mean()
+
+
+def l2_loss(pred, gt):
+    return ((pred - gt) ** 2).mean()
+
+
+def safe_norm(x, dim, eps: float = 1e-8):
+    """L2 norm along `dim`, clamped below at eps, with a finite gradient at
+    a zero vector: sqrt'(0) would send NaN through the clamp, so a zero
+    vector's norm takes the constant branch and carries no gradient."""
+    sq = (x * x).sum(dim=dim)
+    nonzero = sq > 0
+    safe = torch.sqrt(torch.where(nonzero, sq, 1.0))
+    return torch.clamp(torch.where(nonzero, safe, 0.0), min=eps)
+
+
+def cos_loss(pred, gt, dim: int = 0, eps: float = 1e-8):
+    """1 - mean cosine similarity along `dim` (reference
+    loss_utils.py:24-25), each norm clamped below at eps as
+    torch.nn.functional.cosine_similarity clamps it."""
+    sim = (pred * gt).sum(dim=dim) / (safe_norm(pred, dim, eps)
+                                      * safe_norm(gt, dim, eps))
+    return 1.0 - sim.mean()
 
 
 def mse(pred, gt):

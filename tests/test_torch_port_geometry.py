@@ -528,12 +528,10 @@ def test_optimizer_surgery_matches_jax():
         optimizers.zero_group_moments(port_opt, "language_logits")
 
 
-@pytest.mark.parametrize("option", ["accum_iter", "gui_source_path"])
+@pytest.mark.parametrize("option", ["gui_source_path"])
 def test_train_rgb_later_options_raise(option):
     m = gm.create_from_pcd(np.zeros((4, 3), np.float32) + np.arange(4)[:, None],
                            np.zeros((4, 3), np.float32), 1.0, device="cpu")
-    kw = {"accum_iter": 2} if option == "accum_iter" else {
-        "gui_source_path": "scene"}
     with pytest.raises(NotImplementedError, match="later slice"):
         trainer.train_rgb(m, [], types_opt(), 1.0, iterations=1,
-                          device="cpu", **kw)
+                          device="cpu", **{option: "scene"})

@@ -1335,3 +1335,109 @@ def test_cell_chain_small_and_ragged(cuda, n):
         ref = probe.cell_chain_plain(x, dtype)
         assert out.shape == (n,) and int((out != ref).sum()) == 0
 
+
+
+# ------------------------------------------- training from a scene directory
+
+def test_native_loader_matches_numpy_path(cuda, tmp_path):
+    """The port's native loader (its C++ copy built with the host's g++
+    into build/) against Camera.get_language_feature's numpy path, at the
+    map's size and resized by 3."""
+    from langsplatv2_tpu_torch import native
+    from langsplatv2_tpu_torch.scene.cameras import Camera
+
+    assert native.available(), "the host g++ did not build the loader"
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "a_s.npy", rng.integers(-1, 9, (4, 24, 31)).astype(
+        np.int32))
+    np.save(tmp_path / "a_f.npy", rng.normal(size=(9, 512)).astype(
+        np.float16))
+    for h, w in ((24, 31), (72, 93)):
+        cam = Camera(0, np.eye(3), np.zeros(3), 1.0, 0.8, None, "a", 0, w, h)
+        got = native.load_language_feature(
+            str(tmp_path / "a_s.npy"), str(tmp_path / "a_f.npy"), 2, h, w)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(native, "load_language_feature", lambda *a, **k: None)
+            ref = cam.get_language_feature(str(tmp_path), 2)
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cli_trains_both_phases_on_the_card(cuda, tmp_path):
+    """python -m langsplatv2_tpu_torch.train.cli's main on a tiny COLMAP
+    scene with the default device: the geometry phase (K1, K2, K7), then the
+    feature phase from its checkpoint (k-means codebooks; K1, K2, K4, K6a,
+    K6b), finite losses, the checkpoints written."""
+    import io
+    import sys
+
+    from langsplatv2_tpu_torch.ops import gram, rgb_train
+    from langsplatv2_tpu_torch.train import cli
+
+    from torch_port_fixtures import write_colmap_scene
+
+    write_colmap_scene(tmp_path / "scene", np.random.default_rng(0))
+    wrappers = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                "K4": train.feature_grads, "K6a": gram.gram_tiles_fwd,
+                "K6b": gram.gram_tiles_bwd, "K7": rgb_train.rgb_grads}
+    out = str(tmp_path / "out" / "m")
+    base = ["-s", str(tmp_path / "scene"), "-m", out, "--max_entries",
+            "65536", "--test_iterations", "6", "--quiet"]
+    counts = {}
+    stdout = sys.stdout
+    try:
+        for phase, extra in (("rgb", ["--iterations", "6"]),
+                             ("feature", ["--iterations", "6",
+                                          "--include_feature",
+                                          "--start_checkpoint",
+                                          f"{out}_-1/chkpnt6.npz",
+                                          "--feature_level", "1",
+                                          "--cos_loss", "--topk", "4",
+                                          "--codebook_size", "16"])):
+            for w in wrappers.values():
+                w.launches = 0
+            sys.stdout = io.StringIO()
+            summary = cli.main(base + extra)
+            torch.cuda.synchronize()
+            counts[phase] = {k: w.launches for k, w in wrappers.items()}
+            assert np.isfinite(summary["losses"]).all(), phase
+    finally:
+        sys.stdout = stdout
+    assert all(counts["rgb"][k] >= 6 for k in ("K1", "K2", "K7")), counts
+    assert all(counts["feature"][k] >= 6
+               for k in ("K1", "K2", "K4", "K6a", "K6b")), counts
+    assert counts["feature"]["K7"] == 0
+    import os
+    assert os.path.exists(f"{out}_1/chkpnt6.npz")
+
+
+def test_cam_batch_matches_accum_on_the_card(cuda):
+    """cam_batch = 3 against accum_iter = 3 on the card, exact and capped
+    routes: logits and codebooks at atol 3e-5, losses at rtol 3e-5 / atol
+    1e-6 (tests/test_training.py's tolerances)."""
+    import types
+
+    from langsplatv2_tpu_torch.models.gaussians import from_numpy_params
+    from langsplatv2_tpu_torch.train import trainer
+
+    from torch_port_fixtures import two_camera_feature_scene
+
+    fields, cams = two_camera_feature_scene()
+    opt = types.SimpleNamespace(language_feature_lr=0.01)
+    for extra in ({}, dict(tile_budget=1e-6, tile_budget_cap=128)):
+        runs = []
+        for mode in (dict(accum_iter=3), dict(cam_batch=3)):
+            model, _, logs = trainer.train_features(
+                from_numpy_params(fields, active_sh_degree=0, device=cuda),
+                cams, opt, "", 1, iterations=7, topk=4, max_entries=2 ** 14,
+                seed=11, feature_cache={}, device=cuda, **mode, **extra)
+            runs.append((model, logs))
+        (m_seq, l_seq), (m_bat, l_bat) = runs
+        for name in ("language_logits", "codebooks"):
+            torch.testing.assert_close(getattr(m_bat, name),
+                                       getattr(m_seq, name), atol=3e-5,
+                                       rtol=0)
+        np.testing.assert_allclose(l_bat.losses, l_seq.losses, rtol=3e-5,
+                                   atol=1e-6)
+        assert not torch.equal(m_seq.codebooks.cpu(), torch.from_numpy(
+            fields["codebooks"]))

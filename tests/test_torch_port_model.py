@@ -57,10 +57,11 @@ def test_topk_soft_code_matches_jax():
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
 
 
-@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
 def test_sh_matches_jax(deg):
     rng = np.random.default_rng(deg)
-    coeffs = rng.normal(size=(500, 3, 16)).astype(np.float32)
+    coeffs = rng.normal(size=(500, 3, max(16, (deg + 1) ** 2))).astype(
+        np.float32)
     dirs = rng.normal(size=(500, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
     ref = jax_sh.eval_sh(deg, jnp.asarray(coeffs), jnp.asarray(dirs))
@@ -221,6 +222,48 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                np.zeros(3, np.float32), quick_render=True)
 
 
+def test_scene_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The training CLI without --device, training on a Scene's cameras
+    without device= and load_checkpoint_auto without device= want CUDA,
+    and raise without it; the CLI before it writes anything."""
+    from langsplatv2_tpu_torch.models import io
+    from langsplatv2_tpu_torch.models.gaussians import create_from_pcd
+    from langsplatv2_tpu_torch.scene import colmap
+    from langsplatv2_tpu_torch.scene.scene import Scene
+    from langsplatv2_tpu_torch.train import cli, trainer
+    from PIL import Image
+
+    sparse = tmp_path / "scene" / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    colmap.write_intrinsics_binary(str(sparse / "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", 32, 24,
+                               np.array([30.0, 30.0, 16.0, 12.0]))})
+    colmap.write_extrinsics_binary(str(sparse / "images.bin"), {
+        1: colmap.ColmapImage(1, np.array([1.0, 0, 0, 0]),
+                              np.array([0.0, 0, 4]), 1, "a.png")})
+    colmap.write_points3d_binary(str(sparse / "points3D.bin"),
+                                 np.random.default_rng(0).normal(size=(8, 3)),
+                                 np.full((8, 3), 0.5))
+    (tmp_path / "scene" / "images").mkdir()
+    Image.fromarray(np.zeros((24, 32, 3), np.uint8)).save(
+        tmp_path / "scene" / "images" / "a.png")
+    model = create_from_pcd(np.random.default_rng(1).normal(size=(8, 3)),
+                            np.full((8, 3), 0.5), 1.0, device="cpu")
+    io.save_checkpoint(str(tmp_path / "chkpnt1.npz"), model, None, 1)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-s", str(tmp_path / "scene"), "-m",
+                  str(tmp_path / "out" / "m"), "--iterations", "1"])
+    assert not (tmp_path / "out").exists()
+    scene = Scene(str(tmp_path / "scene"), "")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.train_rgb(model, scene.get_train_cameras(),
+                          types.SimpleNamespace(iterations=1), 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        io.load_checkpoint_auto(str(tmp_path / "chkpnt1.npz"))
+
+
 @pytest.mark.parametrize("change,kwargs", [
     (dict(binning="cascade"), {}),
     (dict(binning="gauss"), {}),
@@ -251,26 +294,44 @@ def test_later_slice_options_raise(change, kwargs):
                   device="cpu", **kwargs)
 
 
-def _train_call(**kw):
+def _train_call(cameras=(), iterations=0, **kw):
     from langsplatv2_tpu_torch.train.trainer import train_features
 
     f = model_fields(20, levels=1)
     f["language_logits"] = np.zeros((20, 64), np.float32)
     model = from_numpy_params(f, device="cpu")
     opt = types.SimpleNamespace(language_feature_lr=0.0025)
-    train_features(model, [], opt, "unused", 1, iterations=0, device="cpu",
-                   **kw)
+    train_features(model, list(cameras), opt, "unused", 1,
+                   iterations=iterations, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(cam_batch=2), dict(accum_iter=2),
-    dict(use_l1_loss=True), dict(normalize=True),
-    dict(use_cos_loss=False, use_l1_loss=True),
-    dict(gui_source_path="scene")],
-    ids=["cam_batch", "accum_iter", "l1", "normalize", "l1-only", "gui"])
+@pytest.mark.parametrize("kwargs", [dict(gui_source_path="scene")],
+                         ids=["gui"])
 def test_later_training_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="later slice"):
         _train_call(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(cam_batch=2, use_l1_loss=True), "gram"),
+    (dict(cam_batch=2, normalize=True), "gram"),
+    (dict(cam_batch=2, use_cos_loss=False, use_l1_loss=True), "gram"),
+    (dict(cam_batch=2, accum_iter=2), "already accumulates"),
+    (dict(cam_batch=3, iterations=1, cameras=2), "signature")],
+    ids=["cam_batch-l1", "cam_batch-normalize", "cam_batch-l1-only",
+         "cam_batch-accum_iter", "cam_batch-two-signatures"])
+def test_training_option_conflicts_raise(kwargs, match):
+    """The JAX trainer's three ValueErrors (trainer.py:890-905): camera
+    batches take the Gram loss only, do not combine with accum_iter and
+    need one camera signature."""
+    cams = []
+    for i in range(kwargs.pop("cameras", 0)):
+        view, pm, tfx, tfy = camera(32, 32 + 16 * i)
+        cams.append(types.SimpleNamespace(
+            image_height=32, image_width=32 + 16 * i, tanfovx=tfx,
+            tanfovy=tfy, image_name=f"c{i}"))
+    with pytest.raises(ValueError, match=match):
+        _train_call(cameras=cams, **kwargs)
 
 
 def test_feature_step_redo_leaves_model_untouched():

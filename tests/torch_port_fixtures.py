@@ -495,3 +495,97 @@ def capped_edge_case(cap: int, topk: int, channels: int,
                 cot=rng.standard_normal((gx * gy, 256, channels)).astype(
                     np.float32),
                 grid_x=gx, grid_y=gy, cap=cap)
+
+
+def write_colmap_scene(root: Path, rng, n_imgs: int = 6, n_pts: int = 60,
+                       h: int = 48, w: int = 64, n_seg: int = 3) -> None:
+    """A tiny COLMAP scene directory (tests/test_cli.py::_build_scene,
+    written with the port's writers and PIL): sparse/0 (one PINHOLE camera,
+    `n_imgs` views stepping along x, `n_pts` points), images/*.png, and
+    language_features/*_s.npy [4, h, w] (three regions) and *_f.npy
+    [n_seg, 512]."""
+    from PIL import Image
+
+    from langsplatv2_tpu_torch.scene import colmap
+
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    colmap.write_intrinsics_binary(str(sparse / "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", w, h,
+                               np.array([60.0, 60.0, w / 2, h / 2]))})
+    colmap.write_extrinsics_binary(str(sparse / "images.bin"), {
+        i: colmap.ColmapImage(i, np.array([1.0, 0, 0, 0]),
+                              np.array([0.1 * i, 0.0, 4.0]), 1,
+                              f"img_{i:03d}.png")
+        for i in range(1, n_imgs + 1)})
+    xyz = np.concatenate([rng.uniform(-1, 1, (n_pts, 2)),
+                          rng.uniform(1.0, 3.0, (n_pts, 1))], 1)
+    colmap.write_points3d_binary(str(sparse / "points3D.bin"), xyz,
+                                 rng.uniform(size=(n_pts, 3)))
+    (root / "images").mkdir()
+    lf = root / "language_features"
+    lf.mkdir()
+    feats = rng.normal(size=(n_seg, 512)).astype(np.float32)
+    for i in range(1, n_imgs + 1):
+        Image.fromarray((rng.uniform(size=(h, w, 3)) * 255).astype(
+            np.uint8)).save(root / "images" / f"img_{i:03d}.png")
+        seg = np.zeros((4, h, w), np.int32)
+        seg[:, :, w // 2:] = 1
+        seg[:, :h // 6] = n_seg - 1
+        np.save(lf / f"img_{i:03d}_s.npy", seg)
+        np.save(lf / f"img_{i:03d}_f.npy", feats + 0.1 * rng.normal(
+            size=feats.shape).astype(np.float32))
+
+
+class LanguageCamera:
+    """A camera with its matrices and a compact GT, readable by both
+    packages' trainers (neither reads an image in the feature phase)."""
+
+    def __init__(self, h: int, w: int, tx: float, name: str, table, seg):
+        fovy = math.radians(60)
+        fovx = 2 * math.atan(math.tan(fovy / 2) * w / h)
+        w2c = get_world_to_view(np.eye(3), np.array([tx, 0.0, 0.0]))
+        self.world_view_transform = np.asarray(w2c.T, np.float32)
+        self.full_proj_transform = np.asarray(
+            w2c.T @ get_projection_matrix(0.01, 100, fovx, fovy).T,
+            np.float32)
+        self.camera_center = np.asarray(np.linalg.inv(w2c.T)[3, :3],
+                                        np.float32)
+        self.tanfovx, self.tanfovy = math.tan(fovx / 2), math.tan(fovy / 2)
+        self.image_height, self.image_width = h, w
+        self.image_name = name
+        self._gt = (table, seg)
+
+    def get_language_feature_compact(self, lf_dir, level):
+        return self._gt
+
+
+def two_camera_feature_scene(seed: int = 5, n: int = 30, h: int = 48,
+                             w: int = 64, k: int = 16):
+    """tests/test_training.py::_two_cam_feature_scene with numpy draws:
+    `n` Gaussians (create_from_pcd, opacity logit 2) in a right and a left
+    half, random logits and one level of `k` codes, and two cameras 0.15
+    apart sharing one (H, W, fov) signature whose GT is a two-segment
+    one-hot table split at the middle column. Returns (model fields as
+    numpy, cameras)."""
+    from langsplatv2_tpu_torch.models.gaussians import create_from_pcd
+
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                          rng.uniform(2.0, 8.0, (n, 1))], 1).astype(np.float32)
+    pts[:n // 2, 0] = np.abs(pts[:n // 2, 0])
+    pts[n // 2:, 0] = -np.abs(pts[n // 2:, 0])
+    model = create_from_pcd(pts, np.full((n, 3), 0.5, np.float32), 1.0,
+                            device="cpu")
+    fields = {name: v.detach().numpy().copy()
+              for name, v in model.fields().items() if v is not None}
+    fields["opacity"] = np.full((n, 1), 2.0, np.float32)
+    fields["language_logits"] = rng.normal(size=(n, k)).astype(np.float32)
+    fields["codebooks"] = rng.normal(size=(1, k, 512)).astype(np.float32)
+    table = np.zeros((2, 512), np.float32)
+    table[0, 0] = table[1, 1] = 1.0
+    seg = np.zeros((h, w), np.int32)
+    seg[:, w // 2:] = 1
+    cams = [LanguageCamera(h, w, tx, f"fake{i}", table, seg)
+            for i, tx in enumerate((0.0, 0.15))]
+    return fields, cams
