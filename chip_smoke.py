@@ -201,7 +201,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    more), no expansion at max_entries, step times, scene load and k-means
    times, no fresh moments on the resume; then the trained model saved as
    a reference .pth and read back, its quick frame bit-equal to the .npz
-   model's, the checkpoints' save and load times.
+   model's, the checkpoints' save and load times;
+22. the command lines a user runs on a trained scene, in process: phase
+   19's three level models (at its size) as .npz checkpoints, its 4
+   cameras as a COLMAP scene (986x728) with labelme GT (its rectangles as
+   polygons, each filled to exactly its block, and a concave polygon a
+   frame) and PNG mask folders; eval_lerf (quick: equal to
+   evaluate_quick called directly at 1e-6; --no-quick within 1e-4 of it,
+   localization equal), eval_3d_ovs and eval_mip_nerf360 (finite), each
+   counted (K1, K2 and, on the Gram route, K3 once a frame and a level
+   model; nothing else) and its drivers timed a frame; eval_psnr on phase
+   21's geometry checkpoint (--iteration -1) equal to evaluate_psnr; the
+   render server built by serve/backend_renderer.py from the checkpoints,
+   5 requests equal to a server built on the merged model (K1 and fast16
+   K2 once a request), timed; the training command line with --gui
+   (--port 0) resuming phase 21's geometry checkpoint for 3 iterations,
+   a SIBR client thread asking for a frame with the Python SH colours and
+   covariances (scaling_modifier 0.8), one without, then training on:
+   each frame within one u8 level of a direct render of the checkpoint,
+   K1 and K2 once a frame, the verify string the source path.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -4126,6 +4144,418 @@ def scene_dir_path(dev, smi: str) -> dict:
     return res
 
 
+# ------------- phase 22: score, serve and watch a scene from the command line
+
+CLI_SCENE = "eval_scene"               # <path_root>/<scene>, <scene>_1_<lvl>
+CLI_ITER = 30
+CLI_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                "K2f16": blend.blend_tiles_fast16,
+                "K2q": blend.blend_tiles_query, "K3": query.query_map_tiles,
+                "K3bf16": query.query_map_tiles_bf16,
+                "K7": rgb_train.rgb_grads}
+# A concave polygon (a "U" opening downward), offset a frame.
+CONCAVE = np.array([[0, 0], [150, 0], [150, 110], [100, 110], [100, 40],
+                    [50, 40], [50, 110], [0, 110]])
+
+
+def rect_polygon(box) -> list:
+    """eval_gt's mask [y0:y1, x0:x1] as labelme's 4 vertices: the
+    inclusive corners, which cv2.fillPoly fills to exactly that block."""
+    x0, y0, x1, y1 = (int(v) for v in box)
+    return [[x0, y0], [x1 - 1, y0], [x1 - 1, y1 - 1], [x0, y1 - 1]]
+
+
+def write_cli_scene(root: Path, gt_ann: dict, cams) -> None:
+    """Phase 22's scene: COLMAP sparse/0 of phase 19's cameras (PINHOLE,
+    centres at the origin), seeded PNGs, label/frame_0000<j+1>.json in
+    labelme form (eval_gt's rectangles as polygons plus one concave
+    polygon a frame, "lamp") and segmentations/<image>/<prompt>.png (the
+    rectangles and a "wood wall" strip)."""
+    from PIL import Image
+
+    from langsplatv2_tpu_torch.scene import colmap
+
+    rng = np.random.default_rng(22)
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    focal = EVAL_H / (2 * math.tan(math.radians(60) / 2))
+    colmap.write_intrinsics_binary(str(sparse / "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", EVAL_W, EVAL_H, np.array(
+            [focal, focal, EVAL_W / 2, EVAL_H / 2]))})
+    colmap.write_extrinsics_binary(str(sparse / "images.bin"), {
+        i + 1: colmap.ColmapImage(
+            i + 1, np.array([math.cos(math.radians(-deg) / 2), 0.0,
+                             math.sin(math.radians(-deg) / 2), 0.0]),
+            np.zeros(3), 1, f"{cams[i].image_name}.png")
+        for i, deg in enumerate(EVAL_YAWS)})
+    colmap.write_points3d_binary(
+        str(sparse / "points3D.bin"),
+        np.concatenate([rng.uniform(-4, 4, (2000, 2)),
+                        rng.uniform(2, 12, (2000, 1))], 1),
+        rng.uniform(0, 1, (2000, 3)))
+    for sub in ("images", "label"):
+        (root / sub).mkdir()
+    for j, cam in enumerate(cams):
+        Image.fromarray((rng.uniform(size=(EVAL_H, EVAL_W, 3)) * 255).astype(
+            np.uint8)).save(root / "images" / f"{cam.image_name}.png")
+        ann = gt_ann[str(j)]
+        off = rng.integers(0, (EVAL_W - 160, EVAL_H - 120))
+        objects = [{"category": p, "bbox": [int(v) for v in a["bboxes"]],
+                    "segmentation": rect_polygon(a["bboxes"])}
+                   for p, a in ann.items()]
+        objects.append({"category": "lamp",
+                        "bbox": [int(off[0]), int(off[1]),
+                                 int(off[0]) + 150, int(off[1]) + 110],
+                        "segmentation": (CONCAVE + off).tolist()})
+        name = f"frame_{j + 1:05d}.jpg"
+        with open(root / "label" / name.replace(".jpg", ".json"), "w") as f:
+            json.dump({"info": {"name": name, "height": EVAL_H,
+                                "width": EVAL_W}, "objects": objects}, f)
+        seg = root / "segmentations" / cam.image_name
+        seg.mkdir(parents=True)
+        for p, a in ann.items():
+            Image.fromarray(a["mask"].astype(np.uint8) * 255).save(
+                seg / f"{p}.png")
+        wall = np.zeros((EVAL_H, EVAL_W), np.uint8)
+        wall[-EVAL_H // 5:] = 255
+        Image.fromarray(wall).save(seg / "wood wall.png")
+
+
+def run_cli(main, argv) -> tuple[dict, float, dict, list]:
+    """A command line's main in process on the default device: (its
+    summary, wall s, launches, stdout lines), the counters zeroed just
+    before and read just after."""
+    import io as pyio
+
+    zero_counts(CLI_WRAPPERS)
+    captured = pyio.StringIO()
+    stdout, sys.stdout = sys.stdout, captured
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        summary = main(argv)
+    finally:
+        sys.stdout = stdout
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return summary, wall, read_counts(CLI_WRAPPERS), \
+        captured.getvalue().splitlines()
+
+
+def check_launches(label: str, launches: dict, expect: dict) -> None:
+    want = {k: expect.get(k, 0) for k in CLI_WRAPPERS}
+    if launches != want:
+        fail(f"phase 22 {label}: launches {launches}, expected {want}")
+
+
+def same_summary(label: str, got: dict, ref: dict, atol: float = 1e-6):
+    if got.keys() != ref.keys() or any(
+            (got[k] != ref[k]) if isinstance(ref[k], int)
+            else not abs(got[k] - ref[k]) <= atol for k in ref):
+        fail(f"phase 22 {label}: {got} against {ref} (atol {atol})")
+
+
+def timed_call(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def gui_client(port: int, cam, result: dict) -> None:
+    """The SIBR viewer's side: a request at zero resolution (a minimized
+    viewer: no frame; its reply shows the trainer is serving), then three
+    for `cam` at full size: the Python SH colours and covariances at
+    scaling_modifier 0.8, train=false; neither, train=false; then
+    train=true; closes after the last reply. While the trainer waits for
+    the next request its launch counters hold still, so each frame's
+    launches and round trip are read between requests."""
+    import socket
+
+    view = np.array(cam.world_view_transform, np.float32)
+    proj = np.array(cam.full_proj_transform, np.float32)
+    view[:, 1:3] *= -1                 # the bridge negates them back
+    proj[:, 1] *= -1
+    try:
+        s = socket.create_connection(("127.0.0.1", port), timeout=120)
+
+        def recv_exact(n):
+            buf = bytearray()
+            while len(buf) < n:
+                part = s.recv(n - len(buf))
+                if not part:
+                    raise ConnectionError("the trainer closed the bridge")
+                buf += part
+            return bytes(buf)
+
+        replies = []
+        for size, shs, train_flag, mod in (
+                (0, False, False, 1.0), (1, True, False, 0.8),
+                (1, False, False, 1.0), (1, False, True, 1.0)):
+            msg = json.dumps({
+                "resolution_x": cam.image_width * size,
+                "resolution_y": cam.image_height * size, "train": train_flag,
+                "fov_y": cam.FoVy, "fov_x": cam.FoVx, "z_near": cam.znear,
+                "z_far": cam.zfar, "shs_python": shs,
+                "rot_scale_python": shs, "keep_alive": True,
+                "scaling_modifier": mod,
+                "view_matrix": view.reshape(-1).tolist(),
+                "view_projection_matrix": proj.reshape(-1).tolist()}).encode()
+            zero_counts(CLI_WRAPPERS)
+            t0 = time.perf_counter()
+            s.sendall(len(msg).to_bytes(4, "little") + msg)
+            frame = recv_exact(cam.image_width * cam.image_height * 3 * size)
+            ms = (time.perf_counter() - t0) * 1e3
+            verify = recv_exact(int.from_bytes(recv_exact(4), "little"))
+            replies.append(dict(frame=frame, ms=ms, verify=verify.decode(),
+                                shs=shs, mod=mod,
+                                launches=read_counts(CLI_WRAPPERS)))
+        s.close()
+        result["replies"] = replies
+    except Exception as e:   # surfaced by the phase
+        result["error"] = repr(e)
+
+
+def cli_path(dev, smi: str, n: int) -> dict:
+    """Phase 22: the command lines a user runs on a trained scene, in
+    process on the card. Phase 19's three level models (n Gaussians each)
+    as .npz checkpoints and phase 19's 4 cameras as a COLMAP scene with
+    labelme and mask-folder GT; eval_lerf (quick: equal to evaluate_quick
+    called directly, 1e-6; --no-quick: within phase 19's 1e-4 of it),
+    eval_3d_ovs and eval_mip_nerf360 (finite summaries), eval_psnr on
+    phase 21's geometry checkpoint (equal to evaluate_psnr called
+    directly), the render server built by its command line (5 requests at
+    986x728 equal to a server built on the merged model), and the training
+    command line with --gui on phase 21's scene, a SIBR client served from
+    the resumed model (frames within one u8 level of a direct render).
+    Launches are counted a run (a GUI frame: between its requests)."""
+    import shutil
+    import threading
+
+    from langsplatv2_tpu_torch.eval import (eval_3d_ovs, eval_lerf,
+                                            eval_mip_nerf360, eval_psnr)
+    from langsplatv2_tpu_torch.eval import mip360, ovs, processing
+    from langsplatv2_tpu_torch.models import io as mio
+    from langsplatv2_tpu_torch.scene.cameras import MiniCam
+    from langsplatv2_tpu_torch.scene.scene import Scene
+    from langsplatv2_tpu_torch.serve import backend_renderer, network_gui
+    from langsplatv2_tpu_torch.train import cli
+
+    root = Path("build") / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    data, ckpt, out = root / "data", root / "ckpt", root / "out"
+    res = {"gaussians": n}
+    t0 = time.perf_counter()
+    models, merged = level_models(n, EVAL_H, EVAL_W, 0, dev)
+    dirs = [ckpt / f"{CLI_SCENE}_1_{lvl}" for lvl in (1, 2, 3)]
+    for d, m in zip(dirs, models):
+        mio.save_checkpoint(str(d / f"chkpnt{CLI_ITER}.npz"), m, None,
+                            CLI_ITER)
+    del models
+    cams = train_cameras("eval", EVAL_YAWS, EVAL_H, EVAL_W)
+    gt_rects = eval_gt(7, len(cams), EVAL_H, EVAL_W)
+    write_cli_scene(data / CLI_SCENE, gt_rects, cams)
+    res["write_s"] = time.perf_counter() - t0
+
+    gt_ann, hw, _ = lerf.eval_gt_lerfdata(str(data / CLI_SCENE / "label"))
+    for j, ann in gt_rects.items():
+        for p, a in ann.items():
+            if not np.array_equal(gt_ann[j][p]["mask"], a["mask"]):
+                fail(f"phase 22: the rectangle of {p!r} in frame {j} is "
+                     "not its numpy block")
+    if hw != (EVAL_H, EVAL_W) or any(
+            not gt_ann[j]["lamp"]["mask"].any() for j in gt_ann):
+        fail(f"phase 22: labelme GT {hw}")
+    res["lamp_pixels"] = [int(gt_ann[j]["lamp"]["mask"].sum())
+                          for j in gt_ann]
+    res["polygon_ms"] = timed_call(lambda: processing.polygon_to_mask(
+        (EVAL_H, EVAL_W), CONCAVE + 100))[1]
+
+    bench = ["--dataset_name", CLI_SCENE, "--path_root", str(data),
+             "--ckpt_root", str(ckpt), "--iteration", str(CLI_ITER),
+             "--clip_backend", "hash"]
+    frames = len(cams)
+    runs = {}
+    for name, main, argv, expect in (
+            ("lerf", eval_lerf.main, ["--output_root", str(out / "q")],
+             {"K1": frames, "K2": frames, "K3": frames}),
+            ("lerf --no-quick", eval_lerf.main,
+             ["--output_root", str(out / "nq"), "--no-quick"],
+             {"K1": 3 * frames, "K2": 3 * frames}),
+            ("3d_ovs", eval_3d_ovs.main, ["--output_root", str(out / "o")],
+             {"K1": frames, "K2": frames, "K3": frames}),
+            ("mip_nerf360", eval_mip_nerf360.main,
+             ["--output_root", str(out / "m")], {"K1": frames,
+                                                 "K2": frames})):
+        summary, wall, launches, lines = run_cli(main, bench + argv)
+        check_launches(name, launches, expect)
+        if not all(math.isfinite(v) for v in summary.values()):
+            fail(f"phase 22 {name}: {summary}")
+        runs[name] = dict(summary=summary, wall_s=wall, launches=launches,
+                          output=lines[-3:])
+
+    # The same inputs through the drivers, timed a frame.
+    scene_cams = Scene(str(data / CLI_SCENE), "", eval_split=False,
+                       shuffle=False).get_train_cameras()
+    clip = OpenCLIPNetwork("hash", device=dev)
+    direct, ms = timed_call(lambda: lerf.evaluate_quick(
+        merged, scene_cams, gt_ann, hw, clip, mask_thresh=0.4, device=dev))
+    runs["lerf"]["frame_ms"] = ms / frames
+    same_summary("lerf", runs["lerf"]["summary"], {
+        k: direct[k] for k in ("mean_iou", "localization_accuracy")})
+    same_summary("lerf --no-quick", runs["lerf --no-quick"]["summary"],
+                 runs["lerf"]["summary"], atol=1e-4)
+    levels = [mio.load_checkpoint(str(d / f"chkpnt{CLI_ITER}.npz"),
+                                  device=dev)[0] for d in dirs]
+    runs["lerf --no-quick"]["frame_ms"] = timed_call(lambda: lerf.evaluate(
+        levels, scene_cams, gt_ann, hw, clip, device=dev))[1] / frames
+    del levels
+    ovs_gt, fids = ovs.eval_gt_ovsdata(
+        str(data / CLI_SCENE / "segmentations"))
+    by_name = {c.image_name: c for c in scene_cams}
+    runs["3d_ovs"]["frame_ms"] = timed_call(lambda: ovs.evaluate_quick(
+        merged, {f: by_name[f] for f in fids}, ovs_gt, clip,
+        device=dev))[1] / frames
+    runs["mip_nerf360"]["frame_ms"] = timed_call(lambda: mip360.evaluate_quick(
+        merged, scene_cams, gt_ann, hw, clip, device=dev))[1] / frames
+
+    # PSNR of phase 21's geometry checkpoint (--iteration -1: the highest).
+    scene21 = Path("build") / "chip_smoke_scene"
+    gdir = scene21 / "out" / "g_-1"
+    summary, wall, launches, lines = run_cli(
+        eval_psnr.main, ["-s", str(scene21 / "scene"), "-m", str(gdir)])
+    test_cams = Scene(str(scene21 / "scene"), "", eval_split=True,
+                      shuffle=False).get_test_cameras()
+    model21, it21 = mio.load_checkpoint_auto(str(gdir / "chkpnt24.npz"),
+                                             device=dev)
+    (mean, per), ms = timed_call(lambda: psnr_eval.evaluate_psnr(
+        model21, test_cams, device=dev))
+    check_launches("psnr", launches, {"K1": len(test_cams),
+                                      "K2": len(test_cams)})
+    same_summary("psnr", summary, {"mean_psnr": mean,
+                                   "num_images": len(per)})
+    runs["psnr"] = dict(summary=summary, wall_s=wall, launches=launches,
+                        frame_ms=ms / len(per), output=lines[-3:],
+                        checkpoint=it21)
+
+    # The render server from the three checkpoints against one built on
+    # the merged model, five requests at 986x728.
+    fovy = math.radians(60)
+    fovx = 2 * math.atan(math.tan(fovy / 2) * EVAL_W / EVAL_H)
+    reqs = [serve_request(yaw_c2w(4.0 * i, EVAL_W, fovx), EVAL_W, EVAL_H,
+                          fovy) for i in range(FRAMES)]
+    server, build_ms = timed_call(lambda: backend_renderer.make_server(
+        ["--ckpt_paths", *map(str, dirs), "--iteration", str(CLI_ITER),
+         "--clip_backend", "hash"], compose="device"))
+    direct_server = BackendRenderer(merged, clip_model=OpenCLIPNetwork(
+        "hash", device=dev), tile_budget_cap=256, compose="device",
+        device=dev)
+    timed_request(server, serve_request(yaw_c2w(100.0, EVAL_W, fovx), EVAL_W,
+                                        EVAL_H, fovy))   # warm-up
+    zero_counts(CLI_WRAPPERS)
+    served = [timed_request(server, r) for r in reqs]
+    launches = read_counts(CLI_WRAPPERS)
+    check_launches("server", launches, {"K1": FRAMES, "K2f16": FRAMES})
+    for i, r in enumerate(reqs):
+        ref = direct_server.finalize_frame(direct_server.dispatch_request(r),
+                                           as_uint8=True)
+        if not np.array_equal(served[i][0], ref):
+            fail(f"phase 22 server: request {i} differs from the direct "
+                 "server's frame")
+    runs["server"] = dict(build_ms=build_ms, launches=launches,
+                          request_ms=[d + f for _, d, f in served],
+                          request_ms_median=statistics.median(
+                              d + f for _, d, f in served))
+    del server, direct_server, merged, served
+    torch.cuda.empty_cache()
+
+    # Training with the viewer: phase 21's geometry checkpoint resumed for
+    # 3 iterations with --gui on a free port.
+    cam = train_cameras("cam", (0.0,), TRAIN_H, TRAIN_W)[0]
+    result = {}
+
+    def client():
+        for _ in range(20_000):
+            if network_gui.listener is not None:
+                break
+            time.sleep(0.001)
+        else:
+            result["error"] = "no listener"
+            return
+        gui_client(network_gui.listener.getsockname()[1], cam, result)
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    try:
+        summary, wall, _, lines = run_cli(cli.main, [
+            "-s", str(scene21 / "scene"), "-m", str(out / "gui"),
+            "--start_checkpoint", str(gdir / "chkpnt24.npz"),
+            "--iterations", "27", "--max_entries", str(SCENE_MAX_ENTRIES),
+            "--gui", "--port", "0"])
+        thread.join(timeout=120)
+    finally:
+        if network_gui.listener is not None:
+            network_gui.listener.close()
+        network_gui.listener = network_gui.conn = None
+    if thread.is_alive() or "error" in result:
+        fail(f"phase 22 gui: {result.get('error', 'the client hung')}")
+    replies = result["replies"]
+    check_launches("gui, zero resolution", replies[0]["launches"], {})
+    if replies[0]["frame"]:
+        fail("phase 22 gui: a frame for a zero-resolution request")
+    replies = replies[1:]
+    if summary["first_iter"] != 24 or not any(
+            "Connected by" in ln for ln in lines):
+        fail(f"phase 22 gui: {summary['first_iter']}, {lines[:5]}")
+    gui = []
+    for rep in replies[:2]:
+        mc = MiniCam(cam.image_width, cam.image_height, cam.FoVy, cam.FoVx,
+                     cam.znear, cam.zfar, cam.world_view_transform,
+                     cam.full_proj_transform)
+        with torch.no_grad():
+            ref = render(make_settings(mc, model21.active_sh_degree,
+                                       rep["mod"], SCENE_MAX_ENTRIES),
+                         model21,
+                         mc.world_view_transform, mc.full_proj_transform,
+                         mc.camera_center, np.zeros(3, np.float32),
+                         convert_shs_python=rep["shs"],
+                         compute_cov3d_python=rep["shs"], device=dev)
+            ref = (torch.clamp(ref.render, 0, 1) * 255).to(torch.uint8)
+        ref = ref.permute(1, 2, 0).cpu().numpy().astype(np.int16)
+        got = np.frombuffer(rep["frame"], np.uint8).reshape(
+            ref.shape).astype(np.int16)
+        diff = int(np.abs(got - ref).max())
+        check_launches("gui frame", rep["launches"], {"K1": 1, "K2": 1})
+        gui.append(dict(ms=rep["ms"], max_level_diff=diff, shs=rep["shs"],
+                        launches=rep["launches"], mean=float(got.mean())))
+        if diff > 1 or got.max() == 0:
+            fail(f"phase 22 gui: frame differs by {diff} levels from the "
+                 "direct render (or is black)")
+    if any(rep["verify"] != os.path.abspath(scene21 / "scene")
+           for rep in result["replies"]):
+        fail("phase 22 gui: verify strings "
+             f"{[r['verify'] for r in result['replies']]}")
+    runs["gui"] = dict(frames=gui, wall_s=wall, last_iter=summary["last_iter"],
+                       losses=summary["losses"])
+    res["runs"] = runs
+    del model21
+    torch.cuda.empty_cache()
+    log(f"phase 22 ({n} Gaussians a level, {EVAL_W}x{EVAL_H}; {smi}): "
+        + "; ".join(f"{k} {r.get('summary', '')} wall {r.get('wall_s', 0):.2f}"
+                    f" s, {r.get('frame_ms', float('nan')):.2f} ms a frame, "
+                    f"launches {r.get('launches', '')}"
+                    for k, r in runs.items() if k not in ("server", "gui")))
+    log(f"phase 22 server: built from checkpoints in "
+        f"{runs['server']['build_ms']:.1f} ms, request median "
+        f"{runs['server']['request_ms_median']:.3f} ms, equal to the direct "
+        f"server's frames; gui: frames "
+        + ", ".join(f"{g['ms']:.1f} ms (shs/cov {g['shs']}, max diff "
+                    f"{g['max_level_diff']})" for g in gui)
+        + f", run {wall:.1f} s ({smi})")
+    return res
+
+
 def phase20_kernel_rows(p20s, p20t) -> dict:
     """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
     (1080p), K6a and K6b at K = 32 (a feature step)."""
@@ -4225,6 +4655,8 @@ def main() -> None:
     eval_res = eval_path(dev)
     torch.cuda.empty_cache()
     scene_res = scene_dir_path(dev, smi)
+    torch.cuda.empty_cache()
+    cli_res = cli_path(dev, smi, eval_res["evaluate_quick"]["gaussians"])
     torch.cuda.empty_cache()
     new_rows = {**new_kernel_rows(lmc, probe_res),
                 **phase20_kernel_rows(p20s, p20t)}
@@ -4333,7 +4765,8 @@ def main() -> None:
                        frame_traces=traces,
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res, many_prompts_serving=p20s,
-                       small_k_training=p20t, scene_dir_training=scene_res),
+                       small_k_training=p20t, scene_dir_training=scene_res,
+                       command_lines=cli_res),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

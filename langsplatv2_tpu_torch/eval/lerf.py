@@ -33,7 +33,9 @@ from .openclip import OpenCLIPNetwork
 
 def eval_gt_lerfdata(json_folder: str, output_path: str | None = None):
     """Parse labelme GT (reference eval_lerf.py:61-102). Returns
-    (gt_ann, (h, w), img_paths); needs cv2 for the polygons."""
+    (gt_ann, (h, w), img_paths); the polygons are filled as cv2.fillPoly
+    fills them (`processing.polygon_to_mask`), and with `output_path` each
+    mask is written to <output_path>/gt/<frame>/<label>.jpg."""
     gt_json_paths = sorted(glob.glob(os.path.join(json_folder,
                                                   "frame_*.json")))
     img_paths = sorted(glob.glob(os.path.join(json_folder, "frame_*.jpg")))
@@ -68,9 +70,10 @@ def eval_gt_lerfdata(json_folder: str, output_path: str | None = None):
 
 
 def _vis_mask_save(mask: np.ndarray, path: str):
-    import cv2
+    """The mask as a grey picture (255 inside) for a person to look at."""
+    from PIL import Image
 
-    cv2.imwrite(path, (np.asarray(mask).astype(np.uint8) * 255))
+    Image.fromarray(np.asarray(mask).astype(np.uint8) * 255).save(path)
 
 
 def merge_level_models(models: list[GaussianModel],

@@ -2,7 +2,9 @@
 eval_3d_ovs.py): per-frame mask-folder GT (255 -> 1 pngs, 'wood wall'
 ordered last), mIoU over the prompts at mask_thresh 0.25, and the 'room'
 case, which skips the last two prompts and picks the level by the mean
-relevancy inside the predicted mask (level 0 excluded).
+relevancy inside the predicted mask (level 0 excluded). The masks are read
+with PIL and resized with `scene/cameras.py::resize_nearest`, as cv2
+reads and resizes them in JAX, so that the eval path needs no OpenCV.
 """
 from __future__ import annotations
 
@@ -14,17 +16,24 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..scene.cameras import resize_nearest
 from . import processing
 from .lerf import _vis_mask_save, quick_relevancy, \
     render_language_feature_map_full
 from .openclip import OpenCLIPNetwork
 
 
-def eval_gt_ovsdata(mask_dir: str, output_path: str | None = None):
-    """Reference eval_3d_ovs.py:58-100 (needs cv2). Returns (gt_ann,
-    frame_ids)."""
-    import cv2
+def read_mask(path: str) -> np.ndarray:
+    """cv2.imread(path)[:, :, 0] of an 8-bit image: the blue channel of
+    its RGB form (grey replicated, a palette applied, alpha dropped)."""
+    from PIL import Image
 
+    with Image.open(path) as im:
+        return np.ascontiguousarray(np.asarray(im.convert("RGB"))[:, :, 2])
+
+
+def eval_gt_ovsdata(mask_dir: str, output_path: str | None = None):
+    """Reference eval_3d_ovs.py:58-100. Returns (gt_ann, frame_ids)."""
     gt_ann = {}
     frame_ids = []
     for frame_id in sorted(os.listdir(mask_dir)):
@@ -39,13 +48,13 @@ def eval_gt_ovsdata(mask_dir: str, output_path: str | None = None):
         img_ann = defaultdict(dict)
         for name in names:
             prompt = os.path.splitext(name)[0]
-            mask = cv2.imread(os.path.join(frame_dir, name))
+            mask = read_mask(os.path.join(frame_dir, name))
             mask[mask == 255] = 1
-            img_ann[prompt]["mask"] = mask[:, :, 0]
+            img_ann[prompt]["mask"] = mask
             if output_path is not None:
                 save = Path(output_path) / "gt" / frame_id / f"{prompt}.jpg"
                 save.parent.mkdir(exist_ok=True, parents=True)
-                _vis_mask_save(mask[:, :, 0], str(save))
+                _vis_mask_save(mask, str(save))
         gt_ann[frame_id] = img_ann
         frame_ids.append(frame_id)
     return gt_ann, frame_ids
@@ -56,7 +65,7 @@ def segmentation_process_room(valid_map, thresh: float, gt_masks: dict,
     """The room variant (eval_3d_ovs.py:109-213): the last 2 prompts
     skipped; the level chosen by the mean relevancy inside the predicted
     mask, levels 1 and up only. GT masks of another size are resized
-    (nearest, cv2)."""
+    (nearest, OpenCV's index rule)."""
     valid_map = torch.as_tensor(valid_map)
     n_head, n_prompt, h, w = valid_map.shape
     kept = list(prompts[:n_prompt - 2])
@@ -66,9 +75,7 @@ def segmentation_process_room(valid_map, thresh: float, gt_masks: dict,
     for p in kept:
         gt = np.asarray(gt_masks[p])
         if gt.shape != (h, w):
-            import cv2
-
-            gt = cv2.resize(gt, (w, h), interpolation=cv2.INTER_NEAREST)
+            gt = resize_nearest(gt, w, h)
         gts.append(gt)
     blended, mask_pred = processing.heatmap_to_mask(
         valid_map[:, :len(kept)], thresh)

@@ -112,6 +112,13 @@ class GaussianModel(nn.Module):
     def get_features(self):
         return torch.cat([self.features_dc, self.features_rest], dim=1)
 
+    def get_covariance(self, scaling_modifier: float = 1.0):
+        """[N, 6] world covariances (xx xy xz yy yz zz) of the scaled
+        Gaussians, as the reference's build_covariance_from_scaling_rotation
+        gives them."""
+        return tf.covariance_from_scaling_rotation(
+            self.get_scaling(), scaling_modifier, self.rotation)
+
     def get_render_weights(self, k: int):
         """Per-layer softmax -> top-k coefficients, concatenated to
         [C, L*K] f32 (the dense feature-phase field), differentiable in

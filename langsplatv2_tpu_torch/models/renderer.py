@@ -9,9 +9,15 @@ SH colours: the geometry phase's mode, differentiable in the model's six
 RGB fields and in the `means2d_dummy` carrier (the JAX package's stand-in
 for torch's retain_grad on the screen-space means). `precomputed_quick`
 hands the training mode its (weight, index) pairs, so that a camera batch
-runs the top-k forward and backward once for all its cameras. The
-Python-side covariance belongs to a later slice and raises; override
-colours and Python-side SH are not ported yet.
+runs the top-k forward and backward once for all its cameras.
+
+The viewer's options, with JAX's precedence: `compute_cov3d_python` hands
+the rasterizer the model's covariances at `settings.scale_modifier`
+(`cov3d_precomp`, which the preprocess then takes as they are, so the
+modifier is applied once); `override_color` [N, 3] replaces the colours,
+else `convert_shs_python` evaluates the SH colours here
+(`ops/projection.py::sh_to_color` at the model's active degree) instead
+of in the preprocess. `render_camera` renders a camera object.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from ..ops.rasterize import RasterizeSettings, rasterize
+from ..ops.projection import sh_to_color
+from ..ops.rasterize import RasterizeSettings, rasterize, to_f32
 from .gaussians import GaussianModel
 
 
@@ -55,15 +62,25 @@ def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
 
 def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
            projmatrix, campos, bg_color, *, include_feature: bool = False,
-           quick_render: bool = False, topk: int = 4,
+           quick_render: bool = False, topk: int = 4, override_color=None,
+           convert_shs_python: bool = False,
            compute_cov3d_python: bool = False, means2d_dummy=None,
            precomputed_quick: tuple | None = None, device=None,
            stage_events: list | None = None) -> RenderOutput:
-    if compute_cov3d_python:
-        raise NotImplementedError(
-            "compute_cov3d_python belongs to a later slice of the port: the "
-            "differentiable reference rasterizer (ROADMAP.md, Queue 1 item 4)")
     dev = resolve_device(device)
+    scales = rotations = cov3d = None
+    if compute_cov3d_python:
+        cov3d = model.get_covariance(settings.scale_modifier)
+    else:
+        scales, rotations = model.get_scaling(), model.get_rotation()
+    shs = colors = None
+    if override_color is not None:
+        colors = override_color
+    elif convert_shs_python:
+        colors = sh_to_color(model.get_features(), model.xyz,
+                             to_f32(campos, dev), model.active_sh_degree)
+    else:
+        shs = model.get_features()
     quick_weights = quick_indices = None
     quick_channels = 0
     quick_train = False
@@ -82,8 +99,8 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
 
     out = rasterize(
         settings, model.xyz, model.get_opacity(), viewmatrix, projmatrix,
-        campos, bg_color, scales=model.get_scaling(),
-        rotations=model.get_rotation(), shs=model.get_features(),
+        campos, bg_color, scales=scales, rotations=rotations,
+        cov3d_precomp=cov3d, shs=shs, colors_precomp=colors,
         quick_weights=quick_weights,
         quick_indices=quick_indices, quick_channels=quick_channels,
         quick_train=quick_train, means2d_dummy=means2d_dummy, device=dev,
@@ -94,3 +111,16 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
         final_transmittance=out.final_transmittance,
         max_tile_count=out.max_tile_count, total_entries=out.total_entries,
         live_total=out.live_total)
+
+
+def render_camera(camera, model: GaussianModel, bg_color, *,
+                  scaling_modifier: float = 1.0, max_entries: int = 2 ** 21,
+                  **kwargs) -> RenderOutput:
+    """`render` of a camera object (image size, tangents and its
+    transposed matrices and centre); the rest of the keywords go to
+    `render`."""
+    settings = make_settings(camera, model.active_sh_degree,
+                             scaling_modifier, max_entries)
+    return render(settings, model, camera.world_view_transform,
+                  camera.full_proj_transform, camera.camera_center,
+                  bg_color, **kwargs)

@@ -8,8 +8,9 @@ the camera centre, and the ground truth of SAM level `feature_level` from
 segment table and map, `get_language_feature_compact`) or per pixel
 ([512, H, W] and its mask, `get_language_feature`, through the port's
 native loader when it is built). Segment maps of another size are resized
-with `resize_nearest`, numpy written to OpenCV's INTER_NEAREST index rule
-(the machine with the card has no cv2). `MiniCam` is later work.
+with `resize_nearest`, numpy written to OpenCV's INTER_NEAREST index rule,
+so that no path needs OpenCV. `MiniCam` is the viewer's camera, its
+matrices given directly.
 """
 from __future__ import annotations
 
@@ -123,3 +124,31 @@ class Camera:
             seg_map = np.stack([resize_nearest(s, W, H) for s in seg_map])
         return (feature_map.astype(np.float32),
                 seg_map[feature_level].astype(np.int32))
+
+
+@dataclass
+class MiniCam:
+    """The viewer's camera (reference scene/cameras.py:98-110): the
+    transposed world-view and full-projection matrices as given, the
+    centre from the world-view matrix's inverse."""
+
+    image_width: int
+    image_height: int
+    FoVy: float
+    FoVx: float
+    znear: float
+    zfar: float
+    world_view_transform: np.ndarray
+    full_proj_transform: np.ndarray
+    camera_center: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        self.camera_center = np.linalg.inv(self.world_view_transform)[3, :3]
+
+    @property
+    def tanfovx(self) -> float:
+        return math.tan(self.FoVx * 0.5)
+
+    @property
+    def tanfovy(self) -> float:
+        return math.tan(self.FoVy * 0.5)

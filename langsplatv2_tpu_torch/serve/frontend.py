@@ -1,12 +1,16 @@
-"""Client side of the render server (port of langsplatv2_tpu/serve/frontend.py:
-`wxyz_to_rotmat` and `PipelinedClient`).
-
-The viser web GUI (`ViserFrontend`) belongs to a later slice of the port
-(ROADMAP.md Queue 1 item 9). `zmq` is imported when a client is made.
+"""Client side of the render server (port of langsplatv2_tpu/serve/frontend.py;
+reference frontend_viser.py): `wxyz_to_rotmat`, `PipelinedClient` and the
+viser web GUI, `ViserFrontend` (a prompt box, a threshold slider, a
+heatmap toggle and a resolution divisor; a 100 Hz loop sends each
+client's camera to the server and paints the JPEG it returns as the
+background). `zmq` and `viser` are imported when a client is made, and
+the JPEG is decoded with PIL.
 """
 from __future__ import annotations
 
+import io
 import json
+import time
 
 import numpy as np
 
@@ -58,3 +62,58 @@ class PipelinedClient:
     def drain(self):
         while self.inflight:
             yield self._recv()
+
+
+class ViserFrontend:
+    def __init__(self, backend_addr: str = "tcp://localhost:5555",
+                 port: int = 8081, base_height: int = 720,
+                 fov_y: float = 1.0):
+        import viser
+        import zmq
+
+        self.server = viser.ViserServer(port=port)
+        ctx = zmq.Context()
+        self.socket = ctx.socket(zmq.REQ)
+        self.socket.connect(backend_addr)
+        self.base_height = base_height
+        self.fov_y = fov_y
+
+        self.gui_prompt = self.server.gui.add_text("Prompt", initial_value="")
+        self.gui_threshold = self.server.gui.add_slider(
+            "Threshold", min=0.0, max=1.0, step=0.01, initial_value=0.22)
+        self.gui_heatmap = self.server.gui.add_checkbox(
+            "Show heatmap", initial_value=False)
+        self.gui_res = self.server.gui.add_slider(
+            "Resolution divisor", min=1, max=8, step=1, initial_value=2)
+
+    def _request_for_camera(self, camera) -> dict:
+        """A viser camera (wxyz, position, fov, aspect) and the widgets'
+        values -> the server's request dict."""
+        c2w = np.eye(4)
+        c2w[:3, :3] = wxyz_to_rotmat(np.asarray(camera.wxyz))
+        c2w[:3, 3] = np.asarray(camera.position)
+        height = self.base_height // int(self.gui_res.value)
+        return {
+            "c2w": c2w.tolist(),
+            "width": int(height * camera.aspect),
+            "height": height,
+            "fov_y": float(camera.fov),
+            "prompt": self.gui_prompt.value,
+            "threshold": float(self.gui_threshold.value),
+            "show_heatmap": bool(self.gui_heatmap.value),
+        }
+
+    def run(self, poll_hz: float = 100.0):
+        from PIL import Image
+
+        while True:
+            for client in self.server.get_clients().values():
+                req = self._request_for_camera(client.camera)
+                self.socket.send(json.dumps(req).encode())
+                reply = self.socket.recv()
+                if reply == b"ERROR":
+                    continue
+                with Image.open(io.BytesIO(reply)) as im:
+                    img = np.asarray(im.convert("RGB"))
+                client.scene.set_background_image(img)
+            time.sleep(1.0 / poll_hz)

@@ -18,8 +18,9 @@ seeded from --seed (so not the JAX package's values). A checkpoint of the
 same phase resumes at its iteration with its Adam moments (`.npz`, or the
 reference's `.pth`); a feature checkpoint keeps its trained logits and
 codebooks (the JAX script draws them anew). `--profile_dir` writes a
-torch.profiler trace of iterations [100, 110). `--impl xla` and `--gui`
-belong to later slices and raise.
+torch.profiler trace of iterations [100, 110). `--gui` serves the SIBR
+viewer on --ip:--port while it trains (`serve/network_gui.py`); `--impl
+xla` belongs to a later slice and raises.
 
 `main(argv)` runs in process and returns a summary (the model directory,
 first and last iteration, losses, each iteration's host time and
@@ -113,11 +114,10 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             '--impl xla belongs to a later slice of the port: ROADMAP.md '
             'Queue 1 item 4, the differentiable reference rasterizer')
-    if args.gui:
-        raise NotImplementedError(
-            "--gui belongs to a later slice of the port: ROADMAP.md Queue 1 "
-            "item 9, the viewer")
     dev = resolve_device(args.device)
+    if args.gui:
+        from ..serve import network_gui
+        network_gui.init(args.ip, args.port)
     args.save_iterations.append(args.iterations)
     # The reference appends the feature level to the model dir
     # (train.py:354).
@@ -277,6 +277,7 @@ def _train(args, dataset, opt, dev) -> dict:
             clock[0] = time.perf_counter()
         return on_iter
 
+    gui_source = dataset.source_path if args.gui else None
     try:
         if opt.include_feature:
             phase = "feature"
@@ -319,7 +320,7 @@ def _train(args, dataset, opt, dev) -> dict:
                 tile_budget_subdiv=args.tile_budget_subdiv,
                 cull_alpha=args.cull_alpha, optimizer=optimizer,
                 feature_cache={}, on_iteration=on_iter_for(phase),
-                device=dev)
+                gui_source_path=gui_source, device=dev)
         else:
             phase = "rgb"
             optimizer = restore_optimizer(trainer.make_rgb_optimizer(
@@ -331,7 +332,8 @@ def _train(args, dataset, opt, dev) -> dict:
                 bg_color=bg, white_background=dataset.white_background,
                 seed=args.seed, max_entries=args.max_entries,
                 accum_iter=args.accum_iter, optimizer=optimizer,
-                on_iteration=on_iter_for(phase), device=dev)
+                on_iteration=on_iter_for(phase),
+                gui_source_path=gui_source, device=dev)
         save_outputs(args.iterations, model, optimizer, phase)
     finally:
         metrics_file.close()

@@ -74,8 +74,10 @@ total is clamped to the budget, so an overflowing camera is truncated
 without a redo. The port accepts only a total below the budget and grows
 and redoes otherwise (ROADMAP.md Queue 3).
 
-Not ported yet, and raising NotImplementedError: the viewer
-(`gui_source_path`).
+With `gui_source_path` (and `serve/network_gui.init` called), both loops
+serve the SIBR viewer's requests at the top of each iteration (a camera
+batch: of each group, and again after it), rendered on the trainer's
+device from the model as it stands.
 """
 from __future__ import annotations
 
@@ -103,10 +105,30 @@ RGB_PARAM_NAMES = ("xyz", "features_dc", "features_rest", "scaling",
 FEATURE_PARAM_NAMES = ("language_logits", "codebooks")
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to a later slice of the port: {slice_name} "
-        "(ROADMAP.md, Queue 1)")
+def _gui_poll(model: GaussianModel, bg_color, iteration: int,
+              iterations: int, source_path: str, max_entries: int,
+              dev) -> None:
+    """Serve any pending SIBR viewer request (reference train.py:115-128);
+    a no-op unless `serve/network_gui.init` was called. A frame is the
+    render clipped to [0, 1], times 255, truncated to u8."""
+    from ..serve import network_gui
+
+    if network_gui.listener is None:
+        return
+
+    def render_fn(cam, shs_py, cov_py, scaling_mod):
+        settings = make_settings(cam, model.active_sh_degree,
+                                 scaling_mod or 1.0, max_entries)
+        with torch.no_grad():
+            out = render(settings, model, cam.world_view_transform,
+                         cam.full_proj_transform, cam.camera_center,
+                         np.asarray(bg_color, np.float32),
+                         convert_shs_python=bool(shs_py),
+                         compute_cov3d_python=bool(cov_py), device=dev)
+            img = (torch.clamp(out.render, 0.0, 1.0) * 255.0).to(torch.uint8)
+        return img.permute(1, 2, 0).cpu().numpy()
+
+    network_gui.poll(render_fn, source_path, iteration, iterations)
 
 
 def rgb_params(model: GaussianModel) -> dict:
@@ -511,8 +533,6 @@ def train_rgb(
     never on the last iteration (reference train.py:261).
     `on_iteration(iteration, model, optimizer, metrics)` runs after each
     step and any densification."""
-    if gui_source_path is not None:
-        raise _later("gui_source_path", "the viewer (item 9)")
     dev = resolve_device(device)
     if model.xyz.device.type != dev.type:
         raise ValueError(f"the model lies on {model.xyz.device}, not {dev}")
@@ -527,6 +547,9 @@ def train_rgb(
 
     viewpoint_stack: list = []
     for iteration in range(first_iter + 1, iterations + 1):
+        if gui_source_path is not None:
+            _gui_poll(model, bg_color, iteration, iterations,
+                      gui_source_path, max_entries, dev)
         if iteration % 1000 == 0:
             model.one_up_sh_degree()
         if not viewpoint_stack:
@@ -616,8 +639,6 @@ def train_features(
     `feature_cache` maps camera.image_name -> GT tensors (pass {} to keep
     them across epochs); `on_iteration(iteration, model, optimizer,
     metrics)` runs after each step."""
-    if gui_source_path is not None:
-        raise _later("gui_source_path", "the viewer (item 9)")
     if model.language_logits is None or model.codebooks is None:
         raise ValueError("train_features needs language logits and "
                          "codebooks (init_language_features)")
@@ -732,6 +753,9 @@ def train_features(
         align = set(align_iterations or ())
         iteration = first_iter + 1
         while iteration <= iterations:
+            if gui_source_path is not None:
+                _gui_poll(model, bg_color, iteration, iterations,
+                          gui_source_path, max_entries, dev)
             layer_idx = curriculum_layer(iteration)
             # Up to the next absolute multiple of cam_batch, clamped by the
             # iterations left, the curriculum layer and any align mark.
@@ -754,6 +778,11 @@ def train_features(
                     model, views, arrays[0][3], gts, layer_idx,
                     accept=budget_check(sig), device=dev,
                     do_update=iteration + g - 1 < iterations)
+            if gui_source_path is not None:
+                # A group spans up to cam_batch iterations of wall time:
+                # poll after its step too.
+                _gui_poll(model, bg_color, iteration + g - 1, iterations,
+                          gui_source_path, max_entries, dev)
             for j in range(g):
                 record(iteration + j, {
                     "loss": metrics["losses"][j],
@@ -764,6 +793,9 @@ def train_features(
 
     accumulate = accum_iter > 1
     for iteration in range(first_iter + 1, iterations + 1):
+        if gui_source_path is not None:
+            _gui_poll(model, bg_color, iteration, iterations,
+                      gui_source_path, max_entries, dev)
         cam = next_camera(viewpoint_stack)
         layer_idx = curriculum_layer(iteration)
         sig = cam_sig(cam)

@@ -319,8 +319,57 @@ def test_feature_phase_trains_and_jax_reads_its_checkpoint(trained):
 
 
 def test_cli_later_flags_raise(tmp_path):
-    for flag in (["--impl", "xla"], ["--gui"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            cli.main(["-s", "x", "-m", str(tmp_path / "m"), "--device", "cpu",
-                      *flag])
+    """--impl xla (the reference rasterizer, Queue 1 item 4) raises before
+    anything is written; --gui is ported: it opens the viewer's listener
+    (here on a free port) before the scene is read."""
+    from langsplatv2_tpu_torch.serve import network_gui
+
+    with pytest.raises(NotImplementedError, match="later slice"):
+        cli.main(["-s", "x", "-m", str(tmp_path / "m"), "--device", "cpu",
+                  "--impl", "xla"])
     assert not (tmp_path / "m_-1").exists()
+    try:
+        with pytest.raises(ValueError, match="Could not recognize scene"):
+            cli.main(["-s", str(tmp_path / "x"), "-m", str(tmp_path / "m"),
+                      "--device", "cpu", "--gui", "--port", "0"])
+        assert network_gui.listener.getsockname()[1] > 0
+    finally:
+        if network_gui.listener is not None:
+            network_gui.listener.close()
+        network_gui.listener = network_gui.conn = None
+
+
+def test_run_all_levels_runs_geometry_then_each_level(tmp_path, monkeypatch):
+    """scripts/run_all_levels.sh's steps through this CLI's main: the
+    geometry phase to <out>_-1/chkpnt$ITER_RGB.npz, then a feature phase a
+    level from that checkpoint at -r 2 (the paths test_cli.py's
+    test_run_all_levels_pipeline checks for the script); a second run
+    finds the geometry checkpoint and trains the levels alone. The CPU
+    runs sort a smaller entry buffer (--max_entries 16384)."""
+    from langsplatv2_tpu_torch.train import run_all_levels
+
+    write_colmap_scene(tmp_path / "scene", np.random.default_rng(1),
+                       n_imgs=3, n_seg=24)
+    calls = []
+
+    def main(argv, real=cli.main):
+        calls.append(argv)
+        return real(argv + ["--max_entries", "16384", "--quiet"])
+
+    monkeypatch.setattr(cli, "main", main)
+    monkeypatch.setenv("ITER_RGB", "4")
+    monkeypatch.setenv("ITER_FEAT", "2")
+    out = str(tmp_path / "out" / "m")
+    argv = [str(tmp_path / "scene"), out, "1", "2", "--device", "cpu"]
+    first = run_all_levels.main(argv)
+    assert [s["phase"] for s in first] == ["rgb", "feature", "feature"]
+    assert [s["last_iter"] for s in first] == [4, 2, 2]
+    for d, it in (("_-1", 4), ("_1", 2), ("_2", 2)):
+        assert os.path.isfile(f"{out}{d}/chkpnt{it}.npz")
+    for level, call in zip((1, 2), calls[1:]):
+        assert call[call.index("-r") + 1] == "2"
+        assert call[call.index("--feature_level") + 1] == str(level)
+        assert call[call.index("--start_checkpoint") + 1] == \
+            f"{out}_-1/chkpnt4.npz"
+    again = run_all_levels.main(argv[:3] + argv[4:])
+    assert [s["phase"] for s in again] == ["feature"]

@@ -528,10 +528,23 @@ def test_optimizer_surgery_matches_jax():
         optimizers.zero_group_moments(port_opt, "language_logits")
 
 
+class _Polled(Exception):
+    pass
+
+
 @pytest.mark.parametrize("option", ["gui_source_path"])
-def test_train_rgb_later_options_raise(option):
+def test_train_rgb_later_options_raise(option, monkeypatch):
+    """gui_source_path is ported: the loop polls the viewer at the top of
+    its first iteration, before any step (the poll raises here to show
+    it)."""
     m = gm.create_from_pcd(np.zeros((4, 3), np.float32) + np.arange(4)[:, None],
                            np.zeros((4, 3), np.float32), 1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+
+    def poll(model, bg, iteration, iterations, source, max_entries, dev):
+        raise _Polled(iteration, iterations, source)
+
+    monkeypatch.setattr(trainer, "_gui_poll", poll)
+    with pytest.raises(_Polled) as e:
         trainer.train_rgb(m, [], types_opt(), 1.0, iterations=1,
                           device="cpu", **{option: "scene"})
+    assert e.value.args == (1, 1, "scene")

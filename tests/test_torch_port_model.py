@@ -205,10 +205,33 @@ def test_port_imports_no_jax(path):
             assert name.split(".")[0] not in banned, f"{path}: {name}"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """No device argument means CUDA; without CUDA that raises instead of
-    running on the CPU."""
+    running on the CPU. The command lines (the benchmarks, PSNR, the
+    render server, the whole training pipeline) raise before they read or
+    write anything."""
+    from langsplatv2_tpu_torch.eval import (eval_3d_ovs, eval_lerf,
+                                            eval_mip_nerf360, eval_psnr)
+    from langsplatv2_tpu_torch.serve import backend_renderer
+    from langsplatv2_tpu_torch.train import run_all_levels
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    bench = ["--dataset_name", "s", "--path_root", str(tmp_path / "none"),
+             "--ckpt_root", str(tmp_path / "none"), "--output_root",
+             str(out)]
+    for main, argv in (
+            (eval_lerf.main, bench), (eval_3d_ovs.main, bench),
+            (eval_mip_nerf360.main, bench),
+            (eval_psnr.main, ["-s", str(tmp_path / "none"), "-m",
+                              str(tmp_path / "none")]),
+            (backend_renderer.make_server,
+             ["--ckpt_paths", str(tmp_path / "none")]),
+            (backend_renderer.main, ["--ckpt_paths", str(tmp_path / "none")]),
+            (run_all_levels.main, [str(tmp_path / "none"), str(out / "m")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert not out.exists()
     f = model_fields(20)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_numpy_params(f)
@@ -305,11 +328,25 @@ def _train_call(cameras=(), iterations=0, **kw):
                    iterations=iterations, device="cpu", **kw)
 
 
+class _Polled(Exception):
+    pass
+
+
 @pytest.mark.parametrize("kwargs", [dict(gui_source_path="scene")],
                          ids=["gui"])
-def test_later_training_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _train_call(**kwargs)
+def test_later_training_options_raise(kwargs, monkeypatch):
+    """gui_source_path is ported: the feature loop polls the viewer at the
+    top of its first iteration, before any step (the poll raises here to
+    show it)."""
+    from langsplatv2_tpu_torch.train import trainer
+
+    def poll(model, bg, iteration, iterations, source, max_entries, dev):
+        raise _Polled(iteration, source)
+
+    monkeypatch.setattr(trainer, "_gui_poll", poll)
+    with pytest.raises(_Polled) as e:
+        _train_call(iterations=1, **kwargs)
+    assert e.value.args == (1, "scene")
 
 
 @pytest.mark.parametrize("kwargs,match", [
