@@ -219,14 +219,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    a SIBR client thread asking for a frame with the Python SH colours and
    covariances (scaling_modifier 0.8), one without, then training on:
    each frame within one u8 level of a direct render of the checkpoint,
-   K1 and K2 once a frame, the verify string the source path.
+   the verify string the source path; the frame without the Python
+   covariances launches K1 and K2 once, the one with them takes the XLA
+   route, as JAX's viewer does: K1 without the cull once, no K2;
+23. the XLA route (impl="xla", JAX's differentiable pipeline): (a) K1
+   without the exact cull on phase 4's scene at 1080p (the route's 3-sigma
+   rects) against its plain version bit for bit at a budget above the
+   total and one cutting it, timed beside K1 with the cull and
+   bin_gaussians; (b) the geometry step through impl="xla" on phase 9's
+   scene (300k, SH 3, 544x960) at tile_cap 512, tile_batch 16, 20 steps
+   counted (K1 without the cull each step, nothing else): the median
+   step, its forward and backward, the peak memory, a falling finite loss,
+   finite gradients; (c) on a reduced scene (3,000 Gaussians, 160x128,
+   every tile within tile_cap) the route against the per-pixel oracle
+   on the card (images atol 1e-5, every gradient 2e-5 of the largest) and
+   against the kernel routes (RGB with K7, dense with K2 dense, quick at
+   192 channels with K2 f32 and K4: images atol 3e-5, their gradients 2e-5
+   of the largest); (d) dense features (64) with geometry gradients under
+   impl="auto" on phase 7's scene, one step timed with its peak memory,
+   and an RGB frame on binning="cascade" under "auto" equal to the
+   impl="xla" frame bit for bit; (e) train.cli --impl xla --tile_cap 512
+   on phase 21's scene, 8 geometry and 8 feature iterations, counted, ms
+   a camera beside phase 21's; (f) the render tools (demo_prompt,
+   debug_renderer) on phase 22's checkpoints and scene, their files and
+   arrays equal to direct renders, counted.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
 bf16 K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13; for
 K2 dense of phase 14, for the bf16-cell modes of phase 15, for K8 (entries
 that differ, 0) and K2 on its segments of phase 16, for K1 with_alpha of
-phase 17 at both loads, for K9 of phase 18) and, last,
+phase 17 at both loads, for K9 of phase 18, for K1 without the cull of
+phase 23 (a), its launches from (b)) and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -253,13 +277,15 @@ from langsplatv2_tpu_torch.models.gaussians import (create_from_pcd,
                                                     from_numpy_params,
                                                     init_language_features)
 from langsplatv2_tpu_torch.models.renderer import make_settings, render
-from langsplatv2_tpu_torch.ops import (blend, budget, cascade, expand, gram,
-                                       kernels, probe, projection, query,
-                                       rasterize_tiles, rgb_train, temporal,
-                                       train)
+from langsplatv2_tpu_torch.ops import (binning, blend, budget, cascade,
+                                       expand, gram, kernels, probe,
+                                       projection, query, rasterize_tiles,
+                                       rgb_train, temporal, train)
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, \
     capped_binning, mark_stage, rasterize, rasterize_quick_query, \
     sorted_binning
+from langsplatv2_tpu_torch.ops.rasterize_reference import \
+    rasterize_reference
 from langsplatv2_tpu_torch.serve.backend import BackendRenderer
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
@@ -341,6 +367,9 @@ KERNELS = {
                "langsplatv2_tpu/ops/pallas_gram.py:175"),
     "K6bK32": ("gram_tiles_bwd[K=32]", "langsplatv2_tpu_torch/csrc/gram.cu",
                "langsplatv2_tpu/ops/pallas_gram.py:205"),
+    "K1nocull": ("expand_entries[exact_cull=False]",
+                 "langsplatv2_tpu_torch/csrc/expand.cu",
+                 "langsplatv2_tpu/ops/pallas_binning.py:498"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -4148,7 +4177,9 @@ def scene_dir_path(dev, smi: str) -> dict:
 
 CLI_SCENE = "eval_scene"               # <path_root>/<scene>, <scene>_1_<lvl>
 CLI_ITER = 30
-CLI_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+CLI_WRAPPERS = {"K1": expand.expand_entries,
+                "K1nocull": (expand.expand_entries, "nocull_launches"),
+                "K2": blend.blend_tiles,
                 "K2f16": blend.blend_tiles_fast16,
                 "K2q": blend.blend_tiles_query, "K3": query.query_map_tiles,
                 "K3bf16": query.query_map_tiles_bf16,
@@ -4242,10 +4273,11 @@ def run_cli(main, argv) -> tuple[dict, float, dict, list]:
         captured.getvalue().splitlines()
 
 
-def check_launches(label: str, launches: dict, expect: dict) -> None:
+def check_launches(label: str, launches: dict, expect: dict,
+                   phase: int = 22) -> None:
     want = {k: expect.get(k, 0) for k in CLI_WRAPPERS}
     if launches != want:
-        fail(f"phase 22 {label}: launches {launches}, expected {want}")
+        fail(f"phase {phase} {label}: launches {launches}, expected {want}")
 
 
 def same_summary(label: str, got: dict, ref: dict, atol: float = 1e-6):
@@ -4526,7 +4558,11 @@ def cli_path(dev, smi: str, n: int) -> dict:
         got = np.frombuffer(rep["frame"], np.uint8).reshape(
             ref.shape).astype(np.int16)
         diff = int(np.abs(got - ref).max())
-        check_launches("gui frame", rep["launches"], {"K1": 1, "K2": 1})
+        # The Python covariances take the XLA route (K1 without the cull,
+        # the autograd tile blend), as JAX's viewer does.
+        check_launches("gui frame", rep["launches"],
+                       {"K1": 1, "K1nocull": 1} if rep["shs"]
+                       else {"K1": 1, "K2": 1})
         gui.append(dict(ms=rep["ms"], max_level_diff=diff, shs=rep["shs"],
                         launches=rep["launches"], mean=float(got.mean())))
         if diff > 1 or got.max() == 0:
@@ -4553,6 +4589,595 @@ def cli_path(dev, smi: str, n: int) -> dict:
         + ", ".join(f"{g['ms']:.1f} ms (shs/cov {g['shs']}, max diff "
                     f"{g['max_level_diff']})" for g in gui)
         + f", run {wall:.1f} s ({smi})")
+    return res
+
+
+# ------------- phase 23: the XLA route (impl="xla") on the card
+
+XLA_WRAPPERS = {"K1": expand.expand_entries,
+                "K1nocull": (expand.expand_entries, "nocull_launches"),
+                "K2": blend.blend_tiles, "K2dense": blend.blend_tiles_dense,
+                "K4": train.feature_grads, "K5": train.feature_grads_topk,
+                "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd,
+                "K7": rgb_train.rgb_grads, "K8": cascade.cascade_binning}
+XLA_STEPS = 20
+# scripts/profile_rgb_train.py:62-66 runs the XLA step at tile_cap 512:
+# the autograd blend keeps [tile_batch, 256, tile_cap] temporaries a batch.
+XLA_TILE_CAP = 512
+XLA_MAX_ENTRIES = 2 ** 22
+XLA_CLI_MAX_ENTRIES = 2 ** 24   # phase 21's wide splats without the cull
+# The cross-check's scene: small enough for the per-pixel oracle's
+# [pixels, N] temporaries under autograd, every tile within tile_cap.
+CROSS_N, CROSS_H, CROSS_W = 3000, 128, 160
+# f32 tolerances: the oracle and the route (images, gradients of the
+# largest), the kernel routes and the route.
+CROSS_ATOL, CROSS_GRAD_REL, CROSS_KERNEL_ATOL = 1e-5, 2e-5, 3e-5
+
+
+def check_xla_launches(label: str, launches: dict, expect: dict) -> None:
+    want = {k: expect.get(k, 0) for k in XLA_WRAPPERS}
+    if launches != want:
+        fail(f"phase 23 {label}: launches {launches}, expected {want}")
+
+
+def k1_nocull(dev) -> dict:
+    """Phase 23 (a): K1 without the exact cull (the XLA route's binning) on
+    phase 4's bench scene at 1080p, on the route's own inputs (the
+    preprocess without opacities: 3-sigma tile rects): tile, depth, gauss
+    and total against its plain version bit for bit, at a budget above the
+    live total and at one that cuts it; timed beside K1 with the cull on
+    the kernel route's inputs (phase 5's) and beside bin_gaussians (K1 +
+    the key sort). Bound: 12 B a Gaussian (tiles_touched, the scan), 20 B
+    an on-screen one (its rect and depth; no cull reads xy, conic or
+    opacity), 12 B a slot written."""
+    model = from_numpy_params(bench_scene(1_000_000), device=dev)
+    h, w = 1080, 1920
+    view, pm, tfx, tfy = bench_camera(h, w)
+    T = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    with torch.no_grad():
+        op = model.get_opacity()[:, 0].contiguous()
+        geo = (model.xyz, model.get_scaling(), model.get_rotation(), None,
+               None, T(view), T(pm), torch.zeros(3, device=dev), tfx, tfy,
+               w, h, 0)
+        proj = projection.preprocess(*geo)
+        proj_k = projection.preprocess(*geo, opacities=op)
+    del model
+    gx, gy = -(-w // 16), -(-h // 16)
+    n = op.shape[0]
+    live = int(proj.tiles_touched.sum())
+    n_on = int((proj.tiles_touched > 0).sum())
+    offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
+        - proj.tiles_touched
+    inv = float(np.float32(255.0))
+    budgets = {"above": (int(live * 1.07) // (1 << 20) + 1) * (1 << 20),
+               "cut": live // 2 + 777}
+    res = {"live_total": live, "gaussians_on_screen": n_on,
+           "kernel_route_total": int(proj_k.tiles_touched.sum())}
+    for name, budget_ in budgets.items():
+        out = expand.expand_entries(proj, op, gx, gy, budget_,
+                                    exact_cull=False)
+        ref = expand.expand_entries_plain(proj, op, offsets, gx, gy, budget_,
+                                          False, inv)
+        pairs = list(zip(out[:3], ref))
+        mism = sum(int((a != b).sum()) for a, b in pairs)
+        res[name] = dict(max_entries=budget_, mismatches=mism,
+                         total=int(out[3]), max_abs_err=max_diff(pairs))
+        if mism or int(out[3]) != min(live, budget_):
+            fail(f"phase 23 (a): K1 without the cull differs from its plain "
+                 f"version at max_entries {budget_}: {mism} entries, total "
+                 f"{int(out[3])} of {live}")
+        del out, ref, pairs
+    budget_ = budgets["above"]
+    ms, _ = cuda_ms(lambda: expand.expand_entries(
+        proj, op, gx, gy, budget_, exact_cull=False), 20)
+    plain_ms, _ = cuda_ms(lambda: expand.expand_entries_plain(
+        proj, op, offsets, gx, gy, budget_, False, inv), 3)
+    cull_ms, _ = cuda_ms(lambda: expand.expand_entries(
+        proj_k, op, gx, gy, LOADS[0][3]), 20)
+    bin_ms, _ = cuda_ms(lambda: binning.bin_gaussians(proj, gx, gy, budget_,
+                                                      op), 10)
+    b_ms, b_by = bound(n * 12 + n_on * 20 + budget_ * 12, 0.0)
+    res["row"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                      bound_ms=b_ms, bound_by=b_by,
+                      max_abs_err=max(res[k]["max_abs_err"]
+                                      for k in budgets))
+    res.update(cull_ms=cull_ms, bin_gaussians_ms=bin_ms)
+    log(f"phase 23 (a) K1 without the cull, 1080p bench scene: {live} "
+        f"entries ({res['kernel_route_total']} in the kernel route's "
+        f"rects), equal to its plain version at max_entries "
+        f"{budgets['above']} and {budgets['cut']}; {ms:.4f} ms (bound "
+        f"{b_ms:.4f}, {b_by}; plain {plain_ms:.3f}) beside K1 with the cull "
+        f"{cull_ms:.4f} ms on the kernel route's inputs; bin_gaussians "
+        f"{bin_ms:.3f} ms")
+    return res
+
+
+def xla_step_path(dev, smi: str) -> dict:
+    """Phase 23 (b): the geometry step through impl="xla" at full width
+    (phase 9's SH 3 scene: 300k Gaussians, 544x960, its 4 cameras), at
+    tile_cap 512 and tile_batch 16: train_rgb for 20 steps, the counters
+    zeroed just before and read just after (K1 without the cull once a
+    step, no kernel of the kernel routes), the median step, the peak
+    device memory, the loss (finite, falling) and finite gradients; then
+    one step's forward and backward timed apart."""
+    model, images = rgb_scene(RGB_N, TRAIN_H, TRAIN_W, len(TRAIN_YAW_DEG), 0,
+                              dev)
+    cams = train_cameras("xla", TRAIN_YAW_DEG, TRAIN_H, TRAIN_W, images)
+    opt = OptimizationParams(argparse.ArgumentParser())
+    step_ms, metrics_log = [], []
+    clock = [None]
+
+    def on_iteration(it, m, _opt, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - clock[0]) * 1e3)
+        clock[0] = now
+        metrics_log.append(dict(
+            loss=float(metrics["loss"]),
+            total_entries=int(metrics["total_entries"]),
+            max_tile_count=int(metrics["max_tile_count"])))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    zero_counts(XLA_WRAPPERS)
+    clock[0] = time.perf_counter()
+    model, _, logs = trainer.train_rgb(
+        model, cams, opt, RGB_EXTENT, iterations=XLA_STEPS, seed=0,
+        tile_cap=XLA_TILE_CAP, max_entries=XLA_MAX_ENTRIES, impl="xla",
+        on_iteration=on_iteration, device=dev)
+    launches = read_counts(XLA_WRAPPERS)
+    peak = torch.cuda.max_memory_allocated()
+    losses_ = logs.losses
+    finite = all(bool(torch.isfinite(getattr(model, k).grad).all())
+                 for k in trainer.RGB_PARAM_NAMES)
+    tot = [m["total_entries"] for m in metrics_log]
+    mtc = [m["max_tile_count"] for m in metrics_log]
+    check_xla_launches("(b) geometry steps", launches,
+                       {"K1": XLA_STEPS, "K1nocull": XLA_STEPS})
+    if not (all(math.isfinite(v) for v in losses_) and finite):
+        fail(f"phase 23 (b): non-finite loss or gradients: {losses_}")
+    if not statistics.mean(losses_[-4:]) < statistics.mean(losses_[:4]):
+        fail(f"phase 23 (b): the loss did not fall: {losses_}")
+    if max(tot) >= XLA_MAX_ENTRIES:
+        fail(f"phase 23 (b): the entry budget saturated: {tot}")
+
+    # One step's forward (render and loss) and backward, timed apart.
+    cam = cams[0]
+    s = make_settings(cam, model.active_sh_degree, 1.0, XLA_MAX_ENTRIES,
+                      XLA_TILE_CAP, 16, impl="xla")
+    gt = torch.as_tensor(cam.image, device=dev)
+    split = []
+    for _ in range(3):
+        dummy = torch.zeros((model.capacity, 2), device=dev,
+                            requires_grad=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render(s, model, cam.world_view_transform,
+                     cam.full_proj_transform, cam.camera_center,
+                     np.zeros(3, np.float32), means2d_dummy=dummy, device=dev)
+        loss = 0.8 * losses.l1_loss(out.render, gt) + 0.2 * (
+            1.0 - losses.ssim(out.render, gt))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        for k in trainer.RGB_PARAM_NAMES:
+            getattr(model, k).grad = None
+    fwd_ms = statistics.median(a for a, _ in split)
+    bwd_ms = statistics.median(b for _, b in split)
+    res = dict(step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               peak_bytes=peak, base_bytes=base_mem, losses=losses_,
+               total_entries=tot, max_tile_count=mtc, launches=launches,
+               forward_ms=fwd_ms, backward_ms=bwd_ms,
+               tile_cap=XLA_TILE_CAP)
+    log(f"phase 23 (b) geometry step through impl=\"xla\" ({RGB_N} "
+        f"Gaussians, SH 3, {TRAIN_W}x{TRAIN_H}, tile_cap {XLA_TILE_CAP}, "
+        f"tile_batch 16): median {res['step_ms_median']:.3f} ms a step over "
+        f"{XLA_STEPS} (forward {fwd_ms:.3f}, backward {bwd_ms:.3f}); peak "
+        f"{peak / 2**30:.3f} GiB allocated ({base_mem / 2**30:.3f} before); "
+        f"loss first {losses_[0]!r} last {losses_[-1]!r}; entries "
+        f"{max(tot)}, max tile count {max(mtc)}; launches {launches} "
+        f"({smi})")
+    del model, cams, images
+    return res
+
+
+def cross_scene(dev) -> dict:
+    """The cross-check's tensors: CROSS_N Gaussians in front of the bench
+    camera, SH 3, 64 dense channels and 12 quick pairs over 192 channels,
+    from a seed."""
+    rng = np.random.default_rng(23)
+    n = CROSS_N
+    shs = (rng.normal(size=(n, 16, 3)) * 0.3).astype(np.float32)
+    shs[:, 0] = rng.uniform(0.1, 1.5, (n, 3))
+    qw = rng.uniform(0, 1, (n, L * TOPK)).astype(np.float32)
+    qw /= qw.sum(1, keepdims=True)
+    qi = np.concatenate([rng.integers(0, K, (n, TOPK)) + lvl * K
+                         for lvl in range(L)], 1).astype(np.float32)
+    arrays = dict(
+        means3d=np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                                rng.uniform(2.0, 8.0, (n, 1))], 1),
+        scales=rng.uniform(0.02, 0.2, (n, 3)),
+        rotations=rng.normal(size=(n, 4)),
+        opacities=rng.uniform(0.2, 0.95, (n, 1)), shs=shs,
+        features=rng.uniform(0, 1, (n, 64)), quick_weights=qw)
+    out = {k: torch.as_tensor(v.astype(np.float32), device=dev)
+           for k, v in arrays.items()}
+    out["quick_indices"] = torch.as_tensor(qi, device=dev)
+    return out
+
+
+def xla_cross_check(dev) -> dict:
+    """Phase 23 (c): on a reduced scene (CROSS_N Gaussians at
+    CROSS_W x CROSS_H, every tile within tile_cap), the same inputs through
+    the XLA route, the per-pixel oracle on the card and the kernel routes
+    (impl="pallas"): RGB at SH 3 with a background and the means2D carrier
+    (K7's gradients), 64 dense channels (K2 dense, K4) and 192 quick
+    channels with quick_train (K2 f32, K4). The route against the oracle:
+    images atol 1e-5, the gradients of every input 2e-5 of the largest;
+    against the kernel routes: images atol 3e-5, the gradients the kernel
+    route gives 2e-5 of the largest."""
+    view, pm, tfx, tfy = bench_camera(CROSS_H, CROSS_W)
+    bg = torch.tensor([0.2, 0.5, 0.8], device=dev)
+    zero3 = torch.zeros(3, device=dev)
+    base = cross_scene(dev)
+    rng = np.random.default_rng(24)
+    weights = {k: torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                  device=dev)
+               for k, shape in (("rgb", (3, CROSS_H, CROSS_W)),
+                                ("t", (CROSS_H, CROSS_W)),
+                                ("f64", (64, CROSS_H, CROSS_W)),
+                                ("f192", (L * K, CROSS_H, CROSS_W)))}
+    geo_names = ("means3d", "scales", "rotations", "opacities")
+    res = {}
+    for mode in ("rgb", "dense", "quick"):
+        sh = 3 if mode == "rgb" else 0
+        s = RasterizeSettings(CROSS_H, CROSS_W, tfx, tfy, sh,
+                              max_entries=1 << 18, impl="xla")
+        names = geo_names + ("shs", "means2d_dummy") + (
+            ("features",) if mode == "dense" else ()) + (
+            ("quick_weights",) if mode == "quick" else ())
+        outs = {}
+        for route in ("xla", "oracle", "kernel"):
+            t = {k: base[k].clone().requires_grad_(True) for k in names
+                 if k != "means2d_dummy"}
+            t["means2d_dummy"] = torch.zeros((CROSS_N, 2), device=dev,
+                                             requires_grad=True)
+            shs = t["shs"] if mode == "rgb" else t["shs"][:, :1]
+            kw = {}
+            if mode == "dense":
+                kw["features"] = t["features"]
+            if mode == "quick":
+                kw = dict(quick_weights=t["quick_weights"],
+                          quick_indices=base["quick_indices"].int(),
+                          quick_channels=L * K, quick_train=True)
+            carrier = t["means2d_dummy"] if (mode == "rgb"
+                                             or route != "kernel") else None
+            if route == "oracle":
+                feats = kw.get("features")
+                if mode == "quick":
+                    feats = torch.zeros((CROSS_N, L * K), device=dev
+                                        ).scatter_add(
+                        1, base["quick_indices"].long(), t["quick_weights"])
+                rgb, feat, radii, tt = rasterize_reference(
+                    t["means3d"], t["opacities"], t["scales"],
+                    t["rotations"], None, shs, None, feats, view, pm, zero3,
+                    tfx, tfy, CROSS_W, CROSS_H, sh, bg,
+                    means2d_dummy=carrier, device=dev)
+                mtc = None
+            else:
+                o = rasterize(
+                    s._replace(impl="xla" if route == "xla" else "pallas"),
+                    t["means3d"], t["opacities"], view, pm, zero3, bg,
+                    scales=t["scales"], rotations=t["rotations"], shs=shs,
+                    means2d_dummy=carrier, device=dev, **kw)
+                rgb, feat, tt, mtc = (o.rgb, o.feature_map,
+                                      o.final_transmittance,
+                                      int(o.max_tile_count))
+            loss = (rgb * weights["rgb"]).sum() + (tt * weights["t"]).sum()
+            if feat is not None:
+                loss = loss + (feat * weights[
+                    "f64" if mode == "dense" else "f192"]).sum()
+            loss.backward()
+            outs[route] = dict(
+                images=[x.detach() for x in (rgb, tt) + (
+                    (feat,) if feat is not None else ())],
+                grads={k: v.grad for k, v in t.items()
+                       if v.grad is not None}, max_tile_count=mtc)
+        if outs["xla"]["max_tile_count"] > s.tile_cap:
+            fail(f"phase 23 (c) {mode}: a tile holds "
+                 f"{outs['xla']['max_tile_count']} entries, past tile_cap")
+        r = {"max_tile_count": outs["xla"]["max_tile_count"]}
+        for other, atol in (("oracle", CROSS_ATOL),
+                            ("kernel", CROSS_KERNEL_ATOL)):
+            img = max(float((a - b).abs().max()) for a, b in zip(
+                outs["xla"]["images"], outs[other]["images"]))
+            grads = {}
+            for k, b in outs[other]["grads"].items():
+                scale = float(b.abs().max()) + 1e-12
+                grads[k] = float((outs["xla"]["grads"][k] - b).abs().max()
+                                 ) / scale
+            r[other] = dict(image_err=img, grad_rel_err=grads)
+            if not img <= atol or not all(v <= CROSS_GRAD_REL
+                                          for v in grads.values()):
+                fail(f"phase 23 (c) {mode}: the XLA route against the "
+                     f"{other}: images {img} (atol {atol}), gradients "
+                     f"{grads} (of the largest, {CROSS_GRAD_REL})")
+            if other == "kernel" and not grads:
+                fail(f"phase 23 (c) {mode}: no kernel-route gradient")
+        res[mode] = r
+        log(f"phase 23 (c) {mode} ({CROSS_N} Gaussians, {CROSS_W}x"
+            f"{CROSS_H}, max tile count {r['max_tile_count']}): the XLA "
+            f"route against the oracle: images {r['oracle']['image_err']!r}"
+            f", gradients {r['oracle']['grad_rel_err']}; against the kernel "
+            f"route: images {r['kernel']['image_err']!r}, gradients "
+            f"{r['kernel']['grad_rel_err']}")
+    return res
+
+
+def dense_auto_step(dev, smi: str) -> dict:
+    """Phase 23 (d): dense features (the top-4 weights, 64 channels) with a
+    geometry gradient under impl="auto" on phase 7's scene at 544x960: one
+    step (the XLA route: K1 without the cull, no dense K2 or K4) timed,
+    with its peak memory and finite, non-zero gradients of means, scales,
+    rotations, opacities and features; then an RGB frame on
+    binning="cascade" under impl="auto" (the XLA route, not K8) equal to
+    the impl="xla" frame bit for bit."""
+    model, _ = train_scene(TRAIN_N, 0, dev)
+    cam = train_cameras("dense", (0.0,), TRAIN_H, TRAIN_W)[0]
+    s = make_settings(cam, 0, 1.0, XLA_MAX_ENTRIES)
+    view, pm, campos = (cam.world_view_transform, cam.full_proj_transform,
+                        cam.camera_center)
+    with torch.no_grad():
+        fields = dict(means3d=model.xyz, scales=model.get_scaling(),
+                      rotations=model.get_rotation(),
+                      opacities=model.get_opacity(),
+                      features=model.get_render_weights(TRAIN_TOPK))
+    t = {k: v.detach().clone().requires_grad_(True)
+         for k, v in fields.items()}
+    shs = model.get_features().detach()
+    rng = np.random.default_rng(25)
+    cot = torch.as_tensor(rng.normal(size=(K, TRAIN_H, TRAIN_W)).astype(
+        np.float32), device=dev)
+    z = np.zeros(3, np.float32)
+    runs = []
+    for _ in range(2):      # the first also warms the allocator
+        for v in t.values():
+            v.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(XLA_WRAPPERS)
+        t0 = time.perf_counter()
+        out = rasterize(s, t["means3d"], t["opacities"], view, pm, campos, z,
+                        scales=t["scales"], rotations=t["rotations"],
+                        shs=shs, features=t["features"], device=dev)
+        ((out.feature_map * cot).sum() + out.rgb.sum()).backward()
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3,
+                     torch.cuda.max_memory_allocated(),
+                     read_counts(XLA_WRAPPERS)))
+    ms, peak, launches = runs[-1]
+    check_xla_launches("(d) dense step", launches, {"K1": 1, "K1nocull": 1})
+    bad = [k for k, v in t.items() if not (
+        bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0)]
+    if bad:
+        fail(f"phase 23 (d): non-finite or zero gradients of {bad}")
+    with torch.no_grad():
+        zero_counts(XLA_WRAPPERS)
+        frames = [rasterize(s._replace(**change), t["means3d"],
+                            t["opacities"], view, pm, campos, z,
+                            scales=t["scales"], rotations=t["rotations"],
+                            shs=shs, device=dev)
+                  for change in (dict(binning="cascade"), dict(impl="xla"))]
+        frame_launches = read_counts(XLA_WRAPPERS)
+    check_xla_launches("(d) cascade frame under auto", frame_launches,
+                       {"K1": 2, "K1nocull": 2})
+    equal = all(torch.equal(getattr(frames[0], f), getattr(frames[1], f))
+                for f in ("rgb", "final_transmittance", "max_tile_count",
+                          "total_entries"))
+    if not equal:
+        fail("phase 23 (d): the cascade frame under impl=\"auto\" differs "
+             "from the impl=\"xla\" frame")
+    res = dict(ms=ms, first_ms=runs[0][0], peak_bytes=peak,
+               launches=launches, total_entries=int(out.total_entries),
+               max_tile_count=int(out.max_tile_count), cascade_equal=equal)
+    log(f"phase 23 (d) dense features (64 channels) with geometry gradients "
+        f"under impl=\"auto\" ({TRAIN_N} Gaussians, {TRAIN_W}x{TRAIN_H}, "
+        f"tile_cap {s.tile_cap}): one step {ms:.3f} ms (first "
+        f"{runs[0][0]:.3f}), peak {peak / 2**30:.3f} GiB, "
+        f"{res['total_entries']} entries, max tile count "
+        f"{res['max_tile_count']}; launches {launches}; the RGB cascade "
+        f"frame under auto equals the impl=\"xla\" frame ({smi})")
+    del model, t, out, frames
+    return res
+
+
+def xla_cli(dev, smi: str, scene_res: dict) -> dict:
+    """Phase 23 (e): `train.cli --impl xla --tile_cap 512` on phase 21's
+    scene directory, in process: 8 geometry iterations from the points and
+    8 feature iterations from phase 21's geometry checkpoint (k-means
+    codebooks, --cos_loss --topk 4), each counted (K1 without the cull
+    once an iteration, nothing else), finite losses, the ms a camera
+    beside phase 21's kernel-route runs and the peak memory."""
+    import io as pyio
+
+    from langsplatv2_tpu_torch.train import cli
+
+    root = Path("build") / "chip_smoke_scene"
+    scene, out = root / "scene", root / "out"
+    base = ["-s", str(scene), "--max_entries", str(XLA_CLI_MAX_ENTRIES),
+            "--impl", "xla", "--tile_cap", str(XLA_TILE_CAP)]
+    runs = {
+        "geometry": (["-m", str(out / "xg"), "--iterations", "8"],
+                     "geometry"),
+        "feature": (["-m", str(out / "xf"), "--include_feature",
+                     "--start_checkpoint",
+                     str(out / "g_-1" / "chkpnt24.npz"), "--feature_level",
+                     "1", "--cos_loss", "--topk", "4", "--iterations", "8"],
+                    "a")}
+    res = {}
+    for name, (argv, kernel_run) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(XLA_WRAPPERS)
+        captured = pyio.StringIO()
+        stdout, sys.stdout = sys.stdout, captured
+        t0 = time.perf_counter()
+        try:
+            summary = cli.main(base + argv)
+        finally:
+            sys.stdout = stdout
+        wall = time.perf_counter() - t0
+        launches = read_counts(XLA_WRAPPERS)
+        check_xla_launches(f"(e) {name}", launches, {"K1": 8, "K1nocull": 8})
+        losses_ = summary["losses"]
+        if not all(math.isfinite(v) for v in losses_):
+            fail(f"phase 23 (e) {name}: non-finite loss {losses_}")
+        if max(summary["total_entries"]) >= XLA_CLI_MAX_ENTRIES:
+            fail(f"phase 23 (e) {name}: the expansion reached max_entries")
+        kernel_ms = scene_res["runs"][kernel_run]["ms_per_camera"]
+        r = dict(ms_per_camera=statistics.median(summary["iteration_ms"]),
+                 kernel_route_ms_per_camera=kernel_ms, wall_s=wall,
+                 losses=losses_, launches=launches,
+                 peak_bytes=torch.cuda.max_memory_allocated(),
+                 total_entries_max=max(summary["total_entries"]))
+        res[name] = r
+        log(f"phase 23 (e) train.cli --impl xla, {name}: "
+            f"{r['ms_per_camera']:.3f} ms a camera (phase 21's kernel route "
+            f"{kernel_ms:.3f}), loss first {losses_[0]!r} last "
+            f"{losses_[-1]!r}, {r['total_entries_max']} entries, peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB, {wall:.1f} s in all; "
+            f"launches {launches} ({smi})")
+    return res
+
+
+def tools_path(dev, smi: str) -> dict:
+    """Phase 23 (f): the render tools on phase 22's level checkpoints and
+    scene (986x728), in process: demo_prompt over every 2nd camera (its
+    PNGs equal to the frames it computes; their RGB and similarity equal
+    to a direct render, render_language_feature_map_quick and the
+    script's contrast), debug_renderer on the first level checkpoint (its
+    RGB and similarity panels equal to direct renders); each counted."""
+    from PIL import Image
+
+    from langsplatv2_tpu_torch.eval.colormaps import apply_jet_u8
+    from langsplatv2_tpu_torch.models import io as mio
+    from langsplatv2_tpu_torch.scene.scene import Scene
+    from langsplatv2_tpu_torch.tools import debug_renderer, demo_prompt
+
+    root = Path("build") / "chip_smoke_cli"
+    data = root / "data" / CLI_SCENE
+    dirs = [root / "ckpt" / f"{CLI_SCENE}_1_{lvl}" for lvl in (1, 2, 3)]
+    prompt = EVAL_PROMPTS[0]
+    (paths, wall, launches, _) = run_cli(demo_prompt.main, [
+        "--ckpt_paths", *map(str, dirs), "--iteration", str(CLI_ITER),
+        "--source_path", str(data), "--prompt", prompt, "--every", "2",
+        "--output_dir", str(root / "demo"), "--clip_backend", "hash"])
+    check_launches("(f) demo_prompt", launches,
+                   {"K1": 2 * len(paths), "K2": 2 * len(paths)}, 23)
+    cams = Scene(str(data), "", shuffle=False).get_train_cameras()[::2]
+    merged = lerf.merge_level_models(
+        [mio.load_checkpoint(str(d / f"chkpnt{CLI_ITER}.npz"),
+                             device=dev)[0] for d in dirs])
+    clip = OpenCLIPNetwork("hash", device=dev)
+
+    def unit_text(prompts):     # the tools' normalization, in numpy
+        e = clip.encode_text(prompts).cpu().numpy()
+        return e / np.linalg.norm(e, axis=-1, keepdims=True)
+
+    text = unit_text([prompt])[0]
+    bg = np.zeros(3, np.float32)
+    diffs = []
+    for path, cam in zip(paths, cams):
+        mine = demo_prompt.heatmap_frame(merged, cam, text, 0.22,
+                                         device=dev)
+        s = make_settings(cam, merged.active_sh_degree)
+        pose = (cam.world_view_transform, cam.full_proj_transform,
+                cam.camera_center)
+        with torch.no_grad():
+            rgb = torch.clamp(render(s, merged, *pose, bg, device=dev)
+                              .render.permute(1, 2, 0), 0, 1).cpu().numpy()
+            lf = lerf.render_language_feature_map_quick(
+                merged, s, *pose, bg, device=dev).sum(0)
+            lf = lf / (torch.linalg.norm(lf, dim=0, keepdim=True) + 1e-10)
+            sim = torch.einsum("dhw,d->hw", lf, torch.as_tensor(
+                text, device=dev)).cpu().numpy()
+        sim = np.clip(sim, 0, 1) ** 4
+        sim = np.where(sim > 0.22 ** 4, sim, 0.0)
+        if sim.max() > 0:
+            sim = sim / sim.max()
+        heat = apply_jet_u8((sim * 255).astype(np.uint8)) / 255.0
+        frame = (np.where(sim[..., None] > 0, rgb * 0.4 + heat * 0.6, rgb)
+                 * 255).astype(np.uint8)
+        png = np.asarray(Image.open(path))
+        diffs.append(float(np.abs(mine["sim"] - sim).max()))
+        if not (np.array_equal(png, mine["frame"])
+                and np.array_equal(png, frame)
+                and np.array_equal(mine["rgb"], rgb) and diffs[-1] == 0.0):
+            fail(f"phase 23 (f): demo_prompt's {path} differs from a direct "
+                 f"render (sim {diffs[-1]})")
+    del merged
+    ckpt = dirs[0] / f"chkpnt{CLI_ITER}.npz"
+    prompts = list(EVAL_PROMPTS[:2])
+    (dbg, dbg_wall, dbg_launches, _) = run_cli(debug_renderer.main, [
+        "--checkpoint", str(ckpt), "--source_path", str(data),
+        "--prompts", *prompts, "--output", str(root / "debug.png"),
+        "--clip_backend", "hash"])
+    check_launches("(f) debug_renderer", dbg_launches, {"K1": 2, "K2": 2},
+                   23)
+    model, _ = mio.load_checkpoint(str(ckpt), device=dev)
+    cam = Scene(str(data), "", shuffle=False).get_train_cameras()[0]
+    s = make_settings(cam, model.active_sh_degree)
+    pose = (cam.world_view_transform, cam.full_proj_transform,
+            cam.camera_center)
+    text = torch.as_tensor(unit_text(prompts), device=dev)
+    with torch.no_grad():
+        rgb = torch.clamp(render(s, model, *pose, bg, device=dev)
+                          .render.permute(1, 2, 0), 0, 1).cpu().numpy()
+        wmap = render(s, model, *pose, bg, include_feature=True, topk=4,
+                      device=dev).language_feature_weight_map
+        feat = model.compute_final_feature_map(wmap)
+        feat = feat / (torch.linalg.norm(feat, dim=0, keepdim=True) + 1e-10)
+        sims = torch.einsum("dhw,pd->hwp", feat, text).cpu().numpy()
+    panels = dbg["panels"]
+    if not (np.array_equal(panels["rgb"], rgb)
+            and np.array_equal(panels["sims"], sims)
+            and os.path.exists(root / "debug.png")):
+        fail("phase 23 (f): debug_renderer's panels differ from direct "
+             "renders")
+    del model
+    res = dict(demo_frames=len(paths), demo_wall_s=wall,
+               demo_launches=launches, demo_sim_diff=max(diffs),
+               debug_wall_s=dbg_wall, debug_launches=dbg_launches,
+               logit_stats=dbg["logit_stats"])
+    log(f"phase 23 (f) demo_prompt: {len(paths)} frames in {wall:.2f} s, "
+        f"equal to direct renders, launches {launches}; debug_renderer: "
+        f"{dbg_wall:.2f} s, panels equal to direct renders, launches "
+        f"{dbg_launches} ({smi})")
+    return res
+
+
+def xla_route_path(dev, smi: str, scene_res: dict) -> dict:
+    """Phase 23: (a) to (f) above."""
+    t0 = time.perf_counter()
+    res = dict(k1_nocull=k1_nocull(dev))
+    torch.cuda.empty_cache()
+    res["step"] = xla_step_path(dev, smi)
+    torch.cuda.empty_cache()
+    res["cross_check"] = xla_cross_check(dev)
+    torch.cuda.empty_cache()
+    res["dense_auto"] = dense_auto_step(dev, smi)
+    torch.cuda.empty_cache()
+    res["cli"] = xla_cli(dev, smi, scene_res)
+    torch.cuda.empty_cache()
+    res["tools"] = tools_path(dev, smi)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 23: {res['phase_s']:.1f} s")
     return res
 
 
@@ -4658,8 +5283,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_res = cli_path(dev, smi, eval_res["evaluate_quick"]["gaussians"])
     torch.cuda.empty_cache()
+    xla_res = xla_route_path(dev, smi, scene_res)
     new_rows = {**new_kernel_rows(lmc, probe_res),
-                **phase20_kernel_rows(p20s, p20t)}
+                **phase20_kernel_rows(p20s, p20t),
+                "K1nocull": dict(
+                    xla_res["k1_nocull"]["row"],
+                    launches=xla_res["step"]["launches"]["K1nocull"])}
 
     line = []
     for k, (name, source, replaces) in KERNELS.items():
@@ -4738,7 +5367,7 @@ def main() -> None:
         qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6a": "K6a kpk=1",
               "K6b": "K6b kpk=1", "K4": "K4", "K7": "K7",
               "K3pq17": "K3 any f32", "K3bf16pq17": "K3 any bf16",
-              "K5": "K5", "K1": "K1 s=0",
+              "K5": "K5", "K1": "K1 s=0", "K1nocull": "K1 s=0",
               "K1_with_alpha": f"K1 s={CAPPED['subdiv']}",
               "K6aK32": "K6a kpk=1 any", "K6bK32": "K6b kpk=1 any"}
         if k in qg:
@@ -4766,7 +5395,7 @@ def main() -> None:
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res, many_prompts_serving=p20s,
                        small_k_training=p20t, scene_dir_training=scene_res,
-                       command_lines=cli_res),
+                       command_lines=cli_res, xla_route=xla_res),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

@@ -4,6 +4,8 @@ nerfstudio-derived): `apply_colormap`, `apply_float_colormap` (turbo
 default), `apply_depth_colormap`, `apply_pca_colormap` with outlier
 rejection, and the `ColormapOptions` bundle used by the eval drivers.
 matplotlib (float colormaps) and cv2 (saving) are imported when used.
+`apply_jet_u8` is OpenCV's COLORMAP_JET table in numpy (the render tools'
+heatmaps; the card's machine has no cv2).
 """
 from __future__ import annotations
 
@@ -16,6 +18,23 @@ def _mpl_colormap(name: str, values: np.ndarray) -> np.ndarray:
     import matplotlib
 
     return matplotlib.colormaps[name](values)[..., :3]
+
+
+def jet_table() -> np.ndarray:
+    """[256, 3] u8 RGB: `cv2.applyColorMap(v, cv2.COLORMAP_JET)` for v =
+    0..255, channels reversed (OpenCV's piecewise-linear JET, slopes of 4
+    levels a step, with its table's one odd rounding at 159)."""
+    i = np.arange(256)
+    b = np.clip(np.minimum(128 + 4 * i, 638 - 4 * i), 0, 255)
+    g = np.clip(np.minimum(4 * i - 128, 892 - 4 * i), 0, 255)
+    r = np.clip(np.minimum(4 * i - 382, 1148 - 4 * i), 0, 255)
+    b[159] = 1
+    return np.stack([r, g, b], -1).astype(np.uint8)
+
+
+def apply_jet_u8(values: np.ndarray) -> np.ndarray:
+    """u8 [...] -> u8 [..., 3] RGB, cv2's COLORMAP_JET then BGR -> RGB."""
+    return jet_table()[np.asarray(values, np.uint8)]
 
 
 @dataclass

@@ -14,10 +14,12 @@ runs the top-k forward and backward once for all its cameras.
 The viewer's options, with JAX's precedence: `compute_cov3d_python` hands
 the rasterizer the model's covariances at `settings.scale_modifier`
 (`cov3d_precomp`, which the preprocess then takes as they are, so the
-modifier is applied once); `override_color` [N, 3] replaces the colours,
-else `convert_shs_python` evaluates the SH colours here
-(`ops/projection.py::sh_to_color` at the model's active degree) instead
-of in the preprocess. `render_camera` renders a camera object.
+modifier is applied once; under impl="auto" such an RGB frame, and a
+feature-mode frame, takes the rasterizer's XLA route, as in JAX);
+`override_color` [N, 3] replaces the colours, else `convert_shs_python`
+evaluates the SH colours here (`ops/projection.py::sh_to_color` at the
+model's active degree) instead of in the preprocess. `render_camera`
+renders a camera object.
 """
 from __future__ import annotations
 
@@ -43,20 +45,24 @@ class RenderOutput(NamedTuple):
 
 
 def make_settings(camera, sh_degree: int, scaling_modifier: float = 1.0,
-                  max_entries: int = 2 ** 21, impl: str = "auto",
+                  max_entries: int = 2 ** 21, tile_cap: int = 1024,
+                  tile_batch: int = 16, impl: str = "auto",
                   live_entries: int = 0, tile_budget: float = 0.0,
                   tile_budget_cap: int = 128, tile_budget_subdiv: int = 2,
                   cull_alpha: float = 1.0 / 255.0) -> RasterizeSettings:
     """`camera` has image_height, image_width, tanfovx and tanfovy. The
-    JAX options tile_cap and tile_batch (read by the reference rasterizer,
-    a later slice) are left at their defaults."""
+    arguments are JAX's, in its order (models/renderer.py:40-70).
+    tile_cap bounds the entries a tile blends on the XLA route and clamps
+    the capped routes' kept counts; tile_batch is the XLA route's tiles a
+    batch."""
     return RasterizeSettings(
         image_height=int(camera.image_height),
         image_width=int(camera.image_width),
         tanfovx=float(camera.tanfovx), tanfovy=float(camera.tanfovy),
         sh_degree=sh_degree, scale_modifier=scaling_modifier,
-        max_entries=max_entries, impl=impl, live_entries=live_entries,
-        tile_budget=tile_budget, tile_budget_cap=tile_budget_cap,
+        max_entries=max_entries, tile_cap=tile_cap, tile_batch=tile_batch,
+        impl=impl, live_entries=live_entries, tile_budget=tile_budget,
+        tile_budget_cap=tile_budget_cap,
         tile_budget_subdiv=tile_budget_subdiv, cull_alpha=cull_alpha)
 
 

@@ -132,7 +132,8 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
     lm [s^2, E] f32, sub-box-major: each kept entry's log1p(-alpha_max)
     over each of the s x s sub-boxes of its tile (row-major), 0 for a
     culled entry or one at or past total. `launches` counts every launch
-    of K1, `alpha_launches` those with with_alpha > 0."""
+    of K1, `alpha_launches` those with with_alpha > 0, `nocull_launches`
+    those without the exact cull (the XLA route's binning)."""
     if with_alpha:
         if not exact_cull:
             raise ValueError("with_alpha requires exact_cull")
@@ -179,6 +180,8 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
         P(lm) if with_alpha else kernels.NULL, P(total),
         kernels.stream(tile))
     expand_entries.launches += 1
+    if not exact_cull:
+        expand_entries.nocull_launches += 1
     if not with_alpha:
         return tile, depth, gauss, total
     expand_entries.alpha_launches += 1
@@ -187,6 +190,7 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
 
 expand_entries.launches = 0
 expand_entries.alpha_launches = 0
+expand_entries.nocull_launches = 0
 
 
 def sort_entries(tile, depth, gauss, num_tiles: int, payload=()):

@@ -1,5 +1,5 @@
-"""Rasterizer entry point, sort-binning path
-(port of langsplatv2_tpu/ops/rasterize.py:168-277 and `_rasterize_pallas`,
+"""Rasterizer entry point: the kernel routes and the XLA route
+(port of langsplatv2_tpu/ops/rasterize.py:168-329 and `_rasterize_pallas`,
 sort branch, with `_sorted_quick_binning`, `_capped_quick_binning`,
 `_capped_kept_from_rows` and `_assemble`).
 
@@ -39,19 +39,46 @@ Dense features (:244-257, `pallas_train.py::rasterize_dense_vjp`):
 d(features) and nothing else (the feature-phase contract). Without
 cov3d_precomp the binning is the VJP's (default cull, no live clamp);
 with it, the forward-only branch of `_rasterize_pallas` (:454-460: the
-settings' cull and live clamp). Under impl="auto" JAX differentiates the
-geometry too (its reference rasterizer), so there a geometry input that
-requires a gradient raises.
+settings' cull and live clamp). These are impl="pallas"'s: under "auto"
+dense features take the XLA route, which differentiates the geometry
+too.
 
-binning="cascade" (:369-397) bins a frame that has no dense features and
-is not a quick_train frame with K8 (`ops/cascade.py`) and blends its
-segments with K2's f32 mode, whatever the precision and the budget fields
-say, forward only; total_entries counts the kept entries and folds the
-overflow flag in. An RGB frame takes it only under impl="pallas" (JAX
-sends it to its reference rasterizer under "auto").
+binning="cascade" (:369-397) bins a quick frame that is not a quick_train
+frame with K8 (`ops/cascade.py`) and blends its segments with K2's f32
+mode, whatever the precision and the budget fields say, forward only;
+total_entries counts the kept entries and folds the overflow flag in. An
+RGB frame takes it only under impl="pallas".
 
-Options that belong to later slices of the port raise NotImplementedError
-naming their ROADMAP item; none of them falls back to another path.
+The XLA route (`_rasterize_xla`, JAX :280-329) is JAX's differentiable
+pipeline: the preprocess under autograd (the 3-sigma tile rects, no
+opacity-aware rect), the `means2d_dummy` carrier in every mode, quick
+pairs turned into dense channels, `ops/binning.py::bin_gaussians` (K1
+without the exact cull, the key sort), `ops/rasterize_tiles.py::
+blend_tiles` (plain torch under autograd, tile_cap entries a tile,
+tile_batch tiles a batch) and the images. Every output is differentiable
+in every per-Gaussian input. JAX turns the quick pairs into channels with
+a one_hot einsum; here a scatter_add into [N, quick_channels] forms the
+same sums without the [N, S, C] one-hot (9.2 GB at 1M x 12 x 192). It
+returns max_tile_count = the largest tile count, JAX's unclamped
+total_entries and live_total None, always assembles, and reads none of
+the kernel routes' fields (precision, budgets, live_entries, cull_alpha).
+
+impl="auto" routes as JAX's "auto" does on a TPU (JAX :213-242):
+
+| input | route |
+|---|---|
+| quick serving (quick_weights, not quick_train) | kernel (K2, fast16, K8) |
+| quick_train without cov3d_precomp | kernel (QuickTrainBlend, capped) |
+| quick_train with cov3d_precomp (under every impl) | XLA |
+| dense features | XLA |
+| RGB on the sort binning without cov3d_precomp | kernel (K7) |
+| RGB with cov3d_precomp, or on binning="cascade" | XLA |
+
+impl="xla" takes the XLA route for every input; impl="pallas" the kernel
+routes (quick_train with cov3d_precomp aside), dense features there by
+K2's dense mode. binning="gauss" and pair_capacity belong to a later slice
+of the port and raise NotImplementedError naming it; no option falls back
+to another path.
 """
 from __future__ import annotations
 
@@ -60,8 +87,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import (blend, budget, cascade, expand, projection, rasterize_tiles,
-               rgb_train, train)
+from . import (binning, blend, budget, cascade, expand, projection,
+               rasterize_tiles, rgb_train, train)
 from .projection import BLOCK
 
 
@@ -116,12 +143,8 @@ def _later(what: str, item: str):
         f"{what} belongs to a later slice of the port: ROADMAP.md {item}")
 
 
-REFERENCE_RASTERIZER = "Queue 1 item 4, the differentiable reference rasterizer"
 # Fields no ported path reads yet, with the ROADMAP item that will.
-_LATER_FIELDS = {
-    "tile_batch": REFERENCE_RASTERIZER,
-    "pair_capacity": "Queue 1 item 12, distribution",
-}
+_LATER_FIELDS = {"pair_capacity": "Queue 1 item 12, distribution"}
 # Fields that no path of either package reads.
 _UNREAD_FIELDS = ("prefiltered", "debug")
 
@@ -129,9 +152,10 @@ _UNREAD_FIELDS = ("prefiltered", "debug")
 def check_slice(settings: RasterizeSettings) -> None:
     """Raise for every option outside the ported slices (the sort and
     cascade binnings, f32 and fast16 rows, rgb, quick and dense modes,
-    quick training, the capped routes), and for a non-default value of a
-    field no path reads. Fields a ported route reads (tile_cap, the budget
-    and fast16 fields) are, as in JAX, not read on the other routes."""
+    quick training, the capped routes, the XLA route), and for a
+    non-default value of a field no path reads. Fields a ported route
+    reads (tile_cap, tile_batch, the budget and fast16 fields) are, as in
+    JAX, not read on the other routes."""
     defaults = RasterizeSettings._field_defaults
     for name, item in _LATER_FIELDS.items():
         if getattr(settings, name) != defaults[name]:
@@ -146,9 +170,7 @@ def check_slice(settings: RasterizeSettings) -> None:
         raise ValueError(f"unknown binning {settings.binning!r}")
     if settings.precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {settings.precision!r}")
-    if settings.impl == "xla":
-        raise _later('impl="xla"', REFERENCE_RASTERIZER)
-    if settings.impl not in ("auto", "pallas"):
+    if settings.impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown impl {settings.impl!r}")
 
 
@@ -304,7 +326,10 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     nothing else). In RGB mode on the sort binning the image and final
     transmittance are differentiable in means3d, scales, rotations,
     opacities, shs / colors_precomp and `means2d_dummy` [N, 2] (the
-    densification statistics' carrier).
+    densification statistics' carrier). On the XLA route (`xla_route`:
+    impl="xla", and the inputs the module docstring's table sends there)
+    every output is differentiable in every per-Gaussian input, the
+    carrier included, in every mode.
 
     On the capped routes max_tile_count is the tiles' saturation bound
     (> tile_budget_cap: a window was full) and live_total the kept total.
@@ -312,33 +337,32 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     `stage_events` (CUDA only): a list that gets (stage name, recorded
     torch.cuda.Event) after "start", "preprocess", "expand", "sort",
     ("budget": the windows and their counts, capped routes), "blend" and
-    "assemble"; consecutive events time each stage."""
+    "assemble" (the XLA route: "sort" is bin_gaussians, with no "expand");
+    consecutive events time each stage."""
     quick = quick_weights is not None
     dense = features is not None
-    fast16 = quick and not quick_train and settings.precision == "bf16"
-    capped = settings.tile_budget > 0.0 and not fast16 and quick \
-        and quick_train and train.capped_fits(quick_weights.shape[1])
-    cascaded = settings.binning == "cascade" and not dense \
-        and not (quick and quick_train)
     check_slice(settings)
     if cov3d_precomp is None and (scales is None or rotations is None):
         raise ValueError("rasterize needs scales and rotations, or "
                          "cov3d_precomp")
     if dense and quick:
         raise ValueError("features and quick_weights are exclusive modes")
+    if xla_route(settings, quick, quick_train, dense,
+                 cov3d_precomp is not None):
+        dev = resolve_device(device)
+        return _rasterize_xla(
+            settings, means3d, to_f32(opacities, dev), viewmatrix,
+            projmatrix, campos, to_f32(bg, dev), scales, rotations,
+            cov3d_precomp, shs, colors_precomp, features, quick_weights,
+            quick_indices, quick_channels, means2d_dummy, dev, stage_events)
+    fast16 = quick and not quick_train and settings.precision == "bf16"
+    capped = settings.tile_budget > 0.0 and not fast16 and quick \
+        and quick_train and train.capped_fits(quick_weights.shape[1])
+    cascaded = settings.binning == "cascade" and not dense \
+        and not (quick and quick_train)
     if (quick or dense or cascaded) and means2d_dummy is not None:
-        raise ValueError("means2d_dummy is read in RGB mode on the sort "
-                         "binning only")
-    if settings.impl == "auto":
-        if dense and any(
-                isinstance(t, torch.Tensor) and t.requires_grad for t in (
-                    means3d, opacities, viewmatrix, projmatrix, campos, bg,
-                    scales, rotations, cov3d_precomp, shs, colors_precomp)):
-            raise _later('dense features with a geometry gradient under '
-                         'impl="auto"', REFERENCE_RASTERIZER)
-        if cascaded and not quick:
-            raise _later('binning="cascade" for an RGB frame under '
-                         'impl="auto"', REFERENCE_RASTERIZER)
+        raise ValueError("on the kernel routes means2d_dummy is read in RGB "
+                         "mode on the sort binning only")
     dev = resolve_device(device)
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
@@ -415,6 +439,73 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
             qi, quick_channels)
     return _assemble(settings, rgb_t, feat_t, t_t, proj.radius,
                      max_tile_count, total, live_total, stage_events)
+
+
+def xla_route(settings: RasterizeSettings, quick: bool, quick_train: bool,
+              dense: bool, cov3d: bool) -> bool:
+    """True when `rasterize` takes the XLA route: under impl="xla"; for a
+    quick_train frame with cov3d_precomp under every impl; under
+    impl="auto" for dense features and for an RGB frame with
+    cov3d_precomp or on binning="cascade" (JAX's "auto" on a TPU)."""
+    if settings.impl == "xla":
+        return True
+    if quick and quick_train:
+        return cov3d
+    if settings.impl == "pallas" or quick:
+        return False
+    return dense or cov3d or settings.binning != "sort"
+
+
+def _rasterize_xla(settings, means3d, opacities, viewmatrix, projmatrix,
+                   campos, bg, scales, rotations, cov3d_precomp, shs,
+                   colors_precomp, features, quick_weights, quick_indices,
+                   quick_channels, means2d_dummy, dev, stage_events):
+    """The XLA route (JAX :280-329): preprocess, means2D carrier, quick
+    pairs as channels, bin_gaussians, the autograd tile blend, images."""
+    H, W = settings.image_height, settings.image_width
+    grid_x, grid_y = settings.grid_x, settings.grid_y
+    mark_stage(stage_events, "start")
+    proj = projection.preprocess(
+        *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                   colors_precomp, viewmatrix, projmatrix,
+                                   campos)), settings.tanfovx,
+        settings.tanfovy, W, H, settings.sh_degree, settings.scale_modifier,
+        cov3d_precomp=to_f32(cov3d_precomp, dev))
+    mark_stage(stage_events, "preprocess")
+    xy = proj.xy
+    if means2d_dummy is not None:
+        # The reference's dL/dmean2D scale, which densification reads.
+        scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
+        xy = xy + to_f32(means2d_dummy, dev) * scale
+    if quick_weights is not None:
+        # JAX's one_hot einsum, as a scatter_add (out-of-range indices
+        # select no channel, as one_hot's zero rows do).
+        qw = to_f32(quick_weights, dev)
+        qi = torch.as_tensor(quick_indices, device=dev).long()
+        in_range = (qi >= 0) & (qi < quick_channels)
+        feats = torch.zeros((qw.shape[0], quick_channels), device=dev)
+        feats = feats.scatter_add(1, qi.clamp(0, quick_channels - 1),
+                                  torch.where(in_range, qw, 0.0))
+    else:
+        feats = to_f32(features, dev)
+    binned = binning.bin_gaussians(projection.detach(proj), grid_x, grid_y,
+                                   settings.max_entries, opacities[:, 0])
+    mark_stage(stage_events, "sort")
+    rgb_t, feat_t, t_t = rasterize_tiles.blend_tiles(
+        xy, proj.conic, opacities[:, 0], proj.rgb, feats, binned, grid_x,
+        grid_y, bg, settings.tile_cap, settings.tile_batch)
+    mark_stage(stage_events, "blend")
+    rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
+    feat = (rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
+            if feat_t is not None else None)
+    final_t = rasterize_tiles.tiles_to_image(
+        t_t[..., None], grid_x, grid_y, H, W)[0]
+    mark_stage(stage_events, "assemble")
+    return RasterizeOutput(
+        rgb=rgb, feature_map=feat, radii=proj.radius,
+        final_transmittance=final_t,
+        max_tile_count=binned.tile_count.max(),
+        total_entries=binned.total_entries, live_total=None)
 
 
 def _rasterize_dense(settings, means3d, opacities, viewmatrix, projmatrix,

@@ -19,8 +19,12 @@ same phase resumes at its iteration with its Adam moments (`.npz`, or the
 reference's `.pth`); a feature checkpoint keeps its trained logits and
 codebooks (the JAX script draws them anew). `--profile_dir` writes a
 torch.profiler trace of iterations [100, 110). `--gui` serves the SIBR
-viewer on --ip:--port while it trains (`serve/network_gui.py`); `--impl
-xla` belongs to a later slice and raises.
+viewer on --ip:--port while it trains (`serve/network_gui.py`).
+`--impl xla` trains through the rasterizer's XLA route (the autograd
+tile blend); the port passes --impl to both phases, where scripts/train.py
+passes it to the geometry phase only (its feature phase's "auto" is the
+XLA route off a TPU). `--tile_cap` reaches every render's settings, the
+evaluation renders' included.
 
 `main(argv)` runs in process and returns a summary (the model directory,
 first and last iteration, losses, each iteration's host time and
@@ -110,10 +114,6 @@ def load_2d_features(lf_path: str):
 def main(argv=None) -> dict:
     parser, lp, op, _ = build_parser()
     args = parser.parse_args(argv)
-    if args.impl == "xla":
-        raise NotImplementedError(
-            '--impl xla belongs to a later slice of the port: ROADMAP.md '
-            'Queue 1 item 4, the differentiable reference rasterizer')
     dev = resolve_device(args.device)
     if args.gui:
         from ..serve import network_gui
@@ -180,7 +180,7 @@ def _train(args, dataset, opt, dev) -> dict:
         l1s, psnrs = [], []
         for cam in cams:
             settings = make_settings(cam, model.active_sh_degree, 1.0,
-                                     args.max_entries)
+                                     args.max_entries, args.tile_cap, 16)
             out = render(settings, model, cam.world_view_transform,
                          cam.full_proj_transform, cam.camera_center,
                          np.asarray(bg, np.float32), device=dev)
@@ -309,7 +309,8 @@ def _train(args, dataset, opt, dev) -> dict:
                 iterations=args.iterations, first_iter=first_iter,
                 topk=args.topk, use_cos_loss=args.cos_loss,
                 use_l1_loss=args.l1_loss, normalize=args.normalize,
-                bg_color=bg, seed=args.seed, max_entries=args.max_entries,
+                bg_color=bg, seed=args.seed, tile_cap=args.tile_cap,
+                max_entries=args.max_entries,
                 accum_iter=args.accum_iter, cam_batch=args.cam_batch,
                 align_iterations=(set(args.checkpoint_iterations)
                                   | set(args.save_iterations)
@@ -318,7 +319,8 @@ def _train(args, dataset, opt, dev) -> dict:
                 tile_budget=args.tile_budget,
                 tile_budget_cap=args.tile_budget_cap,
                 tile_budget_subdiv=args.tile_budget_subdiv,
-                cull_alpha=args.cull_alpha, optimizer=optimizer,
+                cull_alpha=args.cull_alpha, impl=args.impl,
+                optimizer=optimizer,
                 feature_cache={}, on_iteration=on_iter_for(phase),
                 gui_source_path=gui_source, device=dev)
         else:
@@ -330,10 +332,11 @@ def _train(args, dataset, opt, dev) -> dict:
                 model, cameras, opt, scene.cameras_extent,
                 iterations=args.iterations, first_iter=first_iter,
                 bg_color=bg, white_background=dataset.white_background,
-                seed=args.seed, max_entries=args.max_entries,
+                seed=args.seed, tile_cap=args.tile_cap,
+                max_entries=args.max_entries,
                 accum_iter=args.accum_iter, optimizer=optimizer,
                 on_iteration=on_iter_for(phase),
-                gui_source_path=gui_source, device=dev)
+                gui_source_path=gui_source, impl=args.impl, device=dev)
         save_outputs(args.iterations, model, optimizer, phase)
     finally:
         metrics_file.close()

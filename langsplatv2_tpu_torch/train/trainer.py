@@ -74,6 +74,15 @@ total is clamped to the budget, so an overflowing camera is truncated
 without a redo. The port accepts only a total below the budget and grows
 and redoes otherwise (ROADMAP.md Queue 3).
 
+`impl` and `tile_cap` reach every step's settings, as in JAX. Under
+impl="xla" both phases render through the rasterizer's XLA route (the
+autograd tile blend, tile_cap entries a tile): the geometry step
+differentiates through it, the `means2d_dummy` carrier feeding the
+densification statistics; the feature steps render the assembled map and
+take `gram_cos_loss` (the autograd Gram formulation) on it, as JAX's do
+off its tile mode (trainer.py:380-386, :490-494), and keep no live-prefix
+budget (the route reports no live_total).
+
 With `gui_source_path` (and `serve/network_gui.init` called), both loops
 serve the SIBR viewer's requests at the top of each iteration (a camera
 batch: of each group, and again after it), rendered on the trainer's
@@ -107,7 +116,7 @@ FEATURE_PARAM_NAMES = ("language_logits", "codebooks")
 
 def _gui_poll(model: GaussianModel, bg_color, iteration: int,
               iterations: int, source_path: str, max_entries: int,
-              dev) -> None:
+              tile_cap: int, dev) -> None:
     """Serve any pending SIBR viewer request (reference train.py:115-128);
     a no-op unless `serve/network_gui.init` was called. A frame is the
     render clipped to [0, 1], times 255, truncated to u8."""
@@ -118,7 +127,8 @@ def _gui_poll(model: GaussianModel, bg_color, iteration: int,
 
     def render_fn(cam, shs_py, cov_py, scaling_mod):
         settings = make_settings(cam, model.active_sh_degree,
-                                 scaling_mod or 1.0, max_entries)
+                                 scaling_mod or 1.0, max_entries, tile_cap,
+                                 16)
         with torch.no_grad():
             out = render(settings, model, cam.world_view_transform,
                          cam.full_proj_transform, cam.camera_center,
@@ -404,7 +414,11 @@ def make_feature_train_step(settings, optimizer: torch.optim.Optimizer,
     formed (added to `.grad` when `accumulate`, else replacing it), the
     logits' zeroed on dead rows, and Adam steps when `do_update`."""
     gram = use_cos_loss and not use_l1_loss and not normalize
-    render_settings = settings._replace(assemble=False) if gram else settings
+    # The kernel routes keep the map in tile layout for K6; the XLA route
+    # assembles it, and the Gram loss is then the autograd formulation
+    # (trainer.py:380-386).
+    tiles = gram and settings.impl != "xla"
+    render_settings = settings._replace(assemble=False) if tiles else settings
 
     def step(model, view, proj, campos, bg, gt_a, gt_b, layer_idx: int = 0,
              accept: Callable | None = None, device=None,
@@ -412,9 +426,9 @@ def make_feature_train_step(settings, optimizer: torch.optim.Optimizer,
         out = render(render_settings, model, view, proj, campos, bg,
                      include_feature=True, topk=topk, device=device)
         if gram:
-            loss = gram_loss_fused(model.codebooks,
-                                   out.language_feature_weight_map, gt_a,
-                                   gt_b, layer_idx)
+            loss = (gram_loss_fused if tiles else gram_cos_loss)(
+                model.codebooks, out.language_feature_weight_map, gt_a,
+                gt_b, layer_idx)
             l1 = torch.zeros((), device=loss.device)
         else:
             loss, l1 = pixel_loss(model, out.language_feature_weight_map,
@@ -450,7 +464,9 @@ def make_feature_group_step(settings, optimizer: torch.optim.Optimizer,
     summed), one backward of the top-k projection, the logits' gradient
     zeroed on dead rows and one Adam step when `do_update`. metrics
     "losses" holds each camera's loss."""
-    render_settings = settings._replace(assemble=False)
+    tiles = settings.impl != "xla"
+    render_settings = settings._replace(assemble=False) if tiles else settings
+    loss_fn = gram_loss_fused if tiles else gram_cos_loss
 
     def step(model, views, bg, gts, layer_idx: int = 0,
              accept: Callable | None = None, device=None,
@@ -462,14 +478,15 @@ def make_feature_group_step(settings, optimizer: torch.optim.Optimizer,
             out = render(render_settings, model, view, proj, campos, bg,
                          include_feature=True, topk=topk,
                          precomputed_quick=(qw_group, qi), device=device)
-            group_losses.append(gram_loss_fused(
+            group_losses.append(loss_fn(
                 model.codebooks, out.language_feature_weight_map, table,
                 seg, layer_idx))
             lives.append(out.live_total)
             totals.append(out.total_entries)
         per_camera = torch.stack([v.detach() for v in group_losses])
         metrics = {"loss": per_camera.sum(), "losses": per_camera,
-                   "live_total": torch.stack(lives).max(),
+                   "live_total": (None if lives[0] is None
+                                  else torch.stack(lives).max()),
                    "total_entries": torch.stack(totals).max()}
         if accept is not None and not accept(metrics):
             return metrics, False
@@ -512,12 +529,14 @@ def train_rgb(
     bg_color=(0, 0, 0),
     white_background: bool = False,
     seed: int = 0,
+    tile_cap: int = 1024,
     max_entries: int = 2 ** 21,
     accum_iter: int = 1,
     optimizer: torch.optim.Optimizer | None = None,
     on_iteration: Callable[[int, GaussianModel, Any, dict], None] | None
     = None,
     gui_source_path: str | None = None,
+    impl: str = "auto",
     device=None,
 ):
     """The geometry phase's loop (reference train.py:114-267). Returns
@@ -549,7 +568,7 @@ def train_rgb(
     for iteration in range(first_iter + 1, iterations + 1):
         if gui_source_path is not None:
             _gui_poll(model, bg_color, iteration, iterations,
-                      gui_source_path, max_entries, dev)
+                      gui_source_path, max_entries, tile_cap, dev)
         if iteration % 1000 == 0:
             model.one_up_sh_degree()
         if not viewpoint_stack:
@@ -559,7 +578,7 @@ def train_rgb(
             images[id(cam)] = torch.as_tensor(
                 np.asarray(cam.image, np.float32), device=dev)
         settings = make_settings(cam, model.active_sh_degree, 1.0,
-                                 max_entries)
+                                 max_entries, tile_cap, 16, impl=impl)
         view, proj, campos, bg = camera_arrays(cam, bg_color)
         metrics = rgb_step(
             settings, optimizer, opt.lambda_dssim, model, view, proj, campos,
@@ -608,6 +627,7 @@ def train_features(
     normalize: bool = False,
     bg_color=(0, 0, 0),
     seed: int = 0,
+    tile_cap: int = 1024,
     max_entries: int = 2 ** 21,
     accum_iter: int = 1,
     cam_batch: int = 1,
@@ -616,6 +636,7 @@ def train_features(
     tile_budget_cap: int = 128,
     tile_budget_subdiv: int = 2,
     cull_alpha: float = 1.0 / 255.0,
+    impl: str = "auto",
     optimizer: torch.optim.Optimizer | None = None,
     feature_cache: dict | None = None,
     on_iteration: Callable[[int, GaussianModel, Any, dict], None] | None
@@ -681,7 +702,8 @@ def train_features(
         live = 0 if tile_budget > 0.0 else live_budget.get(sig, 0)
         ebud = exp_budget.get(sig, max_entries) if capped else max_entries
         return make_settings(
-            camera, model.active_sh_degree, 1.0, ebud, live_entries=live,
+            camera, model.active_sh_degree, 1.0, ebud, tile_cap, 16,
+            impl=impl, live_entries=live,
             tile_budget=tile_budget, tile_budget_cap=tile_budget_cap,
             tile_budget_subdiv=tile_budget_subdiv, cull_alpha=cull_alpha)
 
@@ -690,8 +712,8 @@ def train_features(
                         else (live_budget, "live_total"))
 
         def accept(metrics) -> bool:
-            if tile_budget > 0.0 and not capped:
-                return True
+            if (tile_budget > 0.0 and not capped) or metrics[key] is None:
+                return True     # the XLA route keeps no live prefix
             n = int(metrics[key])
             cur = budgets.get(sig, 0)
             if cur == 0:
@@ -755,7 +777,7 @@ def train_features(
         while iteration <= iterations:
             if gui_source_path is not None:
                 _gui_poll(model, bg_color, iteration, iterations,
-                          gui_source_path, max_entries, dev)
+                          gui_source_path, max_entries, tile_cap, dev)
             layer_idx = curriculum_layer(iteration)
             # Up to the next absolute multiple of cam_batch, clamped by the
             # iterations left, the curriculum layer and any align mark.
@@ -782,7 +804,7 @@ def train_features(
                 # A group spans up to cam_batch iterations of wall time:
                 # poll after its step too.
                 _gui_poll(model, bg_color, iteration + g - 1, iterations,
-                          gui_source_path, max_entries, dev)
+                          gui_source_path, max_entries, tile_cap, dev)
             for j in range(g):
                 record(iteration + j, {
                     "loss": metrics["losses"][j],
@@ -795,7 +817,7 @@ def train_features(
     for iteration in range(first_iter + 1, iterations + 1):
         if gui_source_path is not None:
             _gui_poll(model, bg_color, iteration, iterations,
-                      gui_source_path, max_entries, dev)
+                      gui_source_path, max_entries, tile_cap, dev)
         cam = next_camera(viewpoint_stack)
         layer_idx = curriculum_layer(iteration)
         sig = cam_sig(cam)

@@ -9,6 +9,7 @@ holds JAX's, against the XLA reference rasterizer.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -133,8 +134,9 @@ def test_quick_matches_xla_multiband(hw, seed):
 
 def test_rgb_frame_routes():
     """An RGB frame takes the cascade under impl="pallas" (equal to the
-    sort frame); under "auto" JAX renders it with its reference
-    rasterizer, so the port raises."""
+    sort frame); under "auto" it takes the XLA route, as JAX's does
+    (binned by bin_gaussians, not the cascade): JAX's impl="auto" frame
+    and telemetry, images atol 1e-5."""
     n, h, w = 300, 48, 64
     sc = scene(n, 3)
     view, pm, tfx, tfy = camera(h, w)
@@ -144,8 +146,18 @@ def test_rgb_frame_routes():
               colors_precomp=sc["colors"], device="cpu")
     s = RasterizeSettings(h, w, tfx, tfy, 0, max_entries=2 ** 12,
                           binning="cascade")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rasterize(s, sc["means"], sc["opacities"], view, pm, z, bg, **kw)
+    auto = rasterize(s, sc["means"], sc["opacities"], view, pm, z, bg, **kw)
+    jkw = {k: jnp.asarray(sc[k]) for k in ("scales", "rotations")}
+    ref = jax.jit(lambda m, o: jax_rasterize(
+        JaxSettings(image_height=h, image_width=w, tanfovx=tfx, tanfovy=tfy,
+                    sh_degree=0, max_entries=2 ** 12, binning="cascade"),
+        m, o, view, pm, z, bg, colors_precomp=jnp.asarray(sc["colors"]),
+        **jkw))(jnp.asarray(sc["means"]), jnp.asarray(sc["opacities"]))
+    for a, b in ((auto.rgb, ref.rgb),
+                 (auto.final_transmittance, ref.final_transmittance)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    assert (int(auto.max_tile_count), int(auto.total_entries)) == \
+        (int(ref.max_tile_count), int(ref.total_entries))
     out = rasterize(s._replace(impl="pallas"), sc["means"], sc["opacities"],
                     view, pm, z, bg, **kw)
     ref = rasterize(s._replace(binning="sort"), sc["means"],

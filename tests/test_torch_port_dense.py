@@ -1,7 +1,8 @@
 """Dense features (K2's dense mode, the dense custom VJP) against the JAX
 package: `blend_tiles_pallas(mode="dense")` in interpret mode,
 `rasterize(features=...)` with impl="pallas" (`rasterize_dense_vjp`) and
-the XLA autodiff of impl="xla", and `get_render_weights`.
+the XLA autodiff of impl="xla", impl="auto" (the XLA route in both
+packages, geometry gradients included), and `get_render_weights`.
 """
 import jax
 import jax.numpy as jnp
@@ -110,20 +111,49 @@ def test_feature_grads_match_jax_vjp_and_xla_autodiff():
 
 
 def test_auto_refuses_a_geometry_gradient():
-    """Under impl="auto" JAX differentiates the geometry (its reference
-    rasterizer, not ported): the port raises rather than return none."""
+    """Under impl="auto" dense features take the XLA route, as JAX's
+    "auto" does: the geometry gradients no kernel route gives (the port
+    raised here before the XLA route was ported) are JAX's impl="auto"
+    ones, with the map and d(features); images atol 1e-5, gradients 2e-5
+    of the largest."""
     sc, view, pm, tfx, tfy = _case(0)
-    s = RasterizeSettings(H, W, tfx, tfy, 0, max_entries=2 ** 12)
-    kw = dict(scales=sc["scales"], rotations=sc["rotations"],
-              features=np.ones((N, 8), np.float32), device="cpu")
+    rng = np.random.default_rng(6)
+    feats = rng.uniform(0, 1, (N, 8)).astype(np.float32)
+    cot = rng.normal(size=(8, H, W)).astype(np.float32)
+    cot_rgb = rng.normal(size=(3, H, W)).astype(np.float32)
+    st = JaxSettings(image_height=H, image_width=W, tanfovx=tfx,
+                     tanfovy=tfy, sh_degree=0, max_entries=2 ** 12)
     z = np.zeros(3, np.float32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rasterize(s, torch.tensor(sc["means"], requires_grad=True),
-                  sc["opacities"], view, pm, z, z,
-                  colors_precomp=sc["colors"], **kw)
-    out = rasterize(s, sc["means"], sc["opacities"], view, pm, z, z,
-                    colors_precomp=sc["colors"], **kw)
+
+    def jloss(a):
+        out = jax_rasterize(st, a["means"], jnp.asarray(sc["opacities"]),
+                            jnp.asarray(view), jnp.asarray(pm), z, z,
+                            scales=jnp.asarray(sc["scales"]),
+                            rotations=jnp.asarray(sc["rotations"]),
+                            colors_precomp=a["colors"], features=a["feats"])
+        return (jnp.sum(out.feature_map * cot) + jnp.sum(out.rgb * cot_rgb),
+                out.feature_map)
+
+    arrays = dict(means=sc["means"], colors=sc["colors"], feats=feats)
+    (_, ref_map), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        {k: jnp.asarray(v) for k, v in arrays.items()})
+    t = {k: torch.tensor(v, requires_grad=True) for k, v in arrays.items()}
+    out = rasterize(RasterizeSettings(H, W, tfx, tfy, 0, max_entries=2 ** 12),
+                    t["means"], sc["opacities"], view, pm, z, z,
+                    scales=sc["scales"], rotations=sc["rotations"],
+                    colors_precomp=t["colors"], features=t["feats"],
+                    device="cpu")
     assert out.feature_map.shape == (8, H, W)
+    ((out.feature_map * torch.from_numpy(cot)).sum()
+     + (out.rgb * torch.from_numpy(cot_rgb)).sum()).backward()
+    np.testing.assert_allclose(out.feature_map.detach().numpy(),
+                               np.asarray(ref_map), atol=1e-5)
+    for k, v in t.items():
+        b = np.asarray(jgrads[k])
+        scale = np.abs(b).max() + 1e-8
+        assert scale > 1e-6, k
+        np.testing.assert_allclose(v.grad.numpy() / scale, b / scale,
+                                   atol=2e-5, err_msg=k)
 
 
 def test_cov3d_dense_branch_matches_jax():

@@ -540,7 +540,8 @@ def test_train_rgb_later_options_raise(option, monkeypatch):
     m = gm.create_from_pcd(np.zeros((4, 3), np.float32) + np.arange(4)[:, None],
                            np.zeros((4, 3), np.float32), 1.0, device="cpu")
 
-    def poll(model, bg, iteration, iterations, source, max_entries, dev):
+    def poll(model, bg, iteration, iterations, source, max_entries,
+             tile_cap, dev):
         raise _Polled(iteration, iterations, source)
 
     monkeypatch.setattr(trainer, "_gui_poll", poll)

@@ -1441,3 +1441,92 @@ def test_cam_batch_matches_accum_on_the_card(cuda):
                                    atol=1e-6)
         assert not torch.equal(m_seq.codebooks.cpu(), torch.from_numpy(
             fields["codebooks"]))
+
+
+@pytest.mark.parametrize("scene_name", ["wide", "live"])
+def test_bin_gaussians_on_the_card(cuda, scene_name):
+    """The XLA route's binning on the card (K1 without the exact cull, the
+    key sort) equals the CPU's (K1's plain version, the same sort) on
+    whole-grid rects of a 1080p grid and on the edge scene, at a budget
+    above the live total and at cuts inside it: ids, validity, segments
+    and the unclamped total; one K1 launch without the cull a call."""
+    from langsplatv2_tpu_torch.ops import binning
+
+    proj, ops, c = _expand_scene(scene_name, cuda)
+    gx, gy = c["grid_x"], c["grid_y"]
+    total = int(c["tiles_touched"].sum())
+    cpu = projection.ProjectedGaussians(*[
+        None if t is None else t.cpu() for t in proj])
+    for cut in (total + 5, total - 1, total // 2 + 3):
+        before = expand.expand_entries.nocull_launches
+        got = binning.bin_gaussians(proj, gx, gy, cut, ops)
+        assert expand.expand_entries.nocull_launches == before + 1
+        ref = binning.bin_gaussians(cpu, gx, gy, cut, ops.cpu())
+        assert int(got.total_entries) == int(ref.total_entries) == total
+        for name in got._fields:
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(ref, name)), (cut, name)
+
+
+@pytest.mark.parametrize("mode", ["rgb", "quick"])
+def test_xla_route_matches_the_oracle_on_the_card(cuda, mode):
+    """rasterize(impl="xla") against rasterize_reference, both on the
+    card: RGB with a background and the means2D carrier, and 192 quick
+    channels with quick_train; images atol 1e-5, the gradients of every
+    input 2e-5 of the largest (the gathers' backward sums by atomics)."""
+    from langsplatv2_tpu_torch.ops.rasterize import (RasterizeSettings,
+                                                     rasterize)
+    from langsplatv2_tpu_torch.ops.rasterize_reference import \
+        rasterize_reference
+
+    h, w, n = 48, 64, 300
+    sc = scene(n, 0)
+    view, pm, tfx, tfy = camera(h, w)
+    s = RasterizeSettings(h, w, tfx, tfy, 0, max_entries=2 ** 14,
+                          tile_batch=4, impl="xla")
+    qw, qi = quick_pairs(n)
+    bg = np.array([0.2, 0.5, 0.8], np.float32)
+    z = np.zeros(3, np.float32)
+    rng = np.random.default_rng(1)
+    wr = torch.as_tensor(rng.normal(size=(3, h, w)).astype(np.float32),
+                         device=cuda)
+    wf = torch.as_tensor(rng.normal(size=(192, h, w)).astype(np.float32),
+                         device=cuda)
+    outs = []
+    for route in ("xla", "oracle"):
+        t = {k: torch.tensor(sc[k], device=cuda, requires_grad=True)
+             for k in ("means", "scales", "rotations", "opacities",
+                       "colors")}
+        t["dummy"] = torch.zeros((n, 2), device=cuda, requires_grad=True)
+        if mode == "quick":
+            t["qw"] = torch.tensor(qw, device=cuda, requires_grad=True)
+        qi_t = torch.as_tensor(qi, device=cuda)
+        if route == "xla":
+            kw = dict(quick_weights=t["qw"], quick_indices=qi_t,
+                      quick_channels=192, quick_train=True) \
+                if mode == "quick" else {}
+            o = rasterize(s, t["means"], t["opacities"], view, pm, z, bg,
+                          scales=t["scales"], rotations=t["rotations"],
+                          colors_precomp=t["colors"],
+                          means2d_dummy=t["dummy"], device=cuda, **kw)
+            rgb, feat = o.rgb, o.feature_map
+        else:
+            feats = torch.zeros((n, 192), device=cuda).scatter_add(
+                1, qi_t.long(), t["qw"]) if mode == "quick" else None
+            rgb, feat, _, _ = rasterize_reference(
+                t["means"], t["opacities"], t["scales"], t["rotations"],
+                None, None, t["colors"], feats, view, pm, z, tfx, tfy, w, h,
+                0, bg, means2d_dummy=t["dummy"], device=cuda)
+        loss = (rgb * wr).sum()
+        if feat is not None:
+            loss = loss + (feat * wf).sum()
+        loss.backward()
+        outs.append((rgb.detach(), None if feat is None else feat.detach(),
+                     {k: v.grad for k, v in t.items()}))
+    (rgb_x, feat_x, g_x), (rgb_r, feat_r, g_r) = outs
+    torch.testing.assert_close(rgb_x, rgb_r, atol=1e-5, rtol=0)
+    if mode == "quick":
+        torch.testing.assert_close(feat_x, feat_r, atol=1e-5, rtol=0)
+    for k, b in g_r.items():
+        scale = float(b.abs().max()) + 1e-12
+        assert float((g_x[k] - b).abs().max()) / scale <= 2e-5, k

@@ -1,6 +1,7 @@
 """Parity of the port's math, model, IO and preprocess modules with the JAX
 package, and the port's guards (no JAX import, no silent CPU fallback,
-later-slice options raise)."""
+later-slice options raise), and the options the XLA route opened
+rendering as JAX's do."""
 import ast
 import types
 from pathlib import Path
@@ -24,7 +25,7 @@ from langsplatv2_tpu_torch.ops import projection
 from langsplatv2_tpu_torch.ops.rasterize import RasterizeSettings, rasterize
 from langsplatv2_tpu_torch.utils import sh, sparse_codes, transforms
 
-from torch_port_fixtures import camera, model_fields, scene
+from torch_port_fixtures import camera, model_fields, quick_pairs, scene
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -287,34 +288,105 @@ def test_scene_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         io.load_checkpoint_auto(str(tmp_path / "chkpnt1.npz"))
 
 
-@pytest.mark.parametrize("change,kwargs", [
-    (dict(binning="cascade"), {}),
-    (dict(binning="gauss"), {}),
-    (dict(impl="xla"), {}),
-    ({}, dict(features=np.zeros((4, 64), np.float32),
-              colors_precomp=torch.zeros((4, 3), requires_grad=True))),
-    ({}, dict(features=np.zeros((4, 64), np.float32),
-              cov3d_precomp=torch.zeros((4, 6), requires_grad=True))),
-    (dict(tile_batch=32), {}),
-    (dict(tile_batch=8), {}),
-    (dict(binning="cascade", precision="bf16", bf16_cells=True), {}),
-    (dict(bf16_cells=True, precision="bf16", tile_batch=8),
-     dict(quick_weights=np.ones((4, 4), np.float32),
-          quick_indices=np.zeros((4, 4), np.int32), quick_channels=64)),
-    (dict(pair_capacity=1024), {}),
-])
-def test_later_slice_options_raise(change, kwargs):
-    """Options of later slices raise, naming their ROADMAP item: an RGB
-    frame on the cascade and dense features with a geometry gradient under
-    impl="auto" need the reference rasterizer (item 4)."""
+@pytest.mark.parametrize("change", [dict(binning="gauss"),
+                                    dict(pair_capacity=1024)])
+def test_later_slice_options_raise(change):
+    """Options of later slices raise, naming their ROADMAP item
+    (distribution, Queue 1 item 12)."""
     view, pm, tfx, tfy = camera(32, 32)
     s = RasterizeSettings(32, 32, tfx, tfy, 0)._replace(**change)
     z = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="later slice.*item 12"):
         rasterize(s, z, np.ones((4, 1), np.float32), view, pm,
                   np.zeros(3, np.float32), np.zeros(3, np.float32),
                   scales=z, rotations=np.ones((4, 4), np.float32),
-                  device="cpu", **kwargs)
+                  device="cpu")
+
+
+ITEM4_CASES = {
+    "rgb_cascade": (dict(binning="cascade"), {}),
+    "impl_xla": (dict(impl="xla"), {}),
+    "dense_colors_grad": ({}, dict(features=64, colors_precomp=True)),
+    "dense_cov3d_grad": ({}, dict(features=64, cov3d_precomp=True)),
+    "tile_batch_32": (dict(tile_batch=32), {}),
+    "tile_batch_8": (dict(tile_batch=8), {}),
+    "cascade_bf16_cells": (dict(binning="cascade", precision="bf16",
+                                bf16_cells=True), {}),
+    "fast16_tile_batch_8": (dict(bf16_cells=True, precision="bf16",
+                                 tile_batch=8), dict(quick=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(ITEM4_CASES))
+def test_item4_options_render_like_jax(case):
+    """The options the reference rasterizer's slice (Queue 1 item 4) made
+    render, which raised before it: each frame against JAX's with the same
+    settings (impl="auto" on the CPU: JAX's XLA route, or for the quick
+    frame its fast16 kernel in interpret mode). Frames on the XLA route in
+    both packages (an RGB frame on the cascade, impl="xla", dense features
+    with a geometry gradient) atol 1e-5 with JAX's telemetry, and their
+    gradients exist; the RGB frames at other tile_batch values (read by the
+    XLA route only; the port's "auto" takes K7's route, JAX's CPU "auto"
+    its XLA route) atol 3e-5; the fast16 frame within 2e-3 (bf16 cells and
+    rows)."""
+    import jax
+    import jax.numpy as jnp
+
+    from langsplatv2_tpu.ops import RasterizeSettings as JaxSettings
+    from langsplatv2_tpu.ops import rasterize as jax_rasterize
+    from langsplatv2_tpu_torch.ops.temporal import build_cov3d
+
+    change, extra = ITEM4_CASES[case]
+    n = 60
+    sc = scene(n, 4)
+    view, pm, tfx, tfy = camera(32, 32)
+    fields = dict(image_height=32, image_width=32, tanfovx=tfx, tanfovy=tfy,
+                  sh_degree=0, max_entries=2 ** 12, **change)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    arrays = dict(means3d=sc["means"], colors_precomp=sc["colors"],
+                  scales=sc["scales"], rotations=sc["rotations"])
+    if extra.get("cov3d_precomp"):
+        arrays["cov3d_precomp"] = build_cov3d(
+            torch.from_numpy(sc["scales"]),
+            torch.from_numpy(sc["rotations"])).numpy()
+        del arrays["scales"], arrays["rotations"]
+    if extra.get("features"):
+        arrays["features"] = np.random.default_rng(1).uniform(
+            0, 1, (n, extra["features"])).astype(np.float32)
+    quick = {}
+    if extra.get("quick"):
+        qw, qi = quick_pairs(n, levels=1, k=64, topk=4)
+        quick = dict(quick_weights=qw, quick_indices=qi, quick_channels=64)
+    grad = case.startswith("dense")
+    t = {k: torch.tensor(v, requires_grad=grad) for k, v in arrays.items()}
+    means = t.pop("means3d")
+    out = rasterize(RasterizeSettings(**fields), means, sc["opacities"],
+                    view, pm, np.zeros(3, np.float32), bg, device="cpu",
+                    **t, **quick)
+    jarr = {k: jnp.asarray(v) for k, v in arrays.items()}
+    jmeans = jarr.pop("means3d")
+    ref = jax.jit(lambda m, a: jax_rasterize(
+        JaxSettings(**fields), m, jnp.asarray(sc["opacities"]), view, pm,
+        jnp.zeros(3), jnp.asarray(bg), **a,
+        **{k: jnp.asarray(v) if k != "quick_channels" else v
+           for k, v in quick.items()}))(jmeans, jarr)
+    xla = case in ("rgb_cascade", "impl_xla", "dense_colors_grad",
+                   "dense_cov3d_grad", "cascade_bf16_cells")
+    atol = 1e-5 if xla else (2e-3 if quick else 3e-5)
+    pairs = [(out.rgb, ref.rgb)]
+    if out.feature_map is not None:
+        pairs.append((out.feature_map.float(), ref.feature_map))
+    for a, b in pairs:
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=atol)
+    if xla:
+        assert int(out.max_tile_count) == int(ref.max_tile_count)
+        assert int(out.total_entries) == int(ref.total_entries)
+    if grad:
+        (out.rgb.sum() + out.feature_map.sum()).backward()
+        for k, v in [("means3d", means)] + list(t.items()):
+            assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0, k
 
 
 def _train_call(cameras=(), iterations=0, **kw):
@@ -340,7 +412,8 @@ def test_later_training_options_raise(kwargs, monkeypatch):
     show it)."""
     from langsplatv2_tpu_torch.train import trainer
 
-    def poll(model, bg, iteration, iterations, source, max_entries, dev):
+    def poll(model, bg, iteration, iterations, source, max_entries,
+             tile_cap, dev):
         raise _Polled(iteration, source)
 
     monkeypatch.setattr(trainer, "_gui_poll", poll)
