@@ -242,7 +242,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    on phase 21's scene, 8 geometry and 8 feature iterations, counted, ms
    a camera beside phase 21's; (f) the render tools (demo_prompt,
    debug_renderer) on phase 22's checkpoints and scene, their files and
-   arrays equal to direct renders, counted.
+   arrays equal to direct renders, counted;
+24. preprocessing a scene (no kernel on this path): (a) SAM at VIT_H width
+   (random N(0, 0.02) weights from a seeded generator) encodes one 1024^2
+   input, median ms of 3 after a warm-up with TF32 off and on, peak
+   memory; the same modules at VIT_TINY_TEST on the card against the CPU
+   (1e-4 of the largest); (b) the automatic generator on a synthetic
+   1080x1440 image (32x32 points, 64 a batch, the thresholds open as
+   tests/test_sam_jax.py opens them: random weights pass none), decode ms
+   a batch, generate s, masks a level before and after the box NMS; (c)
+   masks_update on its levels, the intersection product of 256 candidate
+   masks timed, 64 random pairs equal to the int64 sums of logical_and;
+   (d) the pipeline on 3 images with the hash CLIP backend, read back by
+   Camera.get_language_feature_compact; (e) the cluster segmenter at
+   1080x1440, s an image, twice with the same masks; (f) preprocess.cli
+   --mask_backend cluster on 2 images, its files equal to the in-process
+   pipeline's.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -5181,6 +5196,308 @@ def xla_route_path(dev, smi: str, scene_res: dict) -> dict:
     return res
 
 
+# ------------- phase 24: preprocess a scene on the card (no new kernel)
+
+PRE_H, PRE_W = 1080, 1440            # the height load_images caps at
+# Random SAM weights pass none of the default thresholds (predicted IoU
+# 0.7, stability 0.85, area 100): open them as tests/test_sam_jax.py:51-54
+# does.
+PRE_OPEN = dict(pred_iou_thresh=-1e9, stability_score_thresh=0.0,
+                min_mask_region_area=1)
+PRE_TINY_REL = 1e-4                  # tiny SAM on the card against the CPU
+PRE_GRAM_MASKS = 256                 # candidate masks in (c)'s product
+PRE_ROOT = Path("build") / "chip_smoke_preprocess"
+
+
+def synthetic_photo(seed: int, h: int = PRE_H, w: int = PRE_W) -> np.ndarray:
+    """A dark noisy frame with 12 flat coloured rectangles."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 40, (h, w, 3)).astype(np.uint8)
+    for _ in range(12):
+        y0, x0 = int(rng.integers(0, h - 64)), int(rng.integers(0, w - 64))
+        y1 = int(rng.integers(y0 + 32, min(h, y0 + h // 2)))
+        x1 = int(rng.integers(x0 + 32, min(w, x0 + w // 2)))
+        img[y0:y1, x0:x1] = rng.integers(60, 256, 3)
+    return img
+
+
+def sam_vit_h(dev, seed: int = 0):
+    """SAM at VIT_H width, N(0, 0.02) weights from a seeded generator."""
+    from langsplatv2_tpu_torch.preprocess import sam
+
+    with torch.device(dev):
+        model = sam.Sam(sam.VIT_H)
+    return sam.init_weights(
+        model, torch.Generator(device=dev).manual_seed(seed)).eval()
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def sam_encoder_check(dev, smi: str):
+    """Phase 24 (a): the ViT-H encoder on one 1024^2 input, median of 3
+    after a warm-up (TF32 off, as the run sets it, and on), peak memory;
+    the same modules at VIT_TINY_TEST on the card against the CPU."""
+    import copy
+
+    from langsplatv2_tpu_torch.preprocess import sam
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = sam_vit_h(dev)
+    x = torch.randn((1024, 1024, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    res = {}
+    with torch.no_grad():
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            ms = [cuda_ms(lambda: model.encode_image(x), 1)[0]
+                  for _ in range(3)]
+            res["encoder_ms_tf32" if tf32 else "encoder_ms"] = \
+                statistics.median(ms)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        emb = model.encode_image(x)
+    if emb.shape != (64, 64, 256) or not bool(torch.isfinite(emb).all()):
+        fail(f"phase 24 (a): the ViT-H embedding {tuple(emb.shape)} is not "
+             "a finite [64, 64, 256]")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["params"] = sum(p.numel() for p in model.parameters())
+
+    tiny = sam.init_weights(sam.Sam(sam.VIT_TINY_TEST),
+                            torch.Generator().manual_seed(2)).eval()
+    tiny_dev = copy.deepcopy(tiny).to(dev)
+    g = torch.Generator().manual_seed(3)
+    xt = torch.randn((64, 64, 3), generator=g)
+    pts = torch.rand((8, 1, 2), generator=g)
+    labels = torch.ones(8, 1)
+    with torch.no_grad():
+        e_cpu = tiny.encode_image(xt)
+        e_dev = tiny_dev.encode_image(xt.to(dev)).cpu()
+        m_cpu, i_cpu = tiny.decode_masks(e_cpu, pts, labels)
+        m_dev, i_dev = tiny_dev.decode_masks(e_cpu.to(dev), pts.to(dev),
+                                             labels.to(dev))
+    res["tiny_rel_err"] = dict(embedding=rel_err(e_dev, e_cpu),
+                               logits=rel_err(m_dev.cpu(), m_cpu),
+                               iou=rel_err(i_dev.cpu(), i_cpu))
+    if max(res["tiny_rel_err"].values()) > PRE_TINY_REL:
+        fail(f"phase 24 (a): VIT_TINY_TEST on the card differs from the CPU "
+             f"by {res['tiny_rel_err']} of the largest (limit {PRE_TINY_REL})")
+    log(f"phase 24 (a) SAM ViT-H encoder, 1024^2: {res['encoder_ms']:.3f} ms "
+        f"median of 3 (TF32 on: {res['encoder_ms_tf32']:.3f}), peak "
+        f"{res['peak_gib']:.3f} GiB, {res['params']:,} parameters; "
+        f"VIT_TINY_TEST card vs CPU {res['tiny_rel_err']} of the largest "
+        f"({smi})")
+    return res, model
+
+
+def sam_generator_check(model, dev, smi: str):
+    """Phase 24 (b) and (c): the generator at 1080x1440 (32x32 points, 64
+    a batch, thresholds open), decode ms a batch, generate s, masks a
+    level before and after the box NMS; masks_update on its levels, and
+    the intersection product on candidate masks (its counts against the
+    int64 sum of logical_and on 64 random pairs)."""
+    from langsplatv2_tpu_torch.preprocess import masks as pmasks
+    from langsplatv2_tpu_torch.preprocess import sam
+
+    gen = sam.TorchSamMaskGenerator(model, device=dev, **PRE_OPEN)
+    img = synthetic_photo(0)
+    with torch.no_grad():
+        x, (nh, nw) = gen._preprocess(img)
+        embed = model.encode_image(x)
+        pts = torch.as_tensor(gen.points(nh, nw)[:gen.points_per_batch],
+                              dtype=torch.float32, device=dev)[:, None]
+        ones = torch.ones((pts.shape[0], 1), device=dev)
+        decode_ms = statistics.median(
+            cuda_ms(lambda: model.decode_masks(embed, pts, ones), 1)[0]
+            for _ in range(3))
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    levels = gen.generate(img, stats)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    after = [len(lv) for lv in levels]
+    for lv in levels:
+        for m in lv:
+            seg, (bx, by, bw, bh) = m["segmentation"], m["bbox"]
+            if seg.shape != (PRE_H, PRE_W) or seg.dtype != bool or \
+                    bx + bw > PRE_W or by + bh > PRE_H or \
+                    not math.isfinite(m["predicted_iou"]):
+                fail(f"phase 24 (b): a malformed mask {seg.shape} "
+                     f"{m['bbox']} {m['predicted_iou']}")
+    if not all(0 < a <= b for a, b in zip(after, stats["candidates"])):
+        fail(f"phase 24 (b): masks a level {after} against candidates "
+             f"{stats['candidates']}")
+    res = dict(decode_ms_batch=decode_ms, generate_s=gen_s,
+               candidates=stats["candidates"], after_box_nms=after,
+               batches=math.ceil(len(gen.points(nh, nw))
+                                 / gen.points_per_batch))
+    log(f"phase 24 (b) generator, {PRE_H}x{PRE_W} ({len(gen.points(nh, nw))} "
+        f"points, {gen.points_per_batch} a batch, thresholds open): decode "
+        f"{decode_ms:.3f} ms a batch, generate {gen_s:.3f} s, masks a level "
+        f"{stats['candidates']} -> {after} after the box NMS ({smi})")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    updated = pmasks.masks_update(*levels, device=dev)
+    torch.cuda.synchronize()
+    res["masks_update_s"] = time.perf_counter() - t0
+    res["after_masks_update"] = [len(lv) for lv in updated]
+    with torch.no_grad():
+        per = gen._mask_data(img)
+    cand = torch.stack([e["segmentation"]
+                        for e in per[1][:PRE_GRAM_MASKS]])
+    del per
+    gram_ms, inter = cuda_ms(lambda: pmasks.intersection_counts(cand, dev),
+                             3)
+    rng = np.random.default_rng(0)
+    bad = 0
+    for i, j in rng.integers(0, len(cand), (64, 2)):
+        ref = int(torch.logical_and(cand[i], cand[j]).sum(dtype=torch.int64))
+        bad += int(inter[i, j]) != ref or float(inter[i, j]) != ref
+    if bad:
+        fail(f"phase 24 (c): {bad} of 64 intersection counts differ from "
+             "the int64 sums")
+    m = len(cand)
+    flops = 2.0 * m * m * PRE_H * PRE_W
+    res.update(gram_ms=gram_ms, gram_masks=m,
+               gram_tflops=flops / gram_ms / 1e9)
+    log(f"phase 24 (c) masks_update: {res['after_masks_update']} kept of "
+        f"{after} in {res['masks_update_s']:.3f} s; the intersection "
+        f"product of {m} candidate masks ({PRE_H}x{PRE_W}): {gram_ms:.3f} ms "
+        f"({res['gram_tflops']:.1f} TFLOP/s, f32 without TF32), 64 random "
+        f"pairs equal to the int64 sums ({smi})")
+    return res, gen
+
+
+def preprocess_pipeline_check(gen, dev, smi: str) -> dict:
+    """Phase 24 (d): PreprocessPipeline on 3 images with the hash CLIP
+    backend, read back by Camera.get_language_feature_compact."""
+    import shutil
+
+    from langsplatv2_tpu_torch.preprocess.pipeline import PreprocessPipeline
+
+    out = PRE_ROOT / "pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    images = [synthetic_photo(s) for s in (1, 2, 3)]
+    names = [f"view_{i}.png" for i in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PreprocessPipeline(gen, "hash", dev).run(images, names, str(out))
+    wall = time.perf_counter() - t0
+    rows = []
+    for i in range(3):
+        cam = Camera(0, np.eye(3), np.zeros(3), 1.0, 0.8, None, f"view_{i}",
+                     0, image_width=PRE_W, image_height=PRE_H)
+        for lvl in range(4):
+            table, seg = cam.get_language_feature_compact(str(out), lvl)
+            norms = np.linalg.norm(table, axis=1)
+            ids = np.unique(seg[seg >= 0])
+            if seg.shape != (PRE_H, PRE_W) or not len(ids) or \
+                    seg.max() >= len(table) or seg.min() < -1 or \
+                    np.abs(norms - 1.0).max() > 1e-5:
+                fail(f"phase 24 (d): view_{i} level {lvl}: seg "
+                     f"{seg.shape} ids {ids[:5]}, table {table.shape}")
+        rows.append(len(table))
+    res = dict(wall_s=wall, s_per_image=wall / 3, feature_rows=rows)
+    log(f"phase 24 (d) pipeline, 3 images at {PRE_H}x{PRE_W}, hash CLIP: "
+        f"{wall / 3:.3f} s an image, {rows} feature rows, read back by "
+        f"Camera.get_language_feature_compact at every level ({smi})")
+    return res
+
+
+def cluster_check(dev, smi: str) -> dict:
+    """Phase 24 (e): the cluster segmenter at 1080x1440, twice, the same
+    masks both times."""
+    from langsplatv2_tpu_torch.preprocess.pipeline import ClusterMaskGenerator
+
+    gen = ClusterMaskGenerator(device=dev)
+    img = synthetic_photo(4)
+    walls, runs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(gen(img))
+        walls.append(time.perf_counter() - t0)
+    counts = [len(lv) for lv in runs[0]]
+    if not all(counts):
+        fail(f"phase 24 (e): an empty level {counts}")
+    same = [len(a) == len(b) and all(
+        np.array_equal(m["segmentation"], r["segmentation"])
+        for m, r in zip(a, b)) for a, b in zip(*runs)]
+    if not all(same):
+        fail(f"phase 24 (e): two runs gave other masks (levels {same})")
+    log(f"phase 24 (e) cluster segmenter, {PRE_H}x{PRE_W}: {walls[0]:.3f} / "
+        f"{walls[1]:.3f} s an image, masks a level {counts}, equal in both "
+        f"runs ({smi})")
+    return dict(s_per_image=walls, masks=counts)
+
+
+def preprocess_cli_check(dev, smi: str) -> dict:
+    """Phase 24 (f): `preprocess.cli --mask_backend cluster` on 2 images,
+    in process, its files byte-equal to the in-process pipeline's."""
+    import io as pyio
+    import shutil
+
+    from PIL import Image
+
+    from langsplatv2_tpu_torch.preprocess import cli
+    from langsplatv2_tpu_torch.preprocess.pipeline import (
+        ClusterMaskGenerator, PreprocessPipeline, load_images)
+
+    scene = PRE_ROOT / "scene"
+    shutil.rmtree(scene, ignore_errors=True)
+    (scene / "images").mkdir(parents=True)
+    for i in range(2):
+        Image.fromarray(synthetic_photo(5 + i)).save(
+            scene / "images" / f"frame_{i:05d}.png")
+    captured = pyio.StringIO()
+    stdout, sys.stdout = sys.stdout, captured
+    t0 = time.perf_counter()
+    try:
+        summary = cli.main(["--dataset_path", str(scene), "--mask_backend",
+                            "cluster", "--clip_backend", "hash"])
+    finally:
+        sys.stdout = stdout
+    wall = time.perf_counter() - t0
+    images, names = load_images(str(scene), device=dev)
+    PreprocessPipeline(ClusterMaskGenerator(device=dev), "hash", dev).run(
+        images, names, str(PRE_ROOT / "inproc"))
+    for n in names:
+        for suffix in ("_s.npy", "_f.npy"):
+            base = os.path.splitext(n)[0] + suffix
+            a = (scene / "language_features" / base).read_bytes()
+            b = (PRE_ROOT / "inproc" / base).read_bytes()
+            if a != b:
+                fail(f"phase 24 (f): the CLI's {base} differs from the "
+                     "in-process run's")
+    log(f"phase 24 (f) preprocess.cli --mask_backend cluster: 2 images in "
+        f"{wall:.3f} s, files equal to the in-process pipeline's "
+        f"({summary['mask_backend']}, {summary['clip_backend']}; {smi})")
+    return dict(wall_s=wall, summary=summary)
+
+
+def preprocess_path(dev, smi: str) -> dict:
+    """Phase 24: (a) to (f) above."""
+    t0 = time.perf_counter()
+    enc, model = sam_encoder_check(dev, smi)
+    res = dict(encoder=enc)
+    res["generator"], gen = sam_generator_check(model, dev, smi)
+    torch.cuda.empty_cache()
+    res["pipeline"] = preprocess_pipeline_check(gen, dev, smi)
+    del gen, model
+    torch.cuda.empty_cache()
+    res["cluster"] = cluster_check(dev, smi)
+    res["cli"] = preprocess_cli_check(dev, smi)
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 24: {res['phase_s']:.1f} s")
+    return res
+
+
 def phase20_kernel_rows(p20s, p20t) -> dict:
     """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
     (1080p), K6a and K6b at K = 32 (a feature step)."""
@@ -5284,6 +5601,8 @@ def main() -> None:
     cli_res = cli_path(dev, smi, eval_res["evaluate_quick"]["gaussians"])
     torch.cuda.empty_cache()
     xla_res = xla_route_path(dev, smi, scene_res)
+    torch.cuda.empty_cache()
+    pre_res = preprocess_path(dev, smi)
     new_rows = {**new_kernel_rows(lmc, probe_res),
                 **phase20_kernel_rows(p20s, p20t),
                 "K1nocull": dict(
@@ -5395,7 +5714,8 @@ def main() -> None:
                        lm_capped_chain=lmc, cell_probe=probe_res,
                        eval_path=eval_res, many_prompts_serving=p20s,
                        small_k_training=p20t, scene_dir_training=scene_res,
-                       command_lines=cli_res, xla_route=xla_res),
+                       command_lines=cli_res, xla_route=xla_res,
+                       preprocess=pre_res),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

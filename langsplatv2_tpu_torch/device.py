@@ -6,6 +6,8 @@ on its own.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 
@@ -17,3 +19,15 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions of the kernels")
     return dev
+
+
+@contextmanager
+def no_tf32_matmul():
+    """f32 matrix products without TF32 inside the block (exact where the
+    operands and every partial sum are exact in f32)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

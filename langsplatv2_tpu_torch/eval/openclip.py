@@ -36,6 +36,11 @@ CLIP_DIM = 512
 CANONICAL_NEGATIVES = ("object", "things", "stuff", "texture")
 
 
+def _host(images) -> np.ndarray:
+    return images.cpu().numpy() if torch.is_tensor(images) \
+        else np.asarray(images)
+
+
 class HashBackend:
     """Deterministic unit-norm pseudo-embeddings from a SHA-256 of the
     text: stable across processes, not semantically meaningful."""
@@ -51,8 +56,10 @@ class HashBackend:
             out[i] = v / np.linalg.norm(v)
         return out
 
-    def encode_image(self, images: np.ndarray) -> np.ndarray:
-        """[B, 3, H, W] -> [B, 512], seeded by each image's bytes."""
+    def encode_image(self, images) -> np.ndarray:
+        """[B, 3, H, W] (numpy or a tensor) -> [B, 512], seeded by each
+        image's bytes."""
+        images = _host(images)
         flat = images.reshape(images.shape[0], -1)
         out = np.empty((len(flat), CLIP_DIM), np.float32)
         for i, row in enumerate(flat):
@@ -64,33 +71,38 @@ class HashBackend:
 
 
 class OpenClipBackend:
-    """OpenCLIP ViT-B-16 laion2b_s34b_b88k (reference preprocess.py:28-30).
-    Raises ImportError / OSError when open_clip or its weights are
-    absent."""
+    """OpenCLIP ViT-B-16 laion2b_s34b_b88k (reference preprocess.py:28-30)
+    on `device` (default CUDA). Raises ImportError / OSError when
+    open_clip or its weights are absent."""
 
     name = "open_clip"
 
-    def __init__(self, model_type="ViT-B-16", pretrained="laion2b_s34b_b88k"):
+    def __init__(self, model_type="ViT-B-16", pretrained="laion2b_s34b_b88k",
+                 device=None):
+        self.device = resolve_device(device)
         import open_clip
 
         model, _, _ = open_clip.create_model_and_transforms(
             model_type, pretrained=pretrained)
-        model.eval()
-        self.model = model
+        self.model = model.to(self.device).eval()
         self.tokenizer = open_clip.get_tokenizer(model_type)
 
     def encode_text(self, texts: list[str]) -> np.ndarray:
         with torch.no_grad():
             tok = torch.cat([self.tokenizer(p) for p in texts])
-            return self.model.encode_text(tok).float().cpu().numpy()
+            return self.model.encode_text(
+                tok.to(self.device)).float().cpu().numpy()
 
-    def encode_image(self, images: np.ndarray) -> np.ndarray:
-        mean = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
-        std = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
-        x = (images - mean[:, None, None]) / std[:, None, None]
+    def encode_image(self, images) -> np.ndarray:
+        """[B, 3, H, W] in [0, 1] (numpy or a tensor) -> [B, D]."""
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        mean = torch.tensor([0.48145466, 0.4578275, 0.40821073],
+                            device=self.device)
+        std = torch.tensor([0.26862954, 0.26130258, 0.27577711],
+                           device=self.device)
+        x = (x - mean[:, None, None]) / std[:, None, None]
         with torch.no_grad():
-            return self.model.encode_image(
-                torch.from_numpy(x)).float().cpu().numpy()
+            return self.model.encode_image(x).float().cpu().numpy()
 
 
 class TransformersBackend:
@@ -101,7 +113,8 @@ class TransformersBackend:
     name = "transformers"
 
     def __init__(self, model_id="laion/CLIP-ViT-B-16-laion2B-s34b-b88k",
-                 model=None, processor=None):
+                 model=None, processor=None, device=None):
+        self.device = resolve_device(device)
         if model is None or processor is None:
             from transformers import CLIPModel, CLIPProcessor
 
@@ -109,31 +122,39 @@ class TransformersBackend:
                                               local_files_only=True)
             processor = CLIPProcessor.from_pretrained(model_id,
                                                       local_files_only=True)
-        self.model = model
+        self.model = model.to(self.device)
         self.processor = processor
+
+    def _on_device(self, inputs) -> dict:
+        return {k: v.to(self.device) for k, v in inputs.items()}
 
     def encode_text(self, texts: list[str]) -> np.ndarray:
         inputs = self.processor(text=texts, return_tensors="pt", padding=True)
         with torch.no_grad():
-            return self.model.get_text_features(**inputs).cpu().numpy()
+            return self.model.get_text_features(
+                **self._on_device(inputs)).cpu().numpy()
 
-    def encode_image(self, images: np.ndarray) -> np.ndarray:
+    def encode_image(self, images) -> np.ndarray:
+        """The processor resizes and normalizes on the host; the model runs
+        on the device."""
         inputs = self.processor(
-            images=[im.transpose(1, 2, 0) for im in images],
+            images=[im.transpose(1, 2, 0) for im in _host(images)],
             return_tensors="pt")
         with torch.no_grad():
-            return self.model.get_image_features(**inputs).cpu().numpy()
+            return self.model.get_image_features(
+                **self._on_device(inputs)).cpu().numpy()
 
 
-def make_backend(name: str = "hash"):
+def make_backend(name: str = "hash", device=None):
     """"hash" (the default), "open_clip", "transformers", or "auto": the
-    first real encoder that loads, else the hash backend."""
+    first real encoder that loads, else the hash backend. The real
+    encoders run on `device` (default CUDA)."""
     if name == "hash":
         return HashBackend()
     if name == "open_clip":
-        return OpenClipBackend()
+        return OpenClipBackend(device=device)
     if name == "transformers":
-        return TransformersBackend()
+        return TransformersBackend(device=device)
     if name == "flax":
         raise NotImplementedError(
             'the "flax" backend is JAX\'s form of the transformers encoder; '
@@ -142,7 +163,7 @@ def make_backend(name: str = "hash"):
         raise ValueError(f"unknown CLIP backend {name!r}")
     for cls in (OpenClipBackend, TransformersBackend):
         try:
-            return cls()
+            return cls(device=device)
         except Exception:
             continue
     return HashBackend()
@@ -151,7 +172,7 @@ def make_backend(name: str = "hash"):
 class OpenCLIPNetwork:
     def __init__(self, backend: str = "hash", device=None):
         self.device = resolve_device(device)
-        self.backend = make_backend(backend)
+        self.backend = make_backend(backend, device=self.device)
         self.negatives = CANONICAL_NEGATIVES
         self.positives: tuple[str, ...] = (" ",)
         self.neg_embeds = self._embed(list(self.negatives))

@@ -32,14 +32,13 @@ from __future__ import annotations
 import json
 import math
 import traceback
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import no_tf32_matmul, resolve_device
 from ..eval.openclip import OpenCLIPNetwork
 from ..models.gaussians import GaussianModel
 from ..models.renderer import render
@@ -63,18 +62,6 @@ def jet_colormap(x: torch.Tensor) -> torch.Tensor:
     v = torch.clamp(x, 0.0, 1.0)
     return torch.stack([torch.clamp(1.5 - torch.abs(4.0 * v - c), 0.0, 1.0)
                         for c in (3.0, 2.0, 1.0)], dim=-1)
-
-
-@contextmanager
-def _no_tf32_matmul():
-    """The query's products take bf16 operands widened to f32, so they are
-    exact in f32 only without TF32."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @dataclass
@@ -184,7 +171,7 @@ class BackendRenderer:
         """phi [L, K] (the codebooks folded into the normalized prompt
         embedding) and the cross-level Gram [L, L, K, K]."""
         cb = self.model.codebooks
-        with _no_tf32_matmul():
+        with no_tf32_matmul():  # bf16 operands widened to f32
             if prompt not in self._prompt_phi:
                 text = self.clip_model.encode_text([prompt])
                 text = text / torch.linalg.norm(text, dim=-1, keepdim=True)
@@ -214,7 +201,7 @@ class BackendRenderer:
         gf = round_bf16(gram).permute(0, 2, 1, 3).reshape(lk, lk)
         gd = torch.block_diag(*round_bf16(
             gram.diagonal(dim1=0, dim2=1).permute(2, 0, 1)))
-        with _no_tf32_matmul():
+        with no_tf32_matmul():  # bf16 operands widened to f32
             wg_d = gd.T @ wm                                   # [LK, P]
             s2 = (wg_d * wm).reshape(L, K, h * w).sum(dim=1)   # [L, P]
             s = torch.sqrt(torch.clamp(s2, min=0.0)) + 1e-10

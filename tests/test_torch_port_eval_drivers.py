@@ -272,7 +272,7 @@ def _tiny_clip(tmp_path):
 def test_transformers_backend_matches_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("USE_TF", "0")     # transformers' TensorFlow import
     model, processor = _tiny_clip(tmp_path)
-    port = TransformersBackend(model=model, processor=processor)
+    port = TransformersBackend(model=model, processor=processor, device="cpu")
     ref = JaxTransformersBackend.__new__(JaxTransformersBackend)
     ref.model, ref.processor = model, processor
     texts = ["a red apple", "chair", "grass and sky"]
