@@ -257,7 +257,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    Camera.get_language_feature_compact; (e) the cluster segmenter at
    1080x1440, s an image, twice with the same masks; (f) preprocess.cli
    --mask_backend cluster on 2 images, its files equal to the in-process
-   pipeline's.
+   pipeline's;
+25. distribution (K2 and K4 gain a first-tile offset; no new kernel): (a)
+   on a reduced scene (50k, 512x512) K2 f32 quick and rgb and K4 on two
+   strips from tile_base > 0, one running past the grid, against their
+   plain versions (K2 atol 3e-5 and its pair counts, K4 1e-5 of the
+   largest) and bit-equal to the whole-grid launch's slots; (b) phase 4's
+   1M-Gaussian 1080p frame sharded over 4 gloo ranks that share the card
+   (parallel.spawn_ranks, a file:// store; the exchange staged through
+   the host), each rank holding its rows, at a pair capacity of the local
+   budget: 2 frames counted and timed, each strip against the single-card
+   sort route (atol 2e-5), dropped 0, totals and radii equal, >= 1e4
+   entries exchanged, no rank's K1 budget saturated, K2 timed on rank 0's
+   received strip beside its plain version; then a capacity below the
+   largest pair's load: dropped > 0 and equal to the host recount from
+   every rank's segment lengths; (c) phase 7's scene (300k, 544x960, K =
+   64, top-4) sharded: d(quick_weights) through the reverse all-to-all
+   against the single-card QuickTrainBlend gradient (1e-4 of the largest),
+   K4 timed on rank 0's strip; (d) at phase 23's XLA scale (300k,
+   544x960, tile_cap 512) rasterize_sharded on (1, 4), the Gram loss,
+   its gradients and a feature step, the geometry loss, its gradients and
+   the carrier's and a geometry step with the batch's densify statistics
+   on (2, 2), against the single-card XLA route (images atol 1e-5, radii
+   exact, losses rtol 1e-5, gradients 5e-4 of the largest); (e)
+   save_checkpoint_multihost from the 4-rank world, written by rank 0
+   alone and loaded on one card equal to the model; (f) (b)'s frame in a
+   world of one rank over NCCL, bit-equal to the gloo ranks' strips.
+   Times are host-staged where gloo carries the data. A part alone:
+   import chip_smoke and call `distribution_path(torch.device("cuda"),
+   smi)` after `kernels.build()`.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -265,7 +293,9 @@ bf16 K3 of phase 10, for K5 of phase 11, for K2q of phases 12 and 13; for
 K2 dense of phase 14, for the bf16-cell modes of phase 15, for K8 (entries
 that differ, 0) and K2 on its segments of phase 16, for K1 with_alpha of
 phase 17 at both loads, for K9 of phase 18, for K1 without the cull of
-phase 23 (a), its launches from (b)) and, last,
+phase 23 (a), its launches from (b); for K2 and K4 on a received strip
+of phase 25 (a), (b) and (c), their launches summed over the ranks) and,
+last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -385,6 +415,12 @@ KERNELS = {
     "K1nocull": ("expand_entries[exact_cull=False]",
                  "langsplatv2_tpu_torch/csrc/expand.cu",
                  "langsplatv2_tpu/ops/pallas_binning.py:498"),
+    "K2strip": ("blend_tiles[tile_base, received strip]",
+                "langsplatv2_tpu_torch/csrc/blend.cu",
+                "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "K4strip": ("feature_grads[tile_base, received strip]",
+                "langsplatv2_tpu_torch/csrc/feature_bwd.cu",
+                "langsplatv2_tpu/ops/pallas_train.py:241"),
 }
 WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
@@ -574,7 +610,8 @@ def stage_inputs(model, settings, view, pm, clip_consts, dev):
 # 192, phase 14's map: no row of their own; the fused query at any shape:
 # phase 20's 13 positives at 3 x 64, and 8 x 32 = 256 channels, two blocks
 # a tile).
-K2_MODES = {(0, 0, 0, 0, 3, 0): ("f32", ("K2", "K2comb"), L * K, L * TOPK),
+K2_MODES = {(0, 0, 0, 0, 3, 0): ("f32", ("K2", "K2comb", "K2strip"), L * K,
+                                  L * TOPK),
             (0, 0, 0, 0, 1, 0): ("rgb", (), 0, 0),
             (1, 0, 0, 0, 3, 0): ("fast16", ("K2f16",), L * K, L * TOPK),
             (1, 0, 1, 0, 3, 0): ("fast16 cells", ("K2f16cells",), L * K,
@@ -3105,23 +3142,30 @@ def check_k8(proj, op, gx: int, gy: int, budget: int, timed: bool) -> dict:
 def device_split(fn, top: int = 12) -> dict:
     """torch.profiler's device time of one call of `fn`, by kernel (us, the
     `top` largest), with the sum over all its kernels and the call's wall
-    time on the host clock."""
+    time on the host clock. A profile that recorded no device event at all
+    (the tracer dropped a call's events: seen on the card for the depth
+    sort alone) is taken again; three such profiles fail."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e6
-    times, launches = {}, 0
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        if us > 0:
-            times[e.key[:80]] = float(us)
-            launches += e.count
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        times, launches = {}, 0
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            if us > 0:
+                times[e.key[:80]] = float(us)
+                launches += e.count
+        if times:
+            break
+    else:
+        fail("torch.profiler recorded no device event in three profiles")
     ranked = sorted(times.items(), key=lambda kv: -kv[1])
     return dict(kernels=dict(ranked[:top]), device_total=sum(times.values()),
                 wall=wall, launches=launches)
@@ -5498,6 +5542,830 @@ def preprocess_path(dev, smi: str) -> dict:
     return res
 
 
+# ------------- phase 25: distribution (K2 and K4 on strips; no new kernel)
+
+DIST_RANKS = 4
+DIST_ROOT = Path("build") / "chip_smoke_dist"
+DIST_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+                 "K4": train.feature_grads}
+DIST_FRAMES = 2
+# The Gaussian-sharded frame against the single-card sort route (JAX's
+# test_sharding.py tolerance), d(quick_weights) against QuickTrainBlend's
+# (1e-4 of the largest: index_add_ atomics), the tile-sharded losses and
+# gradients against the single-card XLA route (test_sharding.py: loss rtol
+# 1e-5, gradients 5e-4 of the largest; images atol 1e-5, radii exact), K2
+# and K4 on strips against their plain versions (phase 3's atol 3e-5; 1e-5
+# of the largest).
+DIST_ATOL, DIST_GRAD_REL = 2e-5, 1e-4
+TILE_ATOL, TILE_LOSS_RTOL, TILE_GRAD_REL = 1e-5, 1e-5, 5e-4
+STRIP_K2_ATOL, STRIP_K4_REL = 3e-5, 1e-5
+DIST_MIN_EXCHANGED = 10_000
+DIST_LAMBDA = 0.2                     # the geometry loss's lambda_dssim
+NCCL = "nccl"                         # (f)'s backend
+
+
+def strip_ranges(start, count, t0: int, n: int, n_grid: int, e: int):
+    """Slots t0 .. t0 + n - 1 of a whole grid's tile ranges; the first
+    slot past the grid gets the 64 entries after the strip's last real
+    tile (as the Gaussian-sharded receiver's sentinel slot holds rows),
+    later ones none. Returns (starts, counts, real slots)."""
+    real = max(0, min(n, n_grid - t0))
+    s = start[t0:t0 + real].clone()
+    c = count[t0:t0 + real].clone()
+    end = int(s[-1] + c[-1]) if real else int(start[t0])
+    pad = n - real
+    if pad:
+        m = min(64, e - end)
+        s = torch.cat([s, torch.full((pad,), end, dtype=torch.int32,
+                                     device=s.device)])
+        s[real + 1:] += m
+        c = torch.cat([c, torch.zeros(pad, dtype=torch.int32,
+                                      device=c.device)])
+        c[real] = m
+    return s.contiguous(), c.contiguous(), real
+
+
+def strip_kernels(dev) -> dict:
+    """Phase 25 (a): on a reduced scene (50k Gaussians, 512x512, 1,024
+    tiles) K2 f32 quick (192 channels) and rgb and K4 (C = 64) on strips
+    from tile_base > 0, one inside the grid and one past it, against their
+    plain versions (K2 atol 3e-5 with its pair counts equal; K4 1e-5 of
+    its largest row, the rows outside the strip's real tiles 0), and equal
+    bit for bit to the same slots of the whole-grid launch."""
+    model = from_numpy_params(bench_scene(50_000, seed=1), device=dev)
+    h = w = 512
+    view, pm, tfx, tfy = bench_camera(h, w)
+    s = RasterizeSettings(h, w, tfx, tfy, 0, max_entries=1 << 20)
+    x = stage_inputs(model, s, view, pm, (None, None), dev)
+    gx, gy = s.grid_x, s.grid_y
+    n_grid = gx * gy
+    g, start, count, geom = x["g"], x["start"], x["count"], x["geom"]
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    modes = (("quick", (x["qw"], x["qi"], L * K)), ("rgb", ()))
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cot = torch.randn(n_grid, 256, 64, device=dev, generator=gen)
+    whole = {m: blend.blend_tiles(g, start, count, geom, bg, gx, gy, *q)
+             for m, q in modes}
+    whole_k4 = train.feature_grads(g, start, count, geom, cot, gx, gy)
+    res = {}
+    for label, t0, n in (("inside", 200, 300),
+                         ("past_grid", n_grid - 200, 256)):
+        st, ct, real = strip_ranges(start, count, t0, n, n_grid, g.shape[0])
+        r = {}
+        for m, q in modes:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            out = blend.blend_tiles(g, st, ct, geom, bg, gx, gy, *q,
+                                    stats=stats, tile_base=t0)
+            ref = blend.blend_tiles_plain(g, st, ct, geom, bg, gx, *q,
+                                          tile_base=t0, grid_tiles=n_grid)
+            err = max_diff([(a, b) for a, b in zip(out, ref)
+                            if a is not None])
+            want = blend.pair_counts_plain(g, st, ct, geom, gx,
+                                           tile_base=t0, grid_tiles=n_grid)
+            same = all(torch.equal(a[:real], b[t0:t0 + real])
+                       for a, b in zip(out, whole[m]) if a is not None)
+            empty = real == n or bool((out[2][real:] == 1.0).all()
+                                      and (out[0][real:] == bg).all())
+            r[f"K2 {m}"] = dict(max_abs_err=err, pairs=want,
+                                whole_grid_bit_equal=same,
+                                past_grid_empty=empty)
+            if not (err <= STRIP_K2_ATOL and same and empty
+                    and (int(stats[0]), int(stats[1])) == want):
+                fail(f"phase 25 (a) {label}: K2 {m} on a strip: "
+                     f"{r[f'K2 {m}']}, counts {stats.tolist()}")
+        cot_s = torch.cat([cot, torch.zeros(n, 256, 64, device=dev)])[
+            t0:t0 + n].contiguous()
+        d = train.feature_grads(g, st, ct, geom, cot_s, gx, gy, tile_base=t0)
+        ref = train.feature_grads_plain(g, st, ct, geom, cot_s, gx, t0,
+                                        n_grid)
+        err = normalized_err(d, ref)
+        lo, hi = int(st[0]), int(st[real - 1] + ct[real - 1])
+        outside = max(float(d[:lo].abs().max()) if lo else 0.0,
+                      float(d[hi:].abs().max()) if hi < d.shape[0] else 0.0)
+        same = torch.equal(d[lo:hi], whole_k4[lo:hi])
+        r["K4"] = dict(max_abs_err=err[0], rel_err=err[1],
+                       outside_rows_max=outside, whole_grid_bit_equal=same)
+        if not (err[1] <= STRIP_K4_REL and outside == 0.0 and same):
+            fail(f"phase 25 (a) {label}: K4 on a strip: {r['K4']}")
+        res[label] = dict(r, tile_base=t0, slots=n, real=real)
+        log(f"phase 25 (a) {label} strip (tile_base {t0}, {n} slots, {real} "
+            f"in the grid of {n_grid}): " + ", ".join(
+                f"{k} {v['max_abs_err']:.3g}" for k, v in r.items()))
+    return res
+
+
+def pad_tiles(t, n: int):
+    """t [T, ...] zero-padded to n rows."""
+    if t.shape[0] >= n:
+        return t
+    return torch.cat([t, torch.zeros((n - t.shape[0],) + tuple(t.shape[1:]),
+                                     dtype=t.dtype, device=t.device)])
+
+
+def digest(*tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_rows(fields: dict, rank: int, world: int) -> dict:
+    """The rank's rows of every per-Gaussian field."""
+    n = fields["xyz"].shape[0]
+    sl = slice(rank * (n // world), (rank + 1) * (n // world))
+    return {k: (v[sl] if v.shape[0] == n else v) for k, v in fields.items()}
+
+
+def model_inputs(model) -> dict:
+    """rasterize's per-Gaussian inputs of a model (SH colour)."""
+    return dict(scales=model.get_scaling(), rotations=model.get_rotation(),
+                shs=model.get_features())
+
+
+def k2_strip_row(ex, s, dev) -> dict:
+    """K2 (f32 quick, 192 channels) on a rank's received strip at full
+    width: held to its plain version (atol 3e-5, pair counts equal), timed
+    beside it, with its bound for this strip's data (the live rows' id,
+    state and pairs read once, the strip's tiles written)."""
+    gx, gy = s.grid_x, s.grid_y
+    g = torch.arange(ex.geom.shape[0], dtype=torch.int32, device=dev)
+    bg = torch.zeros(3, device=dev)
+    args = (g, ex.tile_start, ex.tile_count, ex.geom, bg, gx, gy, ex.qw,
+            ex.qi, L * K)
+    k2 = lambda: blend.blend_tiles(*args, tile_base=ex.tile_base)  # noqa: E731
+    plain = lambda: blend.blend_tiles_plain(  # noqa: E731
+        *args[:6], ex.qw, ex.qi, L * K, tile_base=ex.tile_base,
+        grid_tiles=gx * gy)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    blend.blend_tiles(*args, stats=stats, tile_base=ex.tile_base)
+    n_eval, n_inc = blend.pair_counts_plain(
+        g, ex.tile_start, ex.tile_count, ex.geom, gx,
+        tile_base=ex.tile_base, grid_tiles=gx * gy)
+    ms, out = cuda_ms(k2, 10)
+    plain_ms, ref = cuda_ms(plain, 1)
+    err = max_diff(zip(out, ref))
+    if not (err <= STRIP_K2_ATOL
+            and (int(stats[0]), int(stats[1])) == (n_eval, n_inc)):
+        fail(f"phase 25 (b): K2 on the received strip differs from its "
+             f"plain version by {err} or in its counts {stats.tolist()} "
+             f"against {(n_eval, n_inc)}")
+    live = int(ex.tile_count.sum())
+    strip = ex.tile_start.shape[0]
+    b_ms, b_by = bound(live * (4 + 9 * 4 + L * TOPK * 8) + strip * 8
+                       + strip * 256 * (3 + L * K + 1) * 4,
+                       n_eval * BLEND_ALPHA_FLOPS + n_inc
+                       * BLEND_INCLUDE_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err, pairs_evaluated=n_eval,
+                pairs_included=n_inc, rows=live, slots=strip)
+
+
+def k4_strip_row(ex, cot_s, s, dev) -> dict:
+    """K4 (C = 64) on a rank's received strip at full width, held to its
+    plain version (1e-5 of its largest row) and timed beside it, with its
+    bound (phase 7's: the covered rows' ids and dF, the cotangent)."""
+    gx, gy = s.grid_x, s.grid_y
+    c = cot_s.shape[2]
+    g = torch.arange(ex.geom.shape[0], dtype=torch.int32, device=dev)
+    args = (g, ex.tile_start, ex.tile_count, ex.geom, cot_s)
+    k4 = lambda: train.feature_grads(*args, gx, gy,  # noqa: E731
+                                     tile_base=ex.tile_base)
+    plain = lambda: train.feature_grads_plain(  # noqa: E731
+        *args, gx, ex.tile_base, gx * gy)
+    ms, out = cuda_ms(k4, 10)
+    plain_ms, ref = cuda_ms(plain, 1)
+    err = normalized_err(out, ref)
+    if not err[1] <= STRIP_K4_REL:
+        fail(f"phase 25 (c): K4 on the received strip differs from its "
+             f"plain version by {err}")
+    n_eval, n_inc = blend.pair_counts_plain(
+        g, ex.tile_start, ex.tile_count, ex.geom, gx,
+        tile_base=ex.tile_base, grid_tiles=gx * gy)
+    covered = int(ex.tile_count.sum())
+    strip = ex.tile_start.shape[0]
+    b_ms, b_by = bound(covered * 4 + strip * 8 + covered * 24
+                       + cot_s.numel() * 4 + covered * c * 4,
+                       n_eval * BLEND_ALPHA_FLOPS + n_inc * (3 + 2 * c),
+                       F32_TENSOR_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err[0], rel_err=err[1],
+                rows=covered, slots=strip)
+
+
+def gauss_frame_rank(rank: int, world: int, dev, max_entries: int,
+                     timed: bool) -> dict:
+    """Phase 25 (b), and (f) in a world of one: the 1080p frame of phase
+    4's scene sharded over the world, each rank holding its rows, at a
+    pair capacity that cannot drop (the local budget), counted and timed;
+    its strip against the single-card sort route's tiles (f32 rows); then
+    (timed) K2 on rank 0's received strip; then (several ranks) the frame
+    at a capacity below the largest pair's load, its drops against the
+    host recount from every rank's segment lengths."""
+    from langsplatv2_tpu_torch.parallel import (make_gauss_mesh,
+                                                rasterize_gauss_sharded)
+    from langsplatv2_tpu_torch.parallel import gauss_sharded as gs
+    from langsplatv2_tpu_torch.parallel.distributed import all_gather, \
+        sync_hosts
+
+    fields = bench_scene(1_000_000)
+    shard = from_numpy_params(rank_rows(fields, rank, world), device=dev)
+    _, h, w, _ = LOADS[0]
+    view, pm, tfx, tfy = bench_camera(h, w)
+    s = RasterizeSettings(h, w, tfx, tfy, 0, max_entries=max_entries,
+                          assemble=False)
+    gx, gy = s.grid_x, s.grid_y
+    z = np.zeros(3, np.float32)
+    mesh = make_gauss_mesh(device=dev)
+    inputs = (shard.xyz, shard.get_opacity(), view, pm, z)
+    kw = dict(model_inputs(shard), quick_weights=shard.quick_weights,
+              quick_indices=shard.quick_indices)
+    full_cap = gs.plan(s, world, None)["local_budget"]
+    res = dict(default_cap=gs.plan(s, world, None)["cap"],
+               full_cap=gs.plan(s, world, full_cap)["cap"])
+
+    def frame(cap, st=None):
+        return rasterize_gauss_sharded(mesh, s, *inputs, z, **kw,
+                                       quick_channels=L * K,
+                                       pair_capacity=cap, gather=False,
+                                       stats=st)
+
+    frame(full_cap)                      # warm-up
+    stats, ms = {}, []
+    sync_hosts()
+    zero_counts(DIST_WRAPPERS)
+    for _ in range(DIST_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = frame(full_cap, stats)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["launches"] = read_counts(DIST_WRAPPERS)
+    rgb_t, feat_t, t_t, total, dropped, radii = out
+    t0, strip = stats["tile_base"], stats["strip"]
+    res.update(frame_ms=ms, frame_ms_median=statistics.median(ms),
+               total=int(total), dropped=int(dropped),
+               local_budget=stats["local_budget"],
+               local_total=int(stats["local_total"]),
+               received=int(stats["received"]),
+               dcount=stats["dcount"].tolist(), tile_base=t0, strip=strip,
+               finite=all(bool(torch.isfinite(t).all())
+                          for t in (rgb_t, feat_t, t_t)),
+               digest=digest(rgb_t, feat_t, t_t))
+    # The single-card sort route on the whole scene, f32 rows.
+    full = from_numpy_params(fields, device=dev)
+    ref = rasterize(s, full.xyz, full.get_opacity(), view, pm, z, z,
+                    **model_inputs(full), quick_weights=full.quick_weights,
+                    quick_indices=full.quick_indices, quick_channels=L * K,
+                    device=dev)
+    real = max(0, min(strip, gx * gy - t0))
+    tiles = lambda img: pad_tiles(image_to_tiles(  # noqa: E731
+        img, gx, gy), t0 + strip)[t0:t0 + real]
+    inside = tiles(torch.ones((1, h, w), device=dev))
+    ref_feat = ref.feature_map[t0:t0 + real]
+    n_loc = full.xyz.shape[0] // world
+    res["max_abs_err"] = max(
+        float(((rgb_t[:real] - tiles(ref.rgb)) * inside).abs().max()),
+        float((feat_t[:real] - ref_feat).abs().max()),
+        float(((t_t[:real, :, None] - tiles(ref.final_transmittance[None]))
+               * inside).abs().max()))
+    res["feature_bit_equal_to_single_card"] = bool(
+        torch.equal(feat_t[:real], ref_feat))
+    res["radii_equal"] = bool(torch.equal(
+        radii, ref.radii[rank * n_loc:(rank + 1) * n_loc]))
+    res["single_card_total"] = int(ref.total_entries)
+    if world == 1:     # the digests of each 4-rank strip of this frame
+        s4 = -(-gx * gy // DIST_RANKS)
+        parts = [pad_tiles(t, s4 * DIST_RANKS) for t in (rgb_t, feat_t, t_t)]
+        res["strip_digests"] = [
+            digest(*(p[r * s4:(r + 1) * s4] for p in parts))
+            for r in range(DIST_RANKS)]
+    del ref, full, ref_feat, inside, out, rgb_t, feat_t, t_t
+    torch.cuda.empty_cache()
+    if timed:
+        ex, _ = gs.exchange(mesh, s, *inputs, **kw, pair_capacity=full_cap)
+        if rank == 0:
+            res["K2strip"] = k2_strip_row(ex, s, dev)
+        del ex
+        torch.cuda.empty_cache()
+        sync_hosts()
+    if world > 1:     # the capacity stepped below the largest pair's load
+        loads = all_gather(stats["dcount"].reshape(1, -1).cpu(),
+                           mesh.groups["gauss"])
+        peak = int(loads.max())
+        cap2 = max(128, (int(peak * 0.75) // 128) * 128)
+        out2 = frame(cap2)
+        res["starved"] = dict(
+            cap=cap2, peak_pair_load=peak, dropped=int(out2[4]),
+            recount=int(torch.clamp(loads - cap2, min=0).sum()),
+            total=int(out2[3]),
+            finite=all(bool(torch.isfinite(t).all()) for t in out2[:3]))
+        del out2
+    return res
+
+
+def gauss_feature_rank(rank: int, world: int, dev) -> dict:
+    """Phase 25 (c) on one rank: phase 7's scene (300k, 544x960, one level
+    of 64 codes, top-4) sharded over the world; the strip's term of the
+    loss sum(feat * cot) for a seeded cotangent, its backward through the
+    reverse all-to-all, d(quick_weights) of the rank's rows against the
+    single-card QuickTrainBlend gradient; then K4 on rank 0's strip."""
+    from langsplatv2_tpu_torch.parallel import make_gauss_mesh
+    from langsplatv2_tpu_torch.parallel import gauss_sharded as gs
+    from langsplatv2_tpu_torch.parallel.distributed import sync_hosts
+
+    model, _ = train_scene(TRAIN_N, 0, dev)
+    with torch.no_grad():
+        qw, qi = model.get_weights_and_indices(TRAIN_TOPK)
+    cam = train_cameras("dist", TRAIN_YAW_DEG[:1], TRAIN_H, TRAIN_W)[0]
+    s = make_settings(cam, 0, 1.0, 2 ** 21)._replace(assemble=False)
+    gx, gy = s.grid_x, s.grid_y
+    n_loc = TRAIN_N // world
+    sl = slice(rank * n_loc, (rank + 1) * n_loc)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cot = torch.randn(gx * gy, 256, TRAIN_K, device=dev, generator=gen)
+    mesh = make_gauss_mesh(device=dev)
+    z = np.zeros(3, np.float32)
+    view, pm, cpos = (cam.world_view_transform, cam.full_proj_transform,
+                      cam.camera_center)
+    shard_in = dict(scales=model.get_scaling()[sl],
+                    rotations=model.get_rotation()[sl],
+                    shs=model.get_features()[sl])
+    q = qw[sl].detach().clone().requires_grad_(True)
+    stats = {}
+    sync_hosts()
+    zero_counts(DIST_WRAPPERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _rgb, feat_t, _t, total, dropped = \
+        gs.rasterize_gauss_sharded_feature_train(
+            mesh, s, model.xyz[sl], model.get_opacity()[sl], view, pm, cpos,
+            z, q, qi[sl], TRAIN_K, **shard_in, stats=stats)
+    base, strip = stats["tile_base"], stats["strip"]
+    cot_s = pad_tiles(cot, base + strip)[base:base + strip].contiguous()
+    (feat_t * cot_s).sum().backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(DIST_WRAPPERS)
+    q_ref = qw.detach().clone().requires_grad_(True)
+    out = rasterize(s, model.xyz, model.get_opacity(), view, pm, cpos, z,
+                    **model_inputs(model), quick_weights=q_ref,
+                    quick_indices=qi, quick_channels=TRAIN_K,
+                    quick_train=True, device=dev)
+    (out.feature_map * cot).sum().backward()
+    err = normalized_err(q.grad, q_ref.grad[sl])
+    res = dict(step_ms=step_ms, launches=launches, total=int(total),
+               dropped=int(dropped), local_total=int(stats["local_total"]),
+               local_budget=stats["local_budget"],
+               max_abs_err=err[0], rel_err=err[1],
+               grad_max=float(q.grad.abs().max()),
+               single_card_total=int(out.total_entries))
+    del out, q_ref
+    torch.cuda.empty_cache()
+    ex, _ = gs.exchange(mesh, s, model.xyz[sl], model.get_opacity()[sl],
+                        view, pm, cpos, **shard_in, quick_weights=qw[sl],
+                        quick_indices=qi[sl])
+    if rank == 0:
+        res["K4strip"] = k4_strip_row(ex, cot_s, s, dev)
+    del ex
+    sync_hosts()
+    return res
+
+
+def tile_cameras(n: int = 2):
+    """The first n of phase 7's cameras as (views, projs, camposs)."""
+    cams = train_cameras("dist", TRAIN_YAW_DEG[:n], TRAIN_H, TRAIN_W)
+    return tuple(np.stack([getattr(c, a) for c in cams]) for a in (
+        "world_view_transform", "full_proj_transform", "camera_center"))
+
+
+def tile_gt(n: int = 2) -> tuple:
+    """A seeded 512 x 512 segment table and n segment maps of 48-pixel
+    blocks with ~5% of pixels at -1 (write_gt's), and n U(0, 1) images."""
+    rng = np.random.default_rng(25)
+    table = rng.normal(size=(TRAIN_S, 512)).astype(np.float32)
+    segs, images = [], []
+    for _ in range(n):
+        ids = rng.integers(0, TRAIN_S, (-(-TRAIN_H // 48), -(-TRAIN_W // 48)))
+        seg = np.repeat(np.repeat(ids, 48, 0), 48, 1)[:TRAIN_H, :TRAIN_W]
+        seg = seg.astype(np.int32)
+        seg[rng.uniform(size=(TRAIN_H, TRAIN_W)) < 0.05] = -1
+        segs.append(seg)
+        images.append(rng.uniform(0, 1, (3, TRAIN_H, TRAIN_W)).astype(
+            np.float32))
+    return np.stack([table] * n), np.stack(segs), np.stack(images)
+
+
+def tile_settings():
+    cam = train_cameras("dist", TRAIN_YAW_DEG[:1], TRAIN_H, TRAIN_W)[0]
+    return make_settings(cam, 3, 1.0, XLA_MAX_ENTRIES, XLA_TILE_CAP, 16,
+                         impl="xla")
+
+
+def tile_models(dev):
+    """(d)'s scenes: phase 23's geometry scene (300k, SH 3) and phase 7's
+    feature scene (300k, one level of 64 codes)."""
+    rgb_model, _ = rgb_scene(RGB_N, TRAIN_H, TRAIN_W, 0, 0, dev)
+    feat_model, _ = train_scene(TRAIN_N, 0, dev)
+    return rgb_model, feat_model
+
+
+def tile_references(dev) -> tuple[dict, dict]:
+    """Phase 25 (d)'s single-card references on the XLA route: the frame
+    of camera 0 (rgb, final T, radii), the camera mean of the Gram loss
+    (logits' and codebooks' gradients) and of the geometry loss (the six
+    fields', the means2D carrier's, radii), for the ranks; and the
+    geometry model's fields as built (what (e)'s checkpoint holds)."""
+    s = tile_settings()
+    rgb_model, feat_model = tile_models(dev)
+    fields = {k: v.detach().cpu().numpy()
+              for k, v in rgb_model.fields().items() if v is not None}
+    views, projs, camposs = tile_cameras()
+    tables, segs, images = tile_gt()
+    z = np.zeros(3, np.float32)
+    ref = {}
+    out = render(s, rgb_model, views[0], projs[0], camposs[0], z, device=dev)
+    ref["frame"] = dict(rgb=out.render, t=out.final_transmittance,
+                        radii=out.radii)
+    params = trainer.feature_params(feat_model)
+    loss = 0.0
+    for b in range(len(views)):
+        out = render(s._replace(sh_degree=0), feat_model, views[b],
+                     projs[b], camposs[b], z, include_feature=True,
+                     topk=TRAIN_TOPK, device=dev)
+        loss = loss + trainer.gram_cos_loss(
+            feat_model.codebooks, out.language_feature_weight_map,
+            torch.as_tensor(tables[b], device=dev),
+            torch.as_tensor(segs[b], device=dev), 0) / len(views)
+    loss.backward()
+    ref["gram"] = dict(loss=float(loss.detach()),
+                       grads={k: p.grad.detach().clone()
+                                                for k, p in params.items()})
+    params = trainer.rgb_params(rgb_model)
+    dummy = torch.zeros((rgb_model.capacity, 2), device=dev,
+                        requires_grad=True)
+    loss = l1s = 0.0
+    radii = []
+    for b in range(len(views)):
+        out = render(s, rgb_model, views[b], projs[b], camposs[b], z,
+                     means2d_dummy=dummy, device=dev)
+        gt = torch.as_tensor(images[b], device=dev)
+        l1 = losses.l1_loss(out.render, gt)
+        loss = loss + ((1 - DIST_LAMBDA) * l1 + DIST_LAMBDA * (
+            1.0 - losses.ssim(out.render, gt))) / len(views)
+        l1s = l1s + float(l1.detach()) / len(views)
+        radii.append(out.radii)
+    loss.backward()
+    ref["rgb"] = dict(loss=float(loss.detach()), l1=l1s,
+                      radii=torch.stack(radii),
+                      dummy=dummy.grad.detach().clone(),
+                      grads={k: p.grad.detach().clone()
+                             for k, p in params.items()})
+    return ref, fields
+
+
+def grad_errs(got: dict, want: dict) -> dict:
+    """Each gradient's max |got - want| over want's largest."""
+    return {k: normalized_err(got[k], w)[1] for k, w in want.items()
+            if w.numel()}
+
+
+def tile_sharded_rank(rank: int, world: int, dev, cfg: dict) -> dict:
+    """Phase 25 (d) and (e) on one rank: rasterize_sharded on (1, 4); on
+    (2, 2) the Gram loss and its gradients, a Gram feature step, the
+    geometry loss, its gradients and the carrier's, and a geometry step
+    with the batch's densification statistics, against the saved
+    single-card references; then the multi-process checkpoint."""
+    from langsplatv2_tpu_torch.parallel import (
+        make_device_mesh, make_sharded_feature_train_step,
+        make_sharded_rgb_train_step, rasterize_sharded,
+        save_checkpoint_multihost, sync_hosts)
+    from langsplatv2_tpu_torch.parallel import sharding as sh
+
+    ref = torch.load(cfg["tile_ref"], map_location=dev)
+    s = tile_settings()
+    rgb_model, feat_model = tile_models(dev)
+    views, projs, camposs = tile_cameras()
+    tables, segs, images = tile_gt()
+    z = np.zeros(3, np.float32)
+    res, ms = {}, {}
+
+    def timed(name, fn):
+        sync_hosts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    mesh14 = make_device_mesh(1, 4, device=dev)
+    mesh22 = make_device_mesh(2, 2, device=dev)
+    rgb, _, radii, final_t = timed("rasterize_sharded_1x4", lambda: (
+        rasterize_sharded(mesh14, s, rgb_model.xyz, rgb_model.get_opacity(),
+                          views[0], projs[0], camposs[0], z,
+                          **model_inputs(rgb_model))))
+    res["frame"] = dict(
+        max_abs_err=max_diff([(rgb, ref["frame"]["rgb"]),
+                              (final_t, ref["frame"]["t"])]),
+        radii_equal=bool(torch.equal(radii, ref["frame"]["radii"])))
+    del rgb, final_t
+    d = mesh22.coords["data"]
+    cams = (views[d:d + 1], projs[d:d + 1], camposs[d:d + 1])
+
+    params = trainer.feature_params(feat_model)
+    build = sh.make_sharded_gram_loss(mesh22, s._replace(sh_degree=0),
+                                      TRAIN_TOPK)
+    partial, loss = timed("gram_loss_and_backward", lambda: build(
+        feat_model, *cams, z, tables[d:d + 1], segs[d:d + 1]))
+    partial.backward()
+    sh.reduce_gradients(params.values(), mesh22)
+    res["gram"] = dict(loss=float(loss), ref_loss=ref["gram"]["loss"],
+                       grad_rel=grad_errs({k: p.grad for k, p in
+                                           params.items()},
+                                          ref["gram"]["grads"]))
+    opt = trainer.make_feature_optimizer(
+        OptimizationParams(argparse.ArgumentParser()), feat_model)
+    step = make_sharded_feature_train_step(mesh22, s._replace(sh_degree=0),
+                                           opt, TRAIN_TOPK)
+    logits0 = feat_model.language_logits.detach().clone()
+    met = timed("gram_step", lambda: step(feat_model, *cams, z,
+                                          tables[d:d + 1], segs[d:d + 1]))
+    res["gram"].update(step_loss=float(met["loss"]), logits_moved=float(
+        (feat_model.language_logits.detach() - logits0).abs().max()))
+    del feat_model, params, opt, step, partial
+    torch.cuda.empty_cache()
+
+    params = trainer.rgb_params(rgb_model)
+    dummy = torch.zeros((rgb_model.capacity, 2), device=dev,
+                        requires_grad=True)
+    build = sh.make_sharded_rgb_loss(mesh22, s, DIST_LAMBDA)
+    partial, loss, l1, radii = timed("rgb_loss", lambda: build(
+        rgb_model, dummy, *cams, z, images[d:d + 1]))
+    timed("rgb_backward", partial.backward)
+    sh.reduce_gradients([*params.values(), dummy], mesh22)
+    res["rgb"] = dict(
+        loss=float(loss), ref_loss=ref["rgb"]["loss"], l1=float(l1),
+        ref_l1=ref["rgb"]["l1"],
+        radii_equal=bool(torch.equal(radii[0], ref["rgb"]["radii"][d])),
+        grad_rel=grad_errs({k: p.grad for k, p in params.items()},
+                           ref["rgb"]["grads"]),
+        carrier_rel=normalized_err(dummy.grad, ref["rgb"]["dummy"])[1])
+    del partial, dummy, params
+    torch.cuda.empty_cache()
+    # The model is as built (the loss changed no parameter): checkpointed
+    # first (e), then stepped.
+    save_checkpoint_multihost(cfg["ckpt"], rgb_model, None, 25,
+                              extra={"rank": rank})
+    opt = trainer.make_rgb_optimizer(
+        OptimizationParams(argparse.ArgumentParser()), rgb_model)
+    step = make_sharded_rgb_train_step(mesh22, s, opt, DIST_LAMBDA)
+    xyz0 = rgb_model.xyz.detach().clone()
+    met = timed("rgb_step", lambda: step(rgb_model, *cams, z,
+                                         images[d:d + 1]))
+    res["rgb"].update(
+        step_loss=float(met["loss"]), num_visible=int(met["num_visible"]),
+        xyz_moved=float((rgb_model.xyz.detach() - xyz0).abs().max()),
+        accum_max=float(rgb_model.xyz_gradient_accum.max()),
+        denom_max=float(rgb_model.denom.max()),
+        max_radii2d_max=float(rgb_model.max_radii2d.max()))
+    res["ms"] = ms
+    return res
+
+
+def rank_device(cfg: dict):
+    """The ranks' device (cfg "device", cuda:0: they share the card)."""
+    dev = torch.device(cfg["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def dist_rank(rank: int, world: int, cfg: dict) -> dict:
+    """A rank of phase 25's gloo world: four ranks share cuda:0."""
+    dev = rank_device(cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(frame=gauss_frame_rank(rank, world, dev, cfg["max_entries"],
+                                      True))
+    torch.cuda.empty_cache()
+    res["feature"] = gauss_feature_rank(rank, world, dev)
+    torch.cuda.empty_cache()
+    res["tile"] = tile_sharded_rank(rank, world, dev, cfg)
+    return res
+
+
+def nccl_rank(rank: int, world: int, cfg: dict) -> dict:
+    """Phase 25 (f): (b)'s frame in a world of one rank over NCCL."""
+    dev = rank_device(cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    res = gauss_frame_rank(rank, world, dev, cfg["max_entries"], False)
+    res["backend"] = dist.get_backend()
+    return res
+
+
+def fresh_dir(name: str) -> Path:
+    """An empty directory under DIST_ROOT (a file store must be new)."""
+    import shutil
+    d = DIST_ROOT / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def check_tile_rank(r: dict, label: str) -> None:
+    """(d)'s tolerances on one rank's results."""
+    f, g, rg = r["frame"], r["gram"], r["rgb"]
+    bad = []
+    if not (f["max_abs_err"] <= TILE_ATOL and f["radii_equal"]):
+        bad.append(f"frame {f}")
+    for name, v in (("gram", g), ("rgb", rg)):
+        if not (math.isclose(v["loss"], v["ref_loss"], rel_tol=TILE_LOSS_RTOL)
+                and math.isclose(v["step_loss"], v["ref_loss"],
+                                 rel_tol=TILE_LOSS_RTOL)
+                and max(v["grad_rel"].values()) <= TILE_GRAD_REL):
+            bad.append(f"{name} loss {v['loss']!r} / {v['step_loss']!r} "
+                       f"against {v['ref_loss']!r}, gradients "
+                       f"{v['grad_rel']}")
+    if not (math.isclose(rg["l1"], rg["ref_l1"], rel_tol=TILE_LOSS_RTOL)
+            and rg["radii_equal"] and rg["carrier_rel"] <= TILE_GRAD_REL
+            and rg["xyz_moved"] > 0 and rg["accum_max"] > 0
+            and rg["denom_max"] >= 1.0 and g["logits_moved"] > 0):
+        bad.append(f"rgb {rg}, gram logits moved {g['logits_moved']}")
+    if bad:
+        fail(f"phase 25 (d) {label}: " + "; ".join(bad))
+
+
+def max_rel(tiles: list, loss: str) -> float:
+    """The largest relative gradient error of `loss` over the ranks."""
+    return max(max(t[loss]["grad_rel"].values()) for t in tiles)
+
+
+def distribution_path(dev, smi: str) -> dict:
+    """Phase 25: (a) to (f) above."""
+    from langsplatv2_tpu_torch.parallel import spawn_ranks
+
+    t_phase = time.perf_counter()
+    res = dict(strips=strip_kernels(dev))
+    torch.cuda.empty_cache()
+    DIST_ROOT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ref_path = DIST_ROOT / "tile_ref.pt"
+    ref, expect = tile_references(dev)
+    torch.save(ref, ref_path)
+    del ref
+    ckpt = DIST_ROOT / "ckpt" / "chkpnt25.npz"
+    ckpt.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res["references_s"] = time.perf_counter() - t0
+    cfg = dict(max_entries=LOADS[0][3], tile_ref=str(ref_path),
+               ckpt=str(ckpt), device=str(dev))
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dist_rank, DIST_RANKS, (cfg,),
+                        store_dir=fresh_dir("gloo"), backend="gloo",
+                        timeout=900)
+    res["gloo_world_s"] = time.perf_counter() - t0
+    res["ranks"] = ranks
+    frames = [r["frame"] for r in ranks]
+    f0 = frames[0]
+    exchanged = sum(f["received"] for f in frames)
+    launches = {k: sum(f["launches"][k] for f in frames)
+                for k in DIST_WRAPPERS}
+    checks = {
+        "dropped == 0": all(f["dropped"] == 0 for f in frames),
+        "totals agree": len({f["total"] for f in frames}) == 1
+        and f0["total"] == sum(f["local_total"] for f in frames)
+        == f0["single_card_total"],
+        "no rank's K1 budget saturates": all(
+            f["local_total"] < f["local_budget"] for f in frames),
+        f"exchanged >= {DIST_MIN_EXCHANGED}": exchanged >= DIST_MIN_EXCHANGED,
+        "strips within atol": max(f["max_abs_err"] for f in frames)
+        <= DIST_ATOL,
+        "radii equal": all(f["radii_equal"] for f in frames),
+        "finite": all(f["finite"] for f in frames),
+        "K1, K2 launched": launches["K1"] > 0 and launches["K2"] > 0,
+    }
+    starved = [f["starved"] for f in frames]
+    checks["starved: dropped > 0 == recount"] = all(
+        v["dropped"] == v["recount"] == starved[0]["recount"] > 0
+        and v["total"] == f0["total"] and v["finite"] for v in starved)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        brief = [{k: v for k, v in f.items() if k != "dcount"}
+                 for f in frames]
+        fail(f"phase 25 (b): checks failed: {bad}; frames {brief}")
+    peak = max(max(f["dcount"]) for f in frames)
+    res["frame"] = dict(
+        frame_ms_median=f0["frame_ms_median"], exchanged=exchanged,
+        total=f0["total"], launches=launches, peak_pair_load=peak,
+        default_cap=f0["default_cap"], full_cap=f0["full_cap"],
+        default_cap_drops=sum(max(c - f0["default_cap"], 0)
+                              for f in frames for c in f["dcount"]),
+        max_abs_err=max(f["max_abs_err"] for f in frames),
+        feature_bit_equal=all(f["feature_bit_equal_to_single_card"]
+                              for f in frames),
+        starved=starved[0])
+    log(f"phase 25 (b) Gaussian-sharded 1080p frame, {DIST_RANKS} gloo "
+        f"ranks on one card (host-staged exchange): median "
+        f"{f0['frame_ms_median']:.1f} ms on rank 0 over {DIST_FRAMES}; "
+        f"{exchanged} entries exchanged, total {f0['total']}, pair loads "
+        f"up to {peak} (default capacity {f0['default_cap']}, run at "
+        f"{f0['full_cap']}), max |strip - single card| "
+        f"{res['frame']['max_abs_err']:.3g} (feature map bit-equal "
+        f"{res['frame']['feature_bit_equal']}); capacity "
+        f"{starved[0]['cap']}: dropped {starved[0]['dropped']} = recount; "
+        f"launches {launches} ({smi})")
+
+    feats = [r["feature"] for r in ranks]
+    fl = {k: sum(f["launches"][k] for f in feats) for k in DIST_WRAPPERS}
+    res["feature"] = dict(step_ms=feats[0]["step_ms"], launches=fl,
+                          rel_err=max(f["rel_err"] for f in feats),
+                          grad_max=max(f["grad_max"] for f in feats))
+    if not (res["feature"]["rel_err"] <= DIST_GRAD_REL
+            and res["feature"]["grad_max"] > 0
+            and all(f["dropped"] == 0 and f["local_total"]
+                    < f["local_budget"] for f in feats)
+            and all(v > 0 for v in fl.values())
+            and feats[0]["total"] == feats[0]["single_card_total"]):
+        fail(f"phase 25 (c): {feats}")
+    log(f"phase 25 (c) Gaussian-sharded feature step ({TRAIN_N} Gaussians, "
+        f"{TRAIN_W}x{TRAIN_H}, K = {TRAIN_K}, top-{TRAIN_TOPK}): "
+        f"d(quick_weights) within {res['feature']['rel_err']:.3g} of the "
+        f"largest of QuickTrainBlend's; forward and backward "
+        f"{feats[0]['step_ms']:.1f} ms on rank 0 (host-staged); launches "
+        f"{fl} ({smi})")
+
+    tiles = [r["tile"] for r in ranks]
+    for i, t in enumerate(tiles):
+        check_tile_rank(t, f"rank {i}")
+    res["tile"] = dict(ms=tiles[0]["ms"], gram=tiles[0]["gram"],
+                       rgb=tiles[0]["rgb"], frame=tiles[0]["frame"])
+    log(f"phase 25 (d) tile-sharded at {TRAIN_W}x{TRAIN_H}, tile_cap "
+        f"{XLA_TILE_CAP}: rasterize_sharded (1, 4) within "
+        f"{tiles[0]['frame']['max_abs_err']:.3g}; on (2, 2) Gram loss "
+        f"{tiles[0]['gram']['loss']!r} (single card "
+        f"{tiles[0]['gram']['ref_loss']!r}), geometry loss "
+        f"{tiles[0]['rgb']['loss']!r} ({tiles[0]['rgb']['ref_loss']!r}), "
+        f"gradients within {max_rel(tiles, 'gram'):.3g} / "
+        f"{max_rel(tiles, 'rgb'):.3g} "
+        f"of the largest; rank 0 ms (host-staged) {tiles[0]['ms']} ({smi})")
+
+    from langsplatv2_tpu_torch.models import io as port_io
+    model, it = port_io.load_checkpoint(str(ckpt), device=dev)
+    with np.load(ckpt) as data:
+        manifest = json.loads(str(data["manifest"]))
+    same = it == 25 and manifest["extra"] == {"rank": 0} and all(
+        np.array_equal(getattr(model, k).detach().cpu().numpy(), v)
+        for k, v in expect.items())
+    res["checkpoint"] = dict(path=str(ckpt), equal=same,
+                             extra=manifest["extra"])
+    if not same:
+        fail(f"phase 25 (e): the multi-process checkpoint {ckpt} does not "
+             f"load equal to the model: {res['checkpoint']}")
+    log(f"phase 25 (e) checkpoint written by rank 0 alone "
+        f"({manifest['extra']}), read back on one card equal to the model")
+    del model
+
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(nccl_rank, 1, (cfg,), store_dir=fresh_dir("nccl"),
+                       backend=NCCL, timeout=600)[0]
+    res["nccl_world_s"] = time.perf_counter() - t0
+    equal = nccl["strip_digests"] == [f["digest"] for f in frames]
+    res["nccl"] = dict(backend=nccl["backend"], equal_to_gloo=equal,
+                       max_abs_err=nccl["max_abs_err"],
+                       frame_ms_median=nccl["frame_ms_median"],
+                       dropped=nccl["dropped"], total=nccl["total"])
+    if not (nccl["backend"] == NCCL and equal and nccl["dropped"] == 0
+            and nccl["max_abs_err"] <= DIST_ATOL
+            and nccl["total"] == f0["total"]):
+        fail(f"phase 25 (f): the NCCL world's frame {res['nccl']}")
+    log(f"phase 25 (f) NCCL world of one rank: the frame bit-equal to the "
+        f"gloo ranks' strips, median {nccl['frame_ms_median']:.1f} ms "
+        f"({smi})")
+    res["kernel_rows"] = {
+        "K2strip": dict(ranks[0]["frame"]["K2strip"], launches=launches["K2"],
+                        max_abs_err=max(
+                            ranks[0]["frame"]["K2strip"]["max_abs_err"],
+                            *(v[f"K2 {m}"]["max_abs_err"]
+                              for v in res["strips"].values()
+                              for m in ("quick", "rgb")))),
+        "K4strip": dict(ranks[0]["feature"]["K4strip"], launches=fl["K4"],
+                        max_abs_err=max(
+                            ranks[0]["feature"]["K4strip"]["max_abs_err"],
+                            *(v["K4"]["max_abs_err"]
+                              for v in res["strips"].values())))}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 25: {res['phase_s']:.1f} s (references "
+        f"{res['references_s']:.1f}, gloo world {res['gloo_world_s']:.1f}, "
+        f"NCCL world {res['nccl_world_s']:.1f})")
+    return res
+
+
 def phase20_kernel_rows(p20s, p20t) -> dict:
     """The kernels line's rows of phase 20: K3, bf16 K3 and K2q at PQ = 17
     (1080p), K6a and K6b at K = 32 (a feature step)."""
@@ -5603,7 +6471,9 @@ def main() -> None:
     xla_res = xla_route_path(dev, smi, scene_res)
     torch.cuda.empty_cache()
     pre_res = preprocess_path(dev, smi)
-    new_rows = {**new_kernel_rows(lmc, probe_res),
+    torch.cuda.empty_cache()
+    dist_res = distribution_path(dev, smi)
+    new_rows = {**new_kernel_rows(lmc, probe_res), **dist_res["kernel_rows"],
                 **phase20_kernel_rows(p20s, p20t),
                 "K1nocull": dict(
                     xla_res["k1_nocull"]["row"],
@@ -5684,7 +6554,7 @@ def main() -> None:
         occ = next((v["occupancy"] for v in k2_report.values()
                     if k in v["rows"]), None)
         qg = {"K3": "K3 f32", "K3bf16": "K3 bf16", "K6a": "K6a kpk=1",
-              "K6b": "K6b kpk=1", "K4": "K4", "K7": "K7",
+              "K6b": "K6b kpk=1", "K4": "K4", "K4strip": "K4", "K7": "K7",
               "K3pq17": "K3 any f32", "K3bf16pq17": "K3 any bf16",
               "K5": "K5", "K1": "K1 s=0", "K1nocull": "K1 s=0",
               "K1_with_alpha": f"K1 s={CAPPED['subdiv']}",
@@ -5715,7 +6585,7 @@ def main() -> None:
                        eval_path=eval_res, many_prompts_serving=p20s,
                        small_k_training=p20t, scene_dir_training=scene_res,
                        command_lines=cli_res, xla_route=xla_res,
-                       preprocess=pre_res),
+                       preprocess=pre_res, distribution=dist_res),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

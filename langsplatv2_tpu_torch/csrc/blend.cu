@@ -146,6 +146,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "mma_tf32.cuh"
@@ -709,7 +710,8 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
                  float* __restrict__ t_out,
                  unsigned long long* __restrict__ stats, int per_level,
                  const float* __restrict__ feat_in, int feat_stride,
-                 int feat_c0, const void* __restrict__ qfrag, QShape qs) {
+                 int feat_c0, const void* __restrict__ qfrag, QShape qs,
+                 int tile_base, int grid_tiles) {
   constexpr int kB = batch_entries<kDense, kOwn>();
   constexpr int kPre = prefetch_words<kFast16, kDense, kOwn>();
   constexpr int kT = kOwn * kPix;                     // threads
@@ -736,10 +738,13 @@ __global__ void __launch_bounds__(kOwn * kPix, kOwn == 1 ? 3 : 1)
   const int tid = threadIdx.x;
   const int pix = tid & (kPix - 1);
   const int own = tid / kPix;  // owner: channel third and colour channel
+  // Slot `tile` of the launch is grid tile tile_base + tile; one at or
+  // past the grid's grid_tiles blends as empty (a strip's padding).
+  const int gtile = tile_base + tile;
   const int start = tile_start[tile];
-  const int count = tile_count[tile];
-  const float px = (float)((tile % grid_x) * kBlock + pix % kBlock);
-  const float py = (float)((tile / grid_x) * kBlock + pix / kBlock);
+  const int count = gtile < grid_tiles ? tile_count[tile] : 0;
+  const float px = (float)((gtile % grid_x) * kBlock + pix % kBlock);
+  const float py = (float)((gtile / grid_x) * kBlock + pix / kBlock);
 
   // This owner's channels [c_lo, c_hi): a third (dense: rounded up to 4
   // columns, for float4 reads of the rows).
@@ -1098,11 +1103,16 @@ int occupancy(int channels, int topk, int* out) {
 
 }  // namespace
 
+// The f32 modes (rgb, quick) on num_tiles slots: slot t is grid tile
+// tile_base + t (a strip of the grid, the Gaussian-sharded path's tile
+// owner), and slots at or past grid_tiles blend as empty. The whole grid
+// is tile_base 0, num_tiles = grid_tiles.
 extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
                                 const int* tile_count, const float* geom,
                                 const float* qw, const int* qi,
                                 const float* bg, int num_tiles, int grid_x,
-                                int topk, int channels, float* rgb_out,
+                                int topk, int channels, int tile_base,
+                                int grid_tiles, float* rgb_out,
                                 float* feat_out, float* t_out,
                                 unsigned long long* stats, void* stream) {
   auto go = [&](auto owners) {
@@ -1111,7 +1121,7 @@ extern "C" int lsv2_blend_tiles(const int* g_sorted, const int* tile_start,
         num_tiles, channels, topk, stream, g_sorted, tile_start, tile_count,
         geom, qw, qi, kNoRows, bg, grid_x, topk, kNoF32, kNoF32, channels, 0,
         0, 0, rgb_out, static_cast<void*>(feat_out), kNoOut, t_out, stats, 0,
-        kNoF32, 0, 0, kNoFrag, QShape{});
+        kNoF32, 0, 0, kNoFrag, QShape{}, tile_base, grid_tiles);
   };
   return channels > 0 ? go(std::integral_constant<int, kOwners>{})
                       : go(std::integral_constant<int, 1>{});
@@ -1136,7 +1146,7 @@ extern "C" int lsv2_blend_tiles_fast16(const int* g_sorted,
         kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
         grid_x, topk, kNoF32, kNoF32, channels, out_bf16, 0, 0, rgb_out,
         feat_out, kNoOut, t_out, stats, per_level, kNoF32, 0, 0, kNoFrag,
-        QShape{});
+        QShape{}, 0, INT_MAX);
   };
   return cells_bf16 ? go(std::true_type{}) : go(std::false_type{});
 }
@@ -1165,7 +1175,7 @@ extern "C" int lsv2_blend_tiles_query(const int* g_sorted,
         kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
         grid_x, topk, phi, gram, channels, 0, levels, pq, rgb_out,
         static_cast<void*>(raw_out), nrm2_out, t_out, stats, per_level,
-        kNoF32, 0, 0, kNoFrag, QShape{});
+        kNoF32, 0, 0, kNoFrag, QShape{}, 0, INT_MAX);
   };
   return cells_bf16 ? go(std::true_type{}) : go(std::false_type{});
 }
@@ -1197,7 +1207,8 @@ extern "C" int lsv2_blend_tiles_query_any(
         kNoF32, kNoF32, kNoIdx, static_cast<const unsigned*>(rows), bg,
         grid_x, topk, phi, gram, channels, 0, levels, pq, rgb_out,
         static_cast<void*>(raw_out), nrm2_out, t_out, stats, per_level,
-        kNoF32, 0, 0, static_cast<const void*>(frag), s);
+        kNoF32, 0, 0, static_cast<const void*>(frag), s, 0,
+        INT_MAX);
   };
   using One = std::integral_constant<int, 1>;
   using Two = std::integral_constant<int, 2>;
@@ -1230,7 +1241,8 @@ extern "C" int lsv2_blend_tiles_dense(const int* g_sorted,
         num_tiles, channels, 0, stream, g_sorted, tile_start, tile_count,
         geom, kNoF32, kNoIdx, kNoRows, bg, grid_x, 0, kNoF32, kNoF32,
         channels, 0, 0, 0, rgb_out, static_cast<void*>(feat_out), kNoOut,
-        t_out, stats, 0, feats, stride, c0, kNoFrag, QShape{});
+        t_out, stats, 0, feats, stride, c0, kNoFrag, QShape{}, 0,
+        INT_MAX);
   };
   return channels <= kNarrowDense ? go(std::integral_constant<int, 1>{})
                                   : go(std::integral_constant<int, kOwners>{});

@@ -51,7 +51,13 @@
 // entries after the block's early exit are written as zeros, and so is
 // the tail of dF past the last tile's range (entries that no tile
 // blends), a few float4s a thread a batch so that those writes spread
-// over the run, so every row is defined.
+// over the run, and the head before the first tile's range, so every row
+// is defined.
+//
+// A launch covers num_tiles slots from grid tile tile_base on (a strip of
+// the grid: the Gaussian-sharded path's tile owner); the pixel coordinates
+// are the grid tile's, and a slot at or past the grid's last tile blends
+// nothing (its rows are zeros). The whole grid is tile_base 0.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -170,13 +176,25 @@ struct Tail {
   }
 };
 
+// Zeroes rows [start, start + count) of the block's channel chunk.
+__device__ __forceinline__ void zero_rows(float* __restrict__ dfeat,
+                                          long long start, int count,
+                                          int channels, int c0, int cw) {
+  const long long n = (long long)max(count, 0) * cw;
+  for (long long i = threadIdx.x; i < n; i += kPix) {
+    const long long r = i / cw;
+    dfeat[(start + r) * channels + c0 + (i - r * cw)] = 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(kPix, 1)
     feature_bwd_kernel(const int* __restrict__ g_sorted,
                        const int* __restrict__ tile_start,
                        const int* __restrict__ tile_count,
                        const float* __restrict__ geom,
                        const float* __restrict__ cot, int num_tiles,
-                       int grid_x, int channels, long long num_entries,
+                       int grid_x, int tile_base, int grid_tiles,
+                       int channels, long long num_entries,
                        float* __restrict__ dfeat) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -191,9 +209,16 @@ __global__ void __launch_bounds__(kPix, 1)
 
   Tail tail(tile_start, tile_count, num_tiles, channels, num_entries,
             dfeat);
+  // Slot `tile` is grid tile tile_base + tile; one at or past the grid's
+  // grid_tiles blends nothing, and its range's rows are zeros.
+  const int gtile = tile_base + tile;
   const int start = tile_start[tile];
   const int count = tile_count[tile];
-  if (count <= 0) {
+  // Rows before slot 0's range (a strip of a larger entry list) belong to
+  // no slot: slot 0's blocks zero them.
+  if (tile == 0) zero_rows(dfeat, 0, start, channels, c0, cw);
+  if (count <= 0 || gtile >= grid_tiles) {
+    zero_rows(dfeat, start, count, channels, c0, cw);
     tail.zero(INT_MAX);
     return;
   }
@@ -227,8 +252,8 @@ __global__ void __launch_bounds__(kPix, 1)
                 ? g_sorted[start + 2 * kBatch + lane] : 0;
 
   const int p = 32 * warp + lane;
-  const float px = (float)((tile % grid_x) * kBlock + p % kBlock);
-  const float py = (float)((tile / grid_x) * kBlock + p / kBlock);
+  const float px = (float)((gtile % grid_x) * kBlock + p % kBlock);
+  const float py = (float)((gtile / grid_x) * kBlock + p / kBlock);
   float T = 1.0f;
   bool done = false;
   float* sw = &sm.w[warp][0][0];
@@ -362,13 +387,7 @@ __global__ void __launch_bounds__(kPix, 1)
   }
   cp_async_wait<0>();   // a gather the early exit left in flight
   // Rows after the early exit carry W = 0.
-  if (b0 < count) {
-    const long long n = (long long)(count - b0) * cw;
-    for (long long i = tid; i < n; i += kPix) {
-      const long long r = i / cw;
-      dfeat[(start + b0 + r) * channels + c0 + (i - r * cw)] = 0.0f;
-    }
-  }
+  if (b0 < count) zero_rows(dfeat, start + b0, count - b0, channels, c0, cw);
   tail.zero(INT_MAX);
   PHASE_MARK(4)
   PHASE_END(g_feature_bwd_phase)
@@ -379,8 +398,9 @@ __global__ void __launch_bounds__(kPix, 1)
 extern "C" int lsv2_feature_bwd(const int* g_sorted, const int* tile_start,
                                 const int* tile_count, const float* geom,
                                 const float* cot, int num_tiles, int grid_x,
-                                int channels, long long num_entries,
-                                float* dfeat, void* stream) {
+                                int tile_base, int grid_tiles, int channels,
+                                long long num_entries, float* dfeat,
+                                void* stream) {
   cudaGetLastError();  // drop a stale error so only this launch reports
   cudaError_t err = cudaFuncSetAttribute(
       feature_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -391,7 +411,7 @@ extern "C" int lsv2_feature_bwd(const int* g_sorted, const int* tile_start,
     feature_bwd_kernel<<<grid, kPix, sizeof(Smem),
                          static_cast<cudaStream_t>(stream)>>>(
         g_sorted, tile_start, tile_count, geom, cot, num_tiles, grid_x,
-        channels, num_entries, dfeat);
+        tile_base, grid_tiles, channels, num_entries, dfeat);
   }
   return static_cast<int>(cudaGetLastError());
 }

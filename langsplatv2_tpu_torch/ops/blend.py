@@ -149,17 +149,29 @@ def unpack_fast16_rows(rows, topk: int):
     return geom, qw.contiguous(), qi.contiguous()
 
 
-def pixel_coords(n_tiles: int, grid_x: int, device):
-    """(px, py) [T, 256] f32: each tile pixel's coordinates, row-major."""
-    tid = torch.arange(n_tiles, device=device)
+def pixel_coords(n_tiles: int, grid_x: int, device, tile_base: int = 0):
+    """(px, py) [T, 256] f32: each tile pixel's coordinates, row-major, for
+    grid tiles tile_base .. tile_base + T - 1."""
+    tid = torch.arange(tile_base, tile_base + n_tiles, device=device)
     pix = torch.arange(P, device=device)
     px = ((tid % grid_x)[:, None] * BLOCK + pix % BLOCK).float()
     py = ((tid // grid_x)[:, None] * BLOCK + pix // BLOCK).float()
     return px, py
 
 
+def strip_counts(tile_count, tile_base: int, grid_tiles: int | None):
+    """tile_count of slots tile_base.. with the slots at or past the grid's
+    grid_tiles (a strip's padding) emptied; as given when grid_tiles is
+    None."""
+    if grid_tiles is None:
+        return tile_count
+    ids = torch.arange(tile_count.shape[0], device=tile_count.device)
+    return torch.where(ids + tile_base < grid_tiles, tile_count, 0)
+
+
 def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
-                     cells_bf16: bool = False, evaluated=None):
+                     cells_bf16: bool = False, evaluated=None,
+                     tile_base: int = 0, grid_tiles: int | None = None):
     """The blend's per-position loop, vectorized over tiles and pixels: for
     each depth position j of the tiles' segments yields (j, live [T] bool,
     g [T] Gaussian ids, row [T, 9] state, w [T, 256] blend weights, T
@@ -168,10 +180,13 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
     exp(S), S the f32 sum of the included pairs' bf16 log1p(-alpha)). Stops
     once every pixel has ended (checked every 32 positions); later weights
     would all be 0. `evaluated` (int64 [T, 256]), if given, gets 1 added
-    for each position a pixel reaches, its terminating one included."""
+    for each position a pixel reaches, its terminating one included.
+    Slot t is grid tile tile_base + t; with grid_tiles, slots at or past
+    it are empty (`strip_counts`)."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
-    px, py = pixel_coords(n_tiles, grid_x, dev)
+    tile_count = strip_counts(tile_count, tile_base, grid_tiles)
+    px, py = pixel_coords(n_tiles, grid_x, dev, tile_base)
     T = torch.ones((n_tiles, P), device=dev)
     S = torch.zeros((n_tiles, P), device=dev)
     done = torch.zeros((n_tiles, P), dtype=torch.bool, device=dev)
@@ -215,19 +230,21 @@ def replay_positions(g_sorted, tile_start, tile_count, geom, grid_x,
 
 
 def pair_counts_plain(g_sorted, tile_start, tile_count, geom, grid_x,
-                      cells_bf16: bool = False) -> tuple[int, int]:
+                      cells_bf16: bool = False, tile_base: int = 0,
+                      grid_tiles: int | None = None) -> tuple[int, int]:
     """(evaluated, included) (entry, pixel) pairs as K2's `stats` counts
     them: a pixel evaluates each entry of its tile's segment up to and
     including the one that ends it (all of them if none does), whether
     its pair is skipped or not; it includes those whose blend weight is
-    added. geom [N, 9] (`unpack_fast16_rows` for fast16 rows)."""
+    added. geom [N, 9] (`unpack_fast16_rows` for fast16 rows); a strip's
+    tiles as `replay_positions` takes them."""
     n_tiles = tile_start.shape[0]
     evaluated = torch.zeros((n_tiles, P), dtype=torch.int64,
                             device=geom.device)
     included = torch.zeros((), dtype=torch.int64, device=geom.device)
     for _j, _live, _g, _row, w, _T in replay_positions(
             g_sorted, tile_start, tile_count, geom, grid_x, cells_bf16,
-            evaluated):
+            evaluated, tile_base, grid_tiles):
         included += (w > 0).sum()
     return int(evaluated.sum()), int(included)
 
@@ -250,9 +267,11 @@ def kernel_occupancy(mode: str, channels: int, topk: int) -> dict:
 
 def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
                       quick_weights=None, quick_indices=None, channels=0,
-                      per_level: int = 0, cells_bf16: bool = False):
+                      per_level: int = 0, cells_bf16: bool = False,
+                      tile_base: int = 0, grid_tiles: int | None = None):
     """`per_level` > 0: the level-band rule (a pair outside its slot's
-    band goes to a dropped extra channel); `cells_bf16`: the bf16 cells."""
+    band goes to a dropped extra channel); `cells_bf16`: the bf16 cells;
+    `tile_base`, `grid_tiles`: a strip of the grid (`replay_positions`)."""
     dev = geom.device
     n_tiles = tile_start.shape[0]
     T = torch.ones((n_tiles, P), device=dev)
@@ -261,7 +280,8 @@ def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
             if channels else None)
     topk = quick_weights.shape[1] if channels else 0
     for _j, _live, g, row, w, T in replay_positions(
-            g_sorted, tile_start, tile_count, geom, grid_x, cells_bf16):
+            g_sorted, tile_start, tile_count, geom, grid_x, cells_bf16,
+            tile_base=tile_base, grid_tiles=grid_tiles):
         acc += w[..., None] * row[:, None, 6:9]
         for k in range(topk):
             src = w * quick_weights[g, k][:, None]
@@ -280,9 +300,13 @@ def blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg, grid_x,
 
 def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
                 grid_y: int, quick_weights=None, quick_indices=None,
-                channels: int = 0, stats=None):
-    """Blend every tile of the grid. Returns (rgb [T, 256, 3], feat
-    [T, 256, channels] or None, final_T [T, 256]); T = grid_x * grid_y.
+                channels: int = 0, stats=None, *, tile_base: int = 0):
+    """Blend every tile of the grid, or with `tile_base` a strip of it.
+    Returns (rgb [T, 256, 3], feat [T, 256, channels] or None, final_T
+    [T, 256]); T = len(tile_start): grid_x * grid_y for the whole grid, or
+    the strip's slots, slot t being grid tile tile_base + t (pixel
+    coordinates follow it) and slots at or past grid_x * grid_y blended as
+    empty (rgb = bg, T = 1, no features).
 
     g_sorted [E] i32, tile_start/tile_count [T] i32, geom [N, 9] f32
     (pack_gaussian_state), bg [3] f32; quick mode: quick_weights [N, S]
@@ -294,12 +318,16 @@ def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
     evaluated and of included (entry, pixel) pairs added
     (`pair_counts_plain`)."""
     dev = geom.device
-    n_tiles = grid_x * grid_y
+    grid_tiles = grid_x * grid_y
+    n_tiles = tile_start.shape[0]
     quick = channels > 0
+    if tile_base < 0:
+        raise ValueError(f"blend_tiles: tile_base {tile_base} < 0")
     if dev.type == "cpu":
         return blend_tiles_plain(g_sorted, tile_start, tile_count, geom, bg,
                                  grid_x, quick_weights, quick_indices,
-                                 channels)
+                                 channels, tile_base=tile_base,
+                                 grid_tiles=grid_tiles)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles: unsupported device {dev}")
     n = geom.shape[0]
@@ -331,7 +359,8 @@ def blend_tiles(g_sorted, tile_start, tile_count, geom, bg, grid_x: int,
         "lsv2_blend_tiles", P_(g_sorted), P_(tile_start), P_(tile_count),
         P_(geom), P_(quick_weights) if quick else null,
         P_(quick_indices) if quick else null, P_(bg), n_tiles, grid_x, topk,
-        channels, P_(rgb), P_(feat) if quick else null, P_(final_t),
+        channels, tile_base, grid_tiles, P_(rgb),
+        P_(feat) if quick else null, P_(final_t),
         P_(stats) if stats is not None else null, kernels.stream(rgb))
     blend_tiles.launches += 1
     return rgb, feat, final_t

@@ -59,8 +59,8 @@ ENTRY_POINTS = {
     # subdiv out[5]
     "lsv2_expand_occupancy": [_I, _P],
     # g_sorted tile_start tile_count geom qw qi bg num_tiles grid_x topk
-    # channels rgb feat final_t stats stream
-    "lsv2_blend_tiles": [_P] * 7 + [_I] * 4 + [_P] * 5,
+    # channels tile_base grid_tiles rgb feat final_t stats stream
+    "lsv2_blend_tiles": [_P] * 7 + [_I] * 6 + [_P] * 5,
     # g_sorted tile_start tile_count rows bg num_tiles grid_x topk channels
     # out_bf16 per_level cells_bf16 rgb feat final_t stats stream
     "lsv2_blend_tiles_fast16": [_P] * 5 + [_I] * 7 + [_P] * 5,
@@ -86,9 +86,9 @@ ENTRY_POINTS = {
     + [_L, _P],
     # bf16 out[5]
     "lsv2_query_any_occupancy": [_I, _P],
-    # g_sorted tile_start tile_count geom cot num_tiles grid_x channels
-    # num_entries dfeat stream
-    "lsv2_feature_bwd": [_P] * 5 + [_I] * 3 + [_L] + [_P] * 2,
+    # g_sorted tile_start tile_count geom cot num_tiles grid_x tile_base
+    # grid_tiles channels num_entries dfeat stream
+    "lsv2_feature_bwd": [_P] * 5 + [_I] * 5 + [_L] + [_P] * 2,
     # out[5]
     "lsv2_feature_bwd_occupancy": [_P],
     # g_win kept geom qi cot num_tiles grid_x cap channels topk dproj stream

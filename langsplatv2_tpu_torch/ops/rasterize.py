@@ -76,9 +76,10 @@ impl="auto" routes as JAX's "auto" does on a TPU (JAX :213-242):
 
 impl="xla" takes the XLA route for every input; impl="pallas" the kernel
 routes (quick_train with cov3d_precomp aside), dense features there by
-K2's dense mode. binning="gauss" and pair_capacity belong to a later slice
-of the port and raise NotImplementedError naming it; no option falls back
-to another path.
+K2's dense mode. binning="gauss" with `mesh=` (JAX :192-210) is the
+Gaussian-sharded forward of parallel/gauss_sharded.py, each rank passing
+its own rows, with the exchange's `dropped_entries`; pair_capacity is read
+there only. No option falls back to another path.
 """
 from __future__ import annotations
 
@@ -136,37 +137,31 @@ class RasterizeOutput(NamedTuple):
     max_tile_count: torch.Tensor       # [] int32
     total_entries: torch.Tensor        # [] int32, >= max_entries = overflow
     live_total: torch.Tensor | None = None   # [] entries surviving the cull
+    # [] int32, binning="gauss" only: entries a (source, destination) pair
+    # of the exchange dropped past pair_capacity.
+    dropped_entries: torch.Tensor | None = None
 
 
-def _later(what: str, item: str):
-    return NotImplementedError(
-        f"{what} belongs to a later slice of the port: ROADMAP.md {item}")
-
-
-# Fields no ported path reads yet, with the ROADMAP item that will.
-_LATER_FIELDS = {"pair_capacity": "Queue 1 item 12, distribution"}
 # Fields that no path of either package reads.
 _UNREAD_FIELDS = ("prefiltered", "debug")
 
 
-def check_slice(settings: RasterizeSettings) -> None:
-    """Raise for every option outside the ported slices (the sort and
-    cascade binnings, f32 and fast16 rows, rgb, quick and dense modes,
-    quick training, the capped routes, the XLA route), and for a
-    non-default value of a field no path reads. Fields a ported route
-    reads (tile_cap, tile_batch, the budget and fast16 fields) are, as in
-    JAX, not read on the other routes."""
+def check_slice(settings: RasterizeSettings, gauss: bool = False) -> None:
+    """Raise for an unknown binning, precision or impl, and for a
+    non-default value of a field no path reads. binning="gauss" renders
+    through `rasterize(..., mesh=...)` only (`gauss`: the caller is that
+    route). Fields a route reads (tile_cap, tile_batch, the budget and
+    fast16 fields, pair_capacity) are, as in JAX, not read on the other
+    routes."""
     defaults = RasterizeSettings._field_defaults
-    for name, item in _LATER_FIELDS.items():
-        if getattr(settings, name) != defaults[name]:
-            raise _later(f"{name}={getattr(settings, name)!r}", item)
     for name in _UNREAD_FIELDS:
         if getattr(settings, name) != defaults[name]:
             raise ValueError(f"{name} is read by no rasterizer path; leave "
                              f"it at {defaults[name]!r}")
-    if settings.binning == "gauss":
-        raise _later('binning="gauss"', "Queue 1 item 12, distribution")
-    if settings.binning not in ("sort", "cascade"):
+    if settings.binning == "gauss" and not gauss:
+        raise ValueError('binning="gauss" renders only through rasterize('
+                         '..., mesh=...)')
+    if settings.binning not in ("sort", "cascade", "gauss"):
         raise ValueError(f"unknown binning {settings.binning!r}")
     if settings.precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {settings.precision!r}")
@@ -318,7 +313,8 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
               features=None, quick_weights=None, quick_indices=None,
               quick_channels: int = 192, quick_train: bool = False,
               means2d_dummy=None, *, device=None,
-              stage_events: list | None = None) -> RasterizeOutput:
+              stage_events: list | None = None,
+              mesh=None) -> RasterizeOutput:
     """Quick mode when quick_weights/quick_indices [N, S] are given (the
     merged-model serving path), dense mode when `features` [N, D] is (the
     feature map differentiable in features only), RGB only otherwise. With
@@ -341,7 +337,17 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     consecutive events time each stage."""
     quick = quick_weights is not None
     dense = features is not None
-    check_slice(settings)
+    check_slice(settings, gauss=True)
+    if settings.binning == "gauss":
+        return _rasterize_gauss(settings, mesh, means3d, opacities,
+                                viewmatrix, projmatrix, campos, bg, scales,
+                                rotations, shs, colors_precomp,
+                                quick_weights, quick_indices, quick_channels,
+                                dict(features=features,
+                                     cov3d_precomp=cov3d_precomp,
+                                     means2d_dummy=means2d_dummy,
+                                     stage_events=stage_events),
+                                quick_train)
     if cov3d_precomp is None and (scales is None or rotations is None):
         raise ValueError("rasterize needs scales and rotations, or "
                          "cov3d_precomp")
@@ -441,6 +447,40 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
                      max_tile_count, total, live_total, stage_events)
 
 
+def _rasterize_gauss(settings, mesh, means3d, opacities, viewmatrix,
+                     projmatrix, campos, bg, scales, rotations, shs,
+                     colors_precomp, quick_weights, quick_indices,
+                     quick_channels, unread: dict, quick_train: bool):
+    """binning="gauss" (JAX :192-210): the Gaussian-sharded forward of
+    parallel/gauss_sharded.py over `mesh`'s "gauss" axis, each rank
+    passing its own rows; whole images on every rank, radii of the rank's
+    rows, max_tile_count 0, the exchange's dropped entries. It reads no
+    gradient carrier, dense features, covariances or quick_train, and
+    raises for them rather than render without them."""
+    from ..parallel.gauss_sharded import rasterize_gauss_sharded
+
+    if mesh is None:
+        raise ValueError('binning="gauss" needs a 1-D "gauss" mesh '
+                         '(parallel.make_gauss_mesh)')
+    given = [k for k, v in unread.items() if v is not None]
+    if quick_train:
+        given.append("quick_train")
+    if given:
+        raise ValueError(f'binning="gauss" renders forward only and reads '
+                         f'none of {given}')
+    rgb, feat, final_t, total, dropped, radii = rasterize_gauss_sharded(
+        mesh, settings, means3d, opacities, viewmatrix, projmatrix, campos,
+        bg, scales=scales, rotations=rotations,
+        colors_precomp=colors_precomp, shs=shs,
+        quick_weights=quick_weights, quick_indices=quick_indices,
+        quick_channels=quick_channels,
+        pair_capacity=settings.pair_capacity or None)
+    return RasterizeOutput(
+        rgb=rgb, feature_map=feat, radii=radii, final_transmittance=final_t,
+        max_tile_count=torch.zeros((), dtype=torch.int32, device=rgb.device),
+        total_entries=total, dropped_entries=dropped)
+
+
 def xla_route(settings: RasterizeSettings, quick: bool, quick_train: bool,
               dense: bool, cov3d: bool) -> bool:
     """True when `rasterize` takes the XLA route: under impl="xla"; for a
@@ -478,14 +518,8 @@ def _rasterize_xla(settings, means3d, opacities, viewmatrix, projmatrix,
         scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
         xy = xy + to_f32(means2d_dummy, dev) * scale
     if quick_weights is not None:
-        # JAX's one_hot einsum, as a scatter_add (out-of-range indices
-        # select no channel, as one_hot's zero rows do).
-        qw = to_f32(quick_weights, dev)
-        qi = torch.as_tensor(quick_indices, device=dev).long()
-        in_range = (qi >= 0) & (qi < quick_channels)
-        feats = torch.zeros((qw.shape[0], quick_channels), device=dev)
-        feats = feats.scatter_add(1, qi.clamp(0, quick_channels - 1),
-                                  torch.where(in_range, qw, 0.0))
+        feats = quick_as_channels(quick_weights, quick_indices,
+                                  quick_channels, dev)
     else:
         feats = to_f32(features, dev)
     binned = binning.bin_gaussians(projection.detach(proj), grid_x, grid_y,
@@ -506,6 +540,18 @@ def _rasterize_xla(settings, means3d, opacities, viewmatrix, projmatrix,
         final_transmittance=final_t,
         max_tile_count=binned.tile_count.max(),
         total_entries=binned.total_entries, live_total=None)
+
+
+def quick_as_channels(quick_weights, quick_indices, channels: int, dev):
+    """[N, channels] dense rows of the quick pairs: JAX's one_hot einsum,
+    as a scatter_add (out-of-range indices select no channel, as one_hot's
+    zero rows do), differentiable in quick_weights."""
+    qw = to_f32(quick_weights, dev)
+    qi = torch.as_tensor(quick_indices, device=dev).long()
+    in_range = (qi >= 0) & (qi < channels)
+    feats = torch.zeros((qw.shape[0], channels), device=dev)
+    return feats.scatter_add(1, qi.clamp(0, channels - 1),
+                             torch.where(in_range, qw, 0.0))
 
 
 def _rasterize_dense(settings, means3d, opacities, viewmatrix, projmatrix,

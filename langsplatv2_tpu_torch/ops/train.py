@@ -45,27 +45,36 @@ from . import blend, kernels
 from .blend import P
 
 
-def feature_grads_plain(g_sorted, tile_start, tile_count, geom, cot, grid_x):
+def feature_grads_plain(g_sorted, tile_start, tile_count, geom, cot, grid_x,
+                        tile_base: int = 0, grid_tiles: int | None = None):
     """dF [E, C] for the cotangent cot [T, 256, C] of the quick map; rows no
-    tile blends are 0."""
+    tile blends are 0. A strip's tiles as `blend.replay_positions` takes
+    them."""
     dfeat = torch.zeros((g_sorted.shape[0], cot.shape[2]), device=cot.device)
+    tile_count = blend.strip_counts(tile_count, tile_base, grid_tiles)
     for j, live, _g, _row, w, _T in blend.replay_positions(
-            g_sorted, tile_start, tile_count, geom, grid_x):
+            g_sorted, tile_start, tile_count, geom, grid_x,
+            tile_base=tile_base):
         rows = torch.einsum("tp,tpc->tc", w, cot)
         dfeat[(tile_start + j)[live].long()] = rows[live]
     return dfeat
 
 
 def feature_grads(g_sorted, tile_start, tile_count, geom, cot, grid_x: int,
-                  grid_y: int):
+                  grid_y: int, *, tile_base: int = 0):
     """Per-entry feature gradients dF [E, C] (E = len(g_sorted)) of the
-    quick map's cotangent cot [T, 256, C], T = grid_x * grid_y. Inputs as
-    for `blend.blend_tiles`. Rows of entries that no tile blends are 0."""
+    quick map's cotangent cot [T, 256, C], T = len(tile_start): the whole
+    grid, or with `tile_base` a strip of it. Inputs as for
+    `blend.blend_tiles` (a slot at or past the grid blends nothing). Rows
+    of entries that no slot blends are 0."""
     dev = cot.device
-    n_tiles = grid_x * grid_y
+    grid_tiles = grid_x * grid_y
+    n_tiles = tile_start.shape[0]
+    if tile_base < 0:
+        raise ValueError(f"feature_grads: tile_base {tile_base} < 0")
     if dev.type == "cpu":
         return feature_grads_plain(g_sorted, tile_start, tile_count, geom,
-                                   cot, grid_x)
+                                   cot, grid_x, tile_base, grid_tiles)
     if dev.type != "cuda":
         raise ValueError(f"feature_grads: unsupported device {dev}")
     n, c, e = geom.shape[0], cot.shape[2], g_sorted.shape[0]
@@ -79,8 +88,9 @@ def feature_grads(g_sorted, tile_start, tile_count, geom, cot, grid_x: int,
     dfeat = torch.empty((e, c), device=dev)
     ptr = kernels.ptr
     kernels.launch("lsv2_feature_bwd", ptr(g_sorted), ptr(tile_start),
-                   ptr(tile_count), ptr(geom), ptr(cot), n_tiles, grid_x, c,
-                   e, ptr(dfeat), kernels.stream(dfeat))
+                   ptr(tile_count), ptr(geom), ptr(cot), n_tiles, grid_x,
+                   tile_base, grid_tiles, c, e, ptr(dfeat),
+                   kernels.stream(dfeat))
     feature_grads.launches += 1
     return dfeat
 

@@ -327,12 +327,16 @@ def gram_cos_loss_tiles(codebooks, wmap_tiles, gt_table, seg_map, layer_idx,
 
 
 def _gram_cos_core(codebooks, w, seg_flat, hw: int, lay: int, *, eps: float,
-                   gt_table):
+                   gt_table, reduce: str = "mean"):
     """The XLA formulation, differentiated by autograd: w [L, K, Q]
     coefficients in any pixel order, seg_flat [Q] (-1 = masked or
     padding), hw the pixel count the mean divides by. Layers below `lay`
     enter detached. The JAX one-hot matmul lookup is an exact row selection;
-    here it is a gather."""
+    here it is a gather. reduce="mean" returns the loss 1 - sum(sim) / hw;
+    reduce="sum" the raw sum(sim), so that tile shards can add their
+    partial sums before they normalize (the loss is linear in them)."""
+    if reduce not in ("mean", "sum"):
+        raise ValueError(f"unknown reduce {reduce!r}")
     K = codebooks.shape[1]
     q = seg_flat.shape[0]
     cbs = [codebooks[i].detach() if i < lay else codebooks[i]
@@ -359,6 +363,8 @@ def _gram_cos_core(codebooks, w, seg_flat, hw: int, lay: int, *, eps: float,
     nrm = torch.where(covered, torch.sqrt(torch.where(covered, n2, 1.0)),
                       0.0)
     sim = num / (torch.clamp(nrm, min=eps) * torch.clamp(gt_n_pix, min=eps))
+    if reduce == "sum":
+        return sim.sum()
     return 1.0 - sim.sum() / hw
 
 

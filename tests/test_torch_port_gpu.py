@@ -1530,3 +1530,83 @@ def test_xla_route_matches_the_oracle_on_the_card(cuda, mode):
     for k, b in g_r.items():
         scale = float(b.abs().max()) + 1e-12
         assert float((g_x[k] - b).abs().max()) / scale <= 2e-5, k
+
+
+def _strip_ranges(start, count, t0: int, n: int, n_grid: int, e: int):
+    """Slots t0 .. t0 + n - 1 of the grid's tile ranges. The first slot
+    past the grid gets the 64 entries after the strip's last real tile
+    (as the Gaussian-sharded receiver's sentinel slot holds rows), later
+    ones nothing."""
+    real = max(0, min(n, n_grid - t0))
+    s = start[t0:t0 + real].clone()
+    c = count[t0:t0 + real].clone()
+    end = int(s[-1] + c[-1]) if real else int(start[t0])
+    pad = n - real
+    if pad:
+        m = min(64, e - end)
+        s = torch.cat([s, torch.full((pad,), end, dtype=torch.int32,
+                                     device=s.device)])
+        s[real + 1:] += m
+        c = torch.cat([c, torch.zeros(pad, dtype=torch.int32,
+                                      device=c.device)])
+        c[real] = m
+    return s.contiguous(), c.contiguous(), real
+
+
+@pytest.mark.parametrize("t0,n", [(0, 9), (37, 40), (300, 24)],
+                         ids=["head", "inside", "past_grid"])
+def test_strip_kernels_match_plain(cuda, t0, n):
+    """K2 (f32 quick at 192 channels and rgb) and K4 (C = 64) on a strip of
+    the grid's slots from tile_base = t0 (the Gaussian-sharded path's tile
+    owner), its slots past the grid's 320 tiles blended as empty, against
+    their plain versions (K2 atol 3e-5 and its pair counts equal; K4 1e-5
+    of its largest row, every row outside the strip's real tiles 0), and
+    the strip equal bit for bit to the same slots of the whole-grid
+    launch; tile_base = 0 on the whole grid is the present call, bit for
+    bit."""
+    proj, ops, gx, gy = _case(cuda)
+    n_grid = gx * gy
+    tile, depth, gauss, _ = expand.expand_entries(proj, ops, gx, gy, 2 ** 17)
+    g, start, count = expand.sort_entries(tile, depth, gauss, n_grid)
+    qw, qi = quick_pairs(ops.shape[0])
+    qw = torch.as_tensor(qw, device=cuda)
+    qi = torch.as_tensor(qi.astype(np.int32), device=cuda)
+    geom = blend.pack_gaussian_state(proj.xy, proj.conic, ops, proj.rgb)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    s, c, real = _strip_ranges(start, count, t0, n, n_grid, g.shape[0])
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cot = torch.randn(n_grid, 256, 64, device=cuda, generator=gen)
+    cot_s = torch.cat([cot, torch.zeros(n, 256, 64, device=cuda)])[t0:t0 + n]
+    for quick in ((qw, qi, 192), ()):
+        whole = blend.blend_tiles(g, start, count, geom, bg, gx, gy, *quick)
+        again = blend.blend_tiles(g, start, count, geom, bg, gx, gy, *quick,
+                                  tile_base=0)
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+        out = blend.blend_tiles(g, s, c, geom, bg, gx, gy, *quick,
+                                stats=stats, tile_base=t0)
+        ref = blend.blend_tiles_plain(g, s, c, geom, bg, gx, *quick,
+                                      tile_base=t0, grid_tiles=n_grid)
+        for a, b, w, w0 in zip(out, ref, whole, again):
+            if a is None:
+                assert b is None and w is None and w0 is None
+                continue
+            torch.testing.assert_close(a, b, atol=3e-5, rtol=0)
+            assert torch.equal(w, w0)
+            assert torch.equal(a[:real], w[t0:t0 + real])
+        assert (int(stats[0]), int(stats[1])) == blend.pair_counts_plain(
+            g, s, c, geom, gx, tile_base=t0, grid_tiles=n_grid)
+        if real < n:    # past the grid: empty
+            assert torch.equal(out[-1][real:], torch.ones_like(
+                out[-1][real:]))
+    dfeat = train.feature_grads(g, s, c, geom, cot_s, gx, gy, tile_base=t0)
+    ref = train.feature_grads_plain(g, s, c, geom, cot_s, gx, t0, n_grid)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(dfeat / scale, ref / scale, atol=1e-5,
+                               rtol=0)
+    whole = train.feature_grads(g, start, count, geom, cot, gx, gy)
+    lo, hi = int(s[0]), int(s[real - 1] + c[real - 1]) if real else int(s[0])
+    assert torch.equal(dfeat[lo:hi], whole[lo:hi])
+    if lo:
+        assert float(dfeat[:lo].abs().max()) == 0.0
+    assert float(dfeat[hi:].abs().max()) == 0.0
