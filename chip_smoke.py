@@ -315,6 +315,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from langsplatv2_tpu_torch import tracing
 from langsplatv2_tpu_torch.eval import lerf, psnr_eval
 from langsplatv2_tpu_torch.eval import lpips as lpips_mod
 from langsplatv2_tpu_torch.eval.openclip import OpenCLIPNetwork
@@ -422,9 +423,9 @@ KERNELS = {
                 "langsplatv2_tpu_torch/csrc/feature_bwd.cu",
                 "langsplatv2_tpu/ops/pallas_train.py:241"),
 }
-WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
-TRAIN_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+TRAIN_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                   "K4": train.feature_grads, "K6a": gram.gram_tiles_fwd,
                   "K6b": gram.gram_tiles_bwd}
 # The training slice (scripts/profile_train.py's scene): 300k Gaussians at
@@ -436,7 +437,7 @@ TRAIN_YAW_DEG = (-6.0, -2.0, 2.0, 6.0)    # 4 cameras around the scene
 GT_DIR = os.path.join("build", "chip_smoke_gt")
 # The geometry slice (scripts/profile_rgb_train.py's scene): 24 steps with
 # densification at steps 8, 16 and 24.
-RGB_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+RGB_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                 "K7": rgb_train.rgb_grads}
 RGB_N, RGB_ITERS, RGB_EXTENT = 300_000, 24, 5.0
 RGB_DENSIFY = dict(densify_from_iter=4, densification_interval=8,
@@ -448,26 +449,26 @@ RGB_DENSIFY = dict(densify_from_iter=4, densification_interval=8,
 RGB_BWD_INCLUDE_FLOPS = 42
 # The serving default's rows (phase 10) and the capped routes: bench.py's
 # capped variant and scripts/train.sh's training defaults.
-BF16_WRAPPERS = {"K1": expand.expand_entries,
+BF16_WRAPPERS = {"K1": "k1.launches",
                  "K2f16": blend.blend_tiles_fast16,
                  "K3bf16": query.query_map_tiles_bf16}
 CAPPED = dict(tile_budget=1e-6, cap=128, subdiv=2)
-CAPPED_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+CAPPED_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                    "K4": train.feature_grads, "K5": train.feature_grads_topk,
                    "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
 # Phases 12-13: the fused-query frame and the render server. Every serving
 # wrapper is counted, so that the runs show which ones did not launch.
-SERVE_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+SERVE_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                   "K2f16": blend.blend_tiles_fast16,
                   "K2q": blend.blend_tiles_query,
                   "K3": query.query_map_tiles,
                   "K3bf16": query.query_map_tiles_bf16}
 # Phases 14-16: dense features, bf16 cell math, the cascade binner.
-DENSE_WRAPPERS = {"K1": expand.expand_entries,
+DENSE_WRAPPERS = {"K1": "k1.launches",
                   "K2dense": blend.blend_tiles_dense,
                   "K4": train.feature_grads}
 DENSE_WIDTHS = (64, 192, 256)          # 256: two channel groups
-CELLS_WRAPPERS = {"K1": expand.expand_entries,
+CELLS_WRAPPERS = {"K1": "k1.launches",
                   "K2f16": blend.blend_tiles_fast16,
                   "K2q": blend.blend_tiles_query,
                   "K3bf16": query.query_map_tiles_bf16}
@@ -475,7 +476,7 @@ CELLS_WRAPPERS = {"K1": expand.expand_entries,
 # from the f32 cells' by more than this many times the kernel-vs-plain
 # limit, or the kernel did not run the cell math.
 CELLS_EFFECT = 10.0
-CASCADE_WRAPPERS = {"K1": expand.expand_entries,
+CASCADE_WRAPPERS = {"K1": "k1.launches",
                     "K8": cascade.cascade_binning, "K2": blend.blend_tiles,
                     "K3": query.query_map_tiles}
 # Phase 20: the shapes past the main path's kernel designs: 13 positives a
@@ -492,7 +493,7 @@ SMALL_K_WRAPPERS = {"K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd}
 # width (300,000 points, 544x960, L = 1, K = 64, top-4) with 8 cameras on
 # a yaw arc. create_from_pcd's 3-NN scales make the Gaussians wider than
 # phase 7's, hence the larger entry budget.
-SCENE_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+SCENE_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                   "K4": train.feature_grads, "K5": train.feature_grads_topk,
                   "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd,
                   "K7": rgb_train.rgb_grads}
@@ -514,19 +515,31 @@ def fail(msg: str):
 
 def _counter(w):
     """A wrapper's launch counter: the function (its `launches`) or
-    (function, attribute name)."""
+    (function, attribute name); a str names a counter of tracing.py."""
     return w if isinstance(w, tuple) else (w, "launches")
+
+
+# The registry's values at the last zero_counts: its counters are read as
+# the growth since then.
+_REGISTRY_ZERO: dict = {}
 
 
 def zero_counts(wrappers) -> None:
     torch.cuda.synchronize()
+    now = tracing.counters()
     for w in wrappers.values():
-        setattr(*_counter(w), 0)
+        if isinstance(w, str):
+            _REGISTRY_ZERO[w] = now.get(w, 0)
+        else:
+            setattr(*_counter(w), 0)
 
 
 def read_counts(wrappers) -> dict:
     torch.cuda.synchronize()
-    return {k: getattr(*_counter(w)) for k, w in wrappers.items()}
+    now = tracing.counters()
+    return {k: now.get(w, 0) - _REGISTRY_ZERO.get(w, 0)
+            if isinstance(w, str) else getattr(*_counter(w))
+            for k, w in wrappers.items()}
 
 
 def bench_scene(n: int, seed: int = 0) -> dict:
@@ -3388,8 +3401,8 @@ def lm_capped_chain(model, clip, consts, plans, capped_iou, dev) -> dict:
     counts against min(budget_counts, cap) on every tile, the kept counts
     beside budget_from_rows' (printed; the bounds differ by design) and
     the relevancy IoU against the exact bf16 frame."""
-    wrappers = {"K1": expand.expand_entries,
-                "K1_with_alpha": (expand.expand_entries, "alpha_launches"),
+    wrappers = {"K1": "k1.launches",
+                "K1_with_alpha": "k1.alpha_launches",
                 "K2f16": blend.blend_tiles_fast16,
                 "K3bf16": query.query_map_tiles_bf16}
     zero_counts(wrappers)
@@ -3676,7 +3689,7 @@ EVAL_H, EVAL_W = 728, 986               # the LERF eval resolution
 EVAL_SIZES = (1_000_000, 750_000, 500_000)
 EVAL_YAWS = (-4.0, -1.5, 1.5, 4.0)      # 4 annotated frames
 EVAL_PROMPTS = ("teddy bear", "coffee mug", "book", "plant")
-EVAL_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+EVAL_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                  "K3": query.query_map_tiles}
 
 
@@ -4236,8 +4249,8 @@ def scene_dir_path(dev, smi: str) -> dict:
 
 CLI_SCENE = "eval_scene"               # <path_root>/<scene>, <scene>_1_<lvl>
 CLI_ITER = 30
-CLI_WRAPPERS = {"K1": expand.expand_entries,
-                "K1nocull": (expand.expand_entries, "nocull_launches"),
+CLI_WRAPPERS = {"K1": "k1.launches",
+                "K1nocull": "k1.nocull_launches",
                 "K2": blend.blend_tiles,
                 "K2f16": blend.blend_tiles_fast16,
                 "K2q": blend.blend_tiles_query, "K3": query.query_map_tiles,
@@ -4653,8 +4666,8 @@ def cli_path(dev, smi: str, n: int) -> dict:
 
 # ------------- phase 23: the XLA route (impl="xla") on the card
 
-XLA_WRAPPERS = {"K1": expand.expand_entries,
-                "K1nocull": (expand.expand_entries, "nocull_launches"),
+XLA_WRAPPERS = {"K1": "k1.launches",
+                "K1nocull": "k1.nocull_launches",
                 "K2": blend.blend_tiles, "K2dense": blend.blend_tiles_dense,
                 "K4": train.feature_grads, "K5": train.feature_grads_topk,
                 "K6a": gram.gram_tiles_fwd, "K6b": gram.gram_tiles_bwd,
@@ -5546,7 +5559,7 @@ def preprocess_path(dev, smi: str) -> dict:
 
 DIST_RANKS = 4
 DIST_ROOT = Path("build") / "chip_smoke_dist"
-DIST_WRAPPERS = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+DIST_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                  "K4": train.feature_grads}
 DIST_FRAMES = 2
 # The Gaussian-sharded frame against the single-card sort route (JAX's

@@ -28,6 +28,7 @@ import hashlib
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops import query, rasterize_tiles
 from ..ops.rasterize import mark_stage
@@ -259,11 +260,13 @@ class OpenCLIPNetwork:
 
     def prompt_constants(self, codebooks: torch.Tensor):
         """Per-prompt-set constants: phi [L, K, P+N] (codebooks folded into
-        the phrases) and gram [L, K, K] (codebook Gram matrices)."""
-        codebooks = codebooks.to(self.device)
-        phi = torch.einsum("lkd,pd->lkp", codebooks, self.phrases())
-        gram = torch.einsum("lkd,lmd->lkm", codebooks, codebooks)
-        return phi.contiguous(), gram.contiguous()
+        the phrases) and gram [L, K, K] (codebook Gram matrices), in the
+        span "query"."""
+        with tracing.span("query"):
+            codebooks = codebooks.to(self.device)
+            phi = torch.einsum("lkd,pd->lkp", codebooks, self.phrases())
+            gram = torch.einsum("lkd,lmd->lkm", codebooks, codebooks)
+            return phi.contiguous(), gram.contiguous()
 
     def _relevancy(self, raw: torch.Tensor, nrm2: torch.Tensor):
         """raw [L, Q, P+N], nrm2 [L, Q] -> [L, Q, P] relevancy."""
@@ -290,12 +293,13 @@ class OpenCLIPNetwork:
                              stage_events: list | None = None):
         """wm_tiles [T, 256, L*K] (rasterize with assemble=False) and the
         prompt_constants -> relevancy [L, positives, H, W], through the
-        query kernel K3. `stage_events` (CUDA only) gets ("query", event)
-        and ("relevancy", event) after each stage."""
-        raw, nrm2 = query.query_map_tiles(wm_tiles, phi, gram)
-        mark_stage(stage_events, "query")
-        return self.relevancy_from_query(raw, nrm2, grid_x, grid_y, height,
-                                         width, stage_events)
+        query kernel K3, in the span "query". `stage_events` (CUDA only)
+        gets ("query", event) and ("relevancy", event) after each stage."""
+        with tracing.span("query"):
+            raw, nrm2 = query.query_map_tiles(wm_tiles, phi, gram)
+            mark_stage(stage_events, "query")
+            return self.relevancy_from_query(raw, nrm2, grid_x, grid_y,
+                                             height, width, stage_events)
 
     def relevancy_from_query(self, raw: torch.Tensor, nrm2: torch.Tensor,
                              grid_x: int, grid_y: int, height: int,

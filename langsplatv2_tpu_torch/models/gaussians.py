@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops.knn import mean_sq_dist_3nn
 from ..utils import transforms as tf
@@ -131,15 +132,16 @@ class GaussianModel(nn.Module):
 
     def get_weights_and_indices(self, k: int):
         """Per-layer top-k (weights, indices), each [C, L*k], indices
-        offset by layer*K."""
+        offset by layer*K; in the span "topk_codes"."""
         L, K, _ = self.codebooks.shape
         ws, idxs = [], []
-        for i in range(L):
-            w, idx = get_weights_and_indices(
-                self.language_logits[:, i * K:(i + 1) * K], k)
-            ws.append(w)
-            idxs.append(idx + i * K)
-        return torch.cat(ws, dim=-1), torch.cat(idxs, dim=-1)
+        with tracing.span("topk_codes"):
+            for i in range(L):
+                w, idx = get_weights_and_indices(
+                    self.language_logits[:, i * K:(i + 1) * K], k)
+                ws.append(w)
+                idxs.append(idx + i * K)
+            return torch.cat(ws, dim=-1), torch.cat(idxs, dim=-1)
 
     def compute_layer_feature_map(self, weight_map: torch.Tensor,
                                   layer_idx: int):

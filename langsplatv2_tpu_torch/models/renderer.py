@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops.projection import sh_to_color
 from ..ops.rasterize import RasterizeSettings, rasterize, to_f32
@@ -73,50 +74,56 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
            compute_cov3d_python: bool = False, means2d_dummy=None,
            precomputed_quick: tuple | None = None, device=None,
            stage_events: list | None = None) -> RenderOutput:
-    dev = resolve_device(device)
-    scales = rotations = cov3d = None
-    if compute_cov3d_python:
-        cov3d = model.get_covariance(settings.scale_modifier)
-    else:
-        scales, rotations = model.get_scaling(), model.get_rotation()
-    shs = colors = None
-    if override_color is not None:
-        colors = override_color
-    elif convert_shs_python:
-        colors = sh_to_color(model.get_features(), model.xyz,
-                             to_f32(campos, dev), model.active_sh_degree)
-    else:
-        shs = model.get_features()
-    quick_weights = quick_indices = None
-    quick_channels = 0
-    quick_train = False
-    if quick_render:
-        if model.quick_weights is None or model.quick_indices is None:
-            raise ValueError("quick_render needs a merged model's "
-                             "quick_weights and quick_indices")
-        quick_weights, quick_indices = model.quick_weights, model.quick_indices
-        quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
-    elif include_feature:
-        quick_weights, quick_indices = (
-            model.get_weights_and_indices(topk) if precomputed_quick is None
-            else precomputed_quick)
-        quick_channels = model.codebooks.shape[0] * model.codebooks.shape[1]
-        quick_train = True
+    """One frame of `model` from the camera, in the span "render" (every
+    layer's span, tracing.py, opens under it)."""
+    with tracing.span("render"):
+        dev = resolve_device(device)
+        scales = rotations = cov3d = None
+        if compute_cov3d_python:
+            cov3d = model.get_covariance(settings.scale_modifier)
+        else:
+            scales, rotations = model.get_scaling(), model.get_rotation()
+        shs = colors = None
+        if override_color is not None:
+            colors = override_color
+        elif convert_shs_python:
+            colors = sh_to_color(model.get_features(), model.xyz,
+                                 to_f32(campos, dev), model.active_sh_degree)
+        else:
+            shs = model.get_features()
+        quick_weights = quick_indices = None
+        quick_channels = 0
+        quick_train = False
+        if quick_render:
+            if model.quick_weights is None or model.quick_indices is None:
+                raise ValueError("quick_render needs a merged model's "
+                                 "quick_weights and quick_indices")
+            quick_weights = model.quick_weights
+            quick_indices = model.quick_indices
+            quick_channels = (model.codebooks.shape[0]
+                              * model.codebooks.shape[1])
+        elif include_feature:
+            quick_weights, quick_indices = (
+                model.get_weights_and_indices(topk)
+                if precomputed_quick is None else precomputed_quick)
+            quick_channels = (model.codebooks.shape[0]
+                              * model.codebooks.shape[1])
+            quick_train = True
 
-    out = rasterize(
-        settings, model.xyz, model.get_opacity(), viewmatrix, projmatrix,
-        campos, bg_color, scales=scales, rotations=rotations,
-        cov3d_precomp=cov3d, shs=shs, colors_precomp=colors,
-        quick_weights=quick_weights,
-        quick_indices=quick_indices, quick_channels=quick_channels,
-        quick_train=quick_train, means2d_dummy=means2d_dummy, device=dev,
-        stage_events=stage_events)
-    return RenderOutput(
-        render=out.rgb, language_feature_weight_map=out.feature_map,
-        visibility_filter=out.radii > 0, radii=out.radii,
-        final_transmittance=out.final_transmittance,
-        max_tile_count=out.max_tile_count, total_entries=out.total_entries,
-        live_total=out.live_total)
+        out = rasterize(
+            settings, model.xyz, model.get_opacity(), viewmatrix, projmatrix,
+            campos, bg_color, scales=scales, rotations=rotations,
+            cov3d_precomp=cov3d, shs=shs, colors_precomp=colors,
+            quick_weights=quick_weights,
+            quick_indices=quick_indices, quick_channels=quick_channels,
+            quick_train=quick_train, means2d_dummy=means2d_dummy, device=dev,
+            stage_events=stage_events)
+        return RenderOutput(
+            render=out.rgb, language_feature_weight_map=out.feature_map,
+            visibility_filter=out.radii > 0, radii=out.radii,
+            final_transmittance=out.final_transmittance,
+            max_tile_count=out.max_tile_count,
+            total_entries=out.total_entries, live_total=out.live_total)
 
 
 def render_camera(camera, model: GaussianModel, bg_color, *,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels
 from .projection import BLOCK, ProjectedGaussians
 
@@ -131,9 +132,10 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
     with_alpha = s > 0 (needs exact_cull; s divides 16) a fifth output,
     lm [s^2, E] f32, sub-box-major: each kept entry's log1p(-alpha_max)
     over each of the s x s sub-boxes of its tile (row-major), 0 for a
-    culled entry or one at or past total. `launches` counts every launch
-    of K1, `alpha_launches` those with with_alpha > 0, `nocull_launches`
-    those without the exact cull (the XLA route's binning)."""
+    culled entry or one at or past total. The counters (tracing.py)
+    "k1.launches" count every launch of K1, "k1.alpha_launches" those with
+    with_alpha > 0, "k1.nocull_launches" those without the exact cull (the
+    XLA route's binning)."""
     if with_alpha:
         if not exact_cull:
             raise ValueError("with_alpha requires exact_cull")
@@ -179,18 +181,13 @@ def expand_entries(proj: ProjectedGaussians, opacities: torch.Tensor,
         inv_cull_alpha, P(tile), P(depth), P(gauss), with_alpha,
         P(lm) if with_alpha else kernels.NULL, P(total),
         kernels.stream(tile))
-    expand_entries.launches += 1
+    tracing.count("k1.launches")
     if not exact_cull:
-        expand_entries.nocull_launches += 1
+        tracing.count("k1.nocull_launches")
     if not with_alpha:
         return tile, depth, gauss, total
-    expand_entries.alpha_launches += 1
+    tracing.count("k1.alpha_launches")
     return tile, depth, gauss, total, lm
-
-
-expand_entries.launches = 0
-expand_entries.alpha_launches = 0
-expand_entries.nocull_launches = 0
 
 
 def sort_entries(tile, depth, gauss, num_tiles: int, payload=()):

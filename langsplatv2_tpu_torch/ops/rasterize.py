@@ -80,6 +80,10 @@ K2's dense mode. binning="gauss" with `mesh=` (JAX :192-210) is the
 Gaussian-sharded forward of parallel/gauss_sharded.py, each rank passing
 its own rows, with the exchange's `dropped_entries`; pair_capacity is read
 there only. No option falls back to another path.
+
+Every route opens the same spans (tracing.py) at its matching points:
+"preprocess", "binning" (expansion and sort, or K8, or bin_gaussians),
+"blend" (the rows' packing and K2) and "assemble" (the tiles to images).
 """
 from __future__ import annotations
 
@@ -87,6 +91,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from . import (binning, blend, budget, cascade, expand, projection,
                rasterize_tiles, rgb_train, train)
@@ -241,7 +246,7 @@ def _preprocess_frozen(settings, means3d, opacities, viewmatrix,
     """The preprocess outside autograd and the [N] opacities, for the routes
     that differentiate no geometry (fast16, dense, cascade); stage events
     "start" and "preprocess"."""
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("preprocess"):
         op = opacities[:, 0].detach().contiguous()
         mark_stage(stage_events, "start")
         proj = projection.preprocess(
@@ -254,7 +259,7 @@ def _preprocess_frozen(settings, means3d, opacities, viewmatrix,
             cull_alpha=settings.cull_alpha,
             cov3d_precomp=to_f32(cov3d_precomp, dev))
         mark_stage(stage_events, "preprocess")
-    return projection.detach(proj), op
+        return projection.detach(proj), op
 
 
 class Fast16Binned(NamedTuple):
@@ -289,20 +294,22 @@ def fast16_binned(settings: RasterizeSettings, means3d, opacities,
         campos, scales, rotations, cov3d_precomp, shs, colors_precomp, dev,
         stage_events)
     with torch.no_grad():
-        if capped:
-            g, start, count, sat_bound, total = capped_binning(
-                settings, proj, op, True, stage_events)
-            max_tile_count = sat_bound.max()
-            live_total = count.sum(dtype=torch.int32)
-        else:
-            g, start, count, total, live_total = sorted_binning(
-                settings, proj, op, stage_events)
-            max_tile_count = count.max()
+        with tracing.span("binning"):
+            if capped:
+                g, start, count, sat_bound, total = capped_binning(
+                    settings, proj, op, True, stage_events)
+                max_tile_count = sat_bound.max()
+                live_total = count.sum(dtype=torch.int32)
+            else:
+                g, start, count, total, live_total = sorted_binning(
+                    settings, proj, op, stage_events)
+                max_tile_count = count.max()
         mark_stage(stage_events, "budget" if capped else "sort")
-        qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32)
-        rows = blend.pack_fast16_rows(
-            proj.xy, proj.conic, op, proj.rgb,
-            to_f32(quick_weights, dev).contiguous(), qi.contiguous())
+        with tracing.span("blend"):
+            qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32)
+            rows = blend.pack_fast16_rows(
+                proj.xy, proj.conic, op, proj.rgb,
+                to_f32(quick_weights, dev).contiguous(), qi.contiguous())
     return Fast16Binned(proj, op, rows, g, start, count, max_tile_count,
                         total, live_total)
 
@@ -390,25 +397,28 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
                           projmatrix, campos, scales, rotations,
                           cov3d_precomp, shs, colors_precomp, quick_weights,
                           quick_indices, dev=dev, stage_events=stage_events)
-        topk = quick_weights.shape[1]
-        rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
-            b.g, b.start, b.count, b.rows, bg, grid_x, grid_y, topk,
-            quick_channels, settings.feat_bf16,
-            cells_bf16=settings.bf16_cells)
+        with tracing.span("blend"):
+            rgb_t, feat_t, t_t = blend.blend_tiles_fast16(
+                b.g, b.start, b.count, b.rows, bg, grid_x, grid_y,
+                quick_weights.shape[1], quick_channels, settings.feat_bf16,
+                cells_bf16=settings.bf16_cells)
         return _assemble(settings, rgb_t, feat_t, t_t, b.proj.radius,
                          b.max_tile_count, b.total, b.live_total,
                          stage_events)
 
     mark_stage(stage_events, "start")
-    proj = projection.preprocess(
-        *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                   colors_precomp, viewmatrix, projmatrix,
-                                   campos)), settings.tanfovx,
-        settings.tanfovy, W, H, settings.sh_degree, settings.scale_modifier,
-        opacities=opacities[:, 0].detach(), cull_alpha=settings.cull_alpha,
-        cov3d_precomp=to_f32(cov3d_precomp, dev))
+    with tracing.span("preprocess"):
+        proj = projection.preprocess(
+            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                       colors_precomp, viewmatrix,
+                                       projmatrix, campos)),
+            settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
+            settings.scale_modifier, opacities=opacities[:, 0].detach(),
+            cull_alpha=settings.cull_alpha,
+            cov3d_precomp=to_f32(cov3d_precomp, dev))
     mark_stage(stage_events, "preprocess")
-    with torch.no_grad():   # binning is not differentiable
+    # binning is not differentiable
+    with torch.no_grad(), tracing.span("binning"):
         proj_d, op_d = projection.detach(proj), opacities[:, 0].detach()
         if capped:
             g_sorted, tile_start, tile_count, sat_bound, total = \
@@ -421,28 +431,32 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
             max_tile_count = tile_count.max()
     mark_stage(stage_events, "budget" if capped else "sort")
     if not quick:
-        rgb, final_t = rgb_train.rasterize_rgb_vjp(
-            settings, proj, opacities[:, 0], (g_sorted, tile_start,
-                                              tile_count), bg,
-            to_f32(means2d_dummy, dev))
+        with tracing.span("blend"):
+            rgb, final_t = rgb_train.rasterize_rgb_vjp(
+                settings, proj, opacities[:, 0], (g_sorted, tile_start,
+                                                  tile_count), bg,
+                to_f32(means2d_dummy, dev))
         mark_stage(stage_events, "blend")
         mark_stage(stage_events, "assemble")
         return RasterizeOutput(
             rgb=rgb, feature_map=None, radii=proj.radius,
             final_transmittance=final_t, max_tile_count=max_tile_count,
             total_entries=total, live_total=live_total)
-    qw = to_f32(quick_weights, dev).contiguous()
-    qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32).contiguous()
-    geom = blend.pack_gaussian_state(proj.xy, proj.conic, opacities[:, 0],
-                                     proj.rgb)
-    if quick_train:
-        rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
-            qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
-            grid_y, quick_channels, settings.tile_budget_cap if capped else 0)
-    else:
-        rgb_t, feat_t, t_t = blend.blend_tiles(
-            g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y, qw,
-            qi, quick_channels)
+    with tracing.span("blend"):
+        qw = to_f32(quick_weights, dev).contiguous()
+        qi = torch.as_tensor(quick_indices, device=dev).to(
+            torch.int32).contiguous()
+        geom = blend.pack_gaussian_state(proj.xy, proj.conic,
+                                         opacities[:, 0], proj.rgb)
+        if quick_train:
+            rgb_t, feat_t, t_t = train.QuickTrainBlend.apply(
+                qw, g_sorted, tile_start, tile_count, geom, bg, qi, grid_x,
+                grid_y, quick_channels,
+                settings.tile_budget_cap if capped else 0)
+        else:
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g_sorted, tile_start, tile_count, geom, bg, grid_x, grid_y,
+                qw, qi, quick_channels)
     return _assemble(settings, rgb_t, feat_t, t_t, proj.radius,
                      max_tile_count, total, live_total, stage_events)
 
@@ -505,35 +519,41 @@ def _rasterize_xla(settings, means3d, opacities, viewmatrix, projmatrix,
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
     mark_stage(stage_events, "start")
-    proj = projection.preprocess(
-        *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                   colors_precomp, viewmatrix, projmatrix,
-                                   campos)), settings.tanfovx,
-        settings.tanfovy, W, H, settings.sh_degree, settings.scale_modifier,
-        cov3d_precomp=to_f32(cov3d_precomp, dev))
+    with tracing.span("preprocess"):
+        proj = projection.preprocess(
+            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
+                                       colors_precomp, viewmatrix,
+                                       projmatrix, campos)),
+            settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
+            settings.scale_modifier,
+            cov3d_precomp=to_f32(cov3d_precomp, dev))
     mark_stage(stage_events, "preprocess")
-    xy = proj.xy
-    if means2d_dummy is not None:
-        # The reference's dL/dmean2D scale, which densification reads.
-        scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
-        xy = xy + to_f32(means2d_dummy, dev) * scale
-    if quick_weights is not None:
-        feats = quick_as_channels(quick_weights, quick_indices,
-                                  quick_channels, dev)
-    else:
-        feats = to_f32(features, dev)
-    binned = binning.bin_gaussians(projection.detach(proj), grid_x, grid_y,
-                                   settings.max_entries, opacities[:, 0])
+    with tracing.span("binning"):
+        binned = binning.bin_gaussians(projection.detach(proj), grid_x,
+                                       grid_y, settings.max_entries,
+                                       opacities[:, 0])
     mark_stage(stage_events, "sort")
-    rgb_t, feat_t, t_t = rasterize_tiles.blend_tiles(
-        xy, proj.conic, opacities[:, 0], proj.rgb, feats, binned, grid_x,
-        grid_y, bg, settings.tile_cap, settings.tile_batch)
+    with tracing.span("blend"):
+        xy = proj.xy
+        if means2d_dummy is not None:
+            # The reference's dL/dmean2D scale, which densification reads.
+            scale = torch.tensor([0.5 * W, 0.5 * H], device=dev)
+            xy = xy + to_f32(means2d_dummy, dev) * scale
+        if quick_weights is not None:
+            feats = quick_as_channels(quick_weights, quick_indices,
+                                      quick_channels, dev)
+        else:
+            feats = to_f32(features, dev)
+        rgb_t, feat_t, t_t = rasterize_tiles.blend_tiles(
+            xy, proj.conic, opacities[:, 0], proj.rgb, feats, binned, grid_x,
+            grid_y, bg, settings.tile_cap, settings.tile_batch)
     mark_stage(stage_events, "blend")
-    rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
-    feat = (rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
-            if feat_t is not None else None)
-    final_t = rasterize_tiles.tiles_to_image(
-        t_t[..., None], grid_x, grid_y, H, W)[0]
+    with tracing.span("assemble"):
+        rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
+        feat = (rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
+                if feat_t is not None else None)
+        final_t = rasterize_tiles.tiles_to_image(
+            t_t[..., None], grid_x, grid_y, H, W)[0]
     mark_stage(stage_events, "assemble")
     return RasterizeOutput(
         rgb=rgb, feature_map=feat, radii=proj.radius,
@@ -569,14 +589,17 @@ def _rasterize_dense(settings, means3d, opacities, viewmatrix, projmatrix,
     proj, op = _preprocess_frozen(
         settings, means3d, opacities, viewmatrix, projmatrix, campos, scales,
         rotations, cov3d_precomp, shs, colors_precomp, dev, stage_events)
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("binning"):
         g_sorted, tile_start, tile_count, total, live_total = \
             sorted_binning(settings, proj, op, stage_events)
-        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
     mark_stage(stage_events, "sort")
-    rgb_t, feat_t, t_t = train.DenseTrainBlend.apply(
-        features.contiguous(), g_sorted, tile_start, tile_count, geom, bg,
-        settings.grid_x, settings.grid_y)
+    with tracing.span("blend"):
+        with torch.no_grad():
+            geom = blend.pack_gaussian_state(proj.xy, proj.conic, op,
+                                             proj.rgb)
+        rgb_t, feat_t, t_t = train.DenseTrainBlend.apply(
+            features.contiguous(), g_sorted, tile_start, tile_count, geom,
+            bg, settings.grid_x, settings.grid_y)
     return _assemble(settings, rgb_t, feat_t, t_t, proj.radius,
                      tile_count.max(), total, None if vjp else live_total,
                      stage_events)
@@ -593,22 +616,26 @@ def _rasterize_cascade(settings, means3d, opacities, viewmatrix, projmatrix,
         settings, means3d, opacities, viewmatrix, projmatrix, campos, scales,
         rotations, cov3d_precomp, shs, colors_precomp, dev, stage_events)
     with torch.no_grad():
-        g, start, count, total, overflow = cascade.cascade_binning(
-            proj, op, settings.grid_x, settings.grid_y, settings.max_entries,
-            inv_cull_alpha=255.0)
-        total = torch.where(overflow, torch.clamp(
-            total, min=settings.max_entries), total)
+        with tracing.span("binning"):
+            g, start, count, total, overflow = cascade.cascade_binning(
+                proj, op, settings.grid_x, settings.grid_y,
+                settings.max_entries, inv_cull_alpha=255.0)
+            total = torch.where(overflow, torch.clamp(
+                total, min=settings.max_entries), total)
         mark_stage(stage_events, "sort")
-        geom = blend.pack_gaussian_state(proj.xy, proj.conic, op, proj.rgb)
-        if quick_weights is None:
-            rgb_t, feat_t, t_t = blend.blend_tiles(
-                g, start, count, geom, bg, settings.grid_x, settings.grid_y)
-        else:
-            rgb_t, feat_t, t_t = blend.blend_tiles(
-                g, start, count, geom, bg, settings.grid_x, settings.grid_y,
-                to_f32(quick_weights, dev).contiguous(),
-                torch.as_tensor(quick_indices, device=dev).to(
-                    torch.int32).contiguous(), quick_channels)
+        with tracing.span("blend"):
+            geom = blend.pack_gaussian_state(proj.xy, proj.conic, op,
+                                             proj.rgb)
+            if quick_weights is None:
+                rgb_t, feat_t, t_t = blend.blend_tiles(
+                    g, start, count, geom, bg, settings.grid_x,
+                    settings.grid_y)
+            else:
+                rgb_t, feat_t, t_t = blend.blend_tiles(
+                    g, start, count, geom, bg, settings.grid_x,
+                    settings.grid_y, to_f32(quick_weights, dev).contiguous(),
+                    torch.as_tensor(quick_indices, device=dev).to(
+                        torch.int32).contiguous(), quick_channels)
     return _assemble(settings, rgb_t, feat_t, t_t, proj.radius, count.max(),
                      total, None, stage_events)
 
@@ -620,11 +647,13 @@ def _assemble(settings, rgb_t, feat_t, t_t, radii, max_tile_count, total,
     mark_stage(stage_events, "blend")
     H, W = settings.image_height, settings.image_width
     grid_x, grid_y = settings.grid_x, settings.grid_y
-    rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
-    if settings.assemble and feat_t is not None:
-        feat_t = rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y, H, W)
-    final_t = rasterize_tiles.tiles_to_image(
-        t_t[..., None], grid_x, grid_y, H, W)[0]
+    with tracing.span("assemble"):
+        rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
+        if settings.assemble and feat_t is not None:
+            feat_t = rasterize_tiles.tiles_to_image(feat_t, grid_x, grid_y,
+                                                    H, W)
+        final_t = rasterize_tiles.tiles_to_image(
+            t_t[..., None], grid_x, grid_y, H, W)[0]
     mark_stage(stage_events, "assemble")
     return RasterizeOutput(
         rgb=rgb, feature_map=feat_t, radii=radii,
@@ -661,14 +690,15 @@ def rasterize_quick_query(settings: RasterizeSettings, means3d, opacities,
                       quick_weights, quick_indices, dev=dev,
                       stage_events=stage_events)
     with torch.no_grad():
-        topk = quick_weights.shape[1]
-        rgb_t, raw, nrm2, t_t = blend.blend_tiles_query(
-            b.g, b.start, b.count, b.rows, to_f32(bg, dev).contiguous(),
-            grid_x, grid_y, topk, phi.contiguous(), gram.contiguous(),
-            cells_bf16=settings.bf16_cells)
+        with tracing.span("blend"):
+            rgb_t, raw, nrm2, t_t = blend.blend_tiles_query(
+                b.g, b.start, b.count, b.rows, to_f32(bg, dev).contiguous(),
+                grid_x, grid_y, quick_weights.shape[1], phi.contiguous(),
+                gram.contiguous(), cells_bf16=settings.bf16_cells)
         mark_stage(stage_events, "blend")
-        rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
-        final_t = rasterize_tiles.tiles_to_image(
-            t_t[..., None], grid_x, grid_y, H, W)[0]
+        with tracing.span("assemble"):
+            rgb = rasterize_tiles.tiles_to_image(rgb_t, grid_x, grid_y, H, W)
+            final_t = rasterize_tiles.tiles_to_image(
+                t_t[..., None], grid_x, grid_y, H, W)[0]
         mark_stage(stage_events, "assemble")
     return rgb, raw, nrm2, final_t, b.proj.radius, b.total, b.live_total

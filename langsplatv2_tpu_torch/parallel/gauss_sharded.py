@@ -45,6 +45,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..ops import blend, expand, projection, rasterize_tiles, train
 from ..ops.rasterize import RasterizeSettings, to_f32
 from .distributed import all_gather, all_reduce_, all_to_all
@@ -192,16 +193,18 @@ def exchange(mesh: Mesh, settings: RasterizeSettings, means3d, opacities,
     sizes = plan(settings, mesh.shape[axis], pair_capacity)
     quick = quick_weights is not None
     with torch.no_grad():
-        proj, op = _preprocess(settings, means3d, opacities, viewmatrix,
-                               projmatrix, campos, scales, rotations,
-                               colors_precomp, shs, dev)
-        qw = (to_f32(quick_weights, dev).detach().contiguous() if quick
-              else None)
-        qi = (torch.as_tensor(quick_indices, device=dev).to(torch.int32)
-              .contiguous() if quick else None)
-        ex = _expand_exchange(proj, op, qw, qi, mesh=mesh, axis=axis,
-                              sizes=sizes, grid_x=settings.grid_x,
-                              grid_y=settings.grid_y)
+        with tracing.span("preprocess"):
+            proj, op = _preprocess(settings, means3d, opacities, viewmatrix,
+                                   projmatrix, campos, scales, rotations,
+                                   colors_precomp, shs, dev)
+        with tracing.span("binning"):
+            qw = (to_f32(quick_weights, dev).detach().contiguous() if quick
+                  else None)
+            qi = (torch.as_tensor(quick_indices, device=dev).to(torch.int32)
+                  .contiguous() if quick else None)
+            ex = _expand_exchange(proj, op, qw, qi, mesh=mesh, axis=axis,
+                                  sizes=sizes, grid_x=settings.grid_x,
+                                  grid_y=settings.grid_y)
     if stats is not None:
         stats.update(cap=sizes["cap"], local_budget=sizes["local_budget"],
                      strip=sizes["strip"], tile_base=ex.tile_base,
@@ -251,20 +254,22 @@ def rasterize_gauss_sharded(
                         colors_precomp, shs, quick_weights, quick_indices,
                         axis=axis, pair_capacity=pair_capacity, stats=stats)
     with torch.no_grad():
-        g = torch.arange(ex.geom.shape[0], dtype=torch.int32,
-                         device=mesh.device)
-        rgb_t, feat_t, t_t = blend.blend_tiles(
-            g, ex.tile_start, ex.tile_count, ex.geom,
-            to_f32(bg, mesh.device).contiguous(), settings.grid_x,
-            settings.grid_y, ex.qw, ex.qi, quick_channels if quick else 0,
-            tile_base=ex.tile_base)
+        with tracing.span("blend"):
+            g = torch.arange(ex.geom.shape[0], dtype=torch.int32,
+                             device=mesh.device)
+            rgb_t, feat_t, t_t = blend.blend_tiles(
+                g, ex.tile_start, ex.tile_count, ex.geom,
+                to_f32(bg, mesh.device).contiguous(), settings.grid_x,
+                settings.grid_y, ex.qw, ex.qi, quick_channels if quick else 0,
+                tile_base=ex.tile_base)
         total = _sum(ex.total, mesh, axis)
         dropped = _sum(ex.dropped, mesh, axis)
         if gather:
-            rgb_t = strip_images(rgb_t, mesh, settings, axis)
-            feat_t = (strip_images(feat_t, mesh, settings, axis)
-                      if quick else None)
-            t_t = strip_images(t_t[..., None], mesh, settings, axis)[0]
+            with tracing.span("assemble"):
+                rgb_t = strip_images(rgb_t, mesh, settings, axis)
+                feat_t = (strip_images(feat_t, mesh, settings, axis)
+                          if quick else None)
+                t_t = strip_images(t_t[..., None], mesh, settings, axis)[0]
     return rgb_t, feat_t, t_t, total, dropped, proj.radius
 
 
@@ -346,10 +351,11 @@ def rasterize_gauss_sharded_feature_train(
                          projmatrix, campos, scales, rotations,
                          colors_precomp, shs, qw, quick_indices, axis=axis,
                          pair_capacity=pair_capacity, stats=stats)
-    qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32)
-    rgb_t, feat_t, t_t = _GaussFeatureTrain.apply(
-        qw, ex, qi, to_f32(bg, dev).contiguous(), settings.grid_x,
-        settings.grid_y, quick_channels,
-        settings.grid_x * settings.grid_y, mesh.groups[axis])
+    with tracing.span("blend"):
+        qi = torch.as_tensor(quick_indices, device=dev).to(torch.int32)
+        rgb_t, feat_t, t_t = _GaussFeatureTrain.apply(
+            qw, ex, qi, to_f32(bg, dev).contiguous(), settings.grid_x,
+            settings.grid_y, quick_channels,
+            settings.grid_x * settings.grid_y, mesh.groups[axis])
     return (rgb_t, feat_t, t_t, _sum(ex.total, mesh, axis),
             _sum(ex.dropped, mesh, axis))

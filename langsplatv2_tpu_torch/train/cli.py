@@ -18,8 +18,12 @@ seeded from --seed (so not the JAX package's values). A checkpoint of the
 same phase resumes at its iteration with its Adam moments (`.npz`, or the
 reference's `.pth`); a feature checkpoint keeps its trained logits and
 codebooks (the JAX script draws them anew). `--profile_dir` writes a
-torch.profiler trace of iterations [100, 110). `--gui` serves the SIBR
-viewer on --ip:--port while it trains (`serve/network_gui.py`).
+torch.profiler trace of iterations [100, 110); it carries the program's
+`lsv2.*` spans (tracing.py: a feature step's "step" over "forward",
+"loss", "accept", "backward" and "optimizer", the render's layers under
+"forward"), so the trace shows which phase leaves the card idle.
+`--gui` serves the SIBR viewer on --ip:--port while it trains
+(`serve/network_gui.py`).
 `--impl xla` trains through the rasterizer's XLA route (the autograd
 tile blend); the port passes --impl to both phases, where scripts/train.py
 passes it to the geometry phase only (its feature phase's "auto" is the
@@ -28,7 +32,8 @@ evaluation renders' included.
 
 `main(argv)` runs in process and returns a summary (the model directory,
 first and last iteration, losses, each iteration's host time and
-expansion total, the feature phase's entry budgets, the scene load and
+expansion total, the feature phase's entry budgets and `redone_steps`,
+the steps its budget guard turned down and ran again, the scene load and
 k-means times); it puts back the sys.stdout that `safe_state` replaces.
 """
 from __future__ import annotations
@@ -43,6 +48,7 @@ from argparse import ArgumentParser, Namespace
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..models import io as mio
 from ..models.gaussians import create_from_pcd, init_language_features
@@ -96,7 +102,8 @@ def build_parser():
     parser.add_argument("--impl", type=str, default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="torch.profiler trace of iterations [100, 110)")
+                        help="torch.profiler trace of iterations [100, "
+                        "110), with the lsv2.* spans of each step's phases")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda, or cpu for the kernels' plain versions")
     return parser, lp, op, pp
@@ -141,6 +148,7 @@ def _train(args, dataset, opt, dev) -> dict:
     cameras = scene.get_train_cameras()
     summary = {"model_path": args.model_path,
                "scene_s": time.perf_counter() - t0, "kmeans_s": None}
+    redone = tracing.counters().get("feature_step.redone", 0)
     print(f"Scene: {len(cameras)} training cameras in "
           f"{summary['scene_s']:.2f} s")
     bg = (1.0, 1.0, 1.0) if dataset.white_background else (0.0, 0.0, 0.0)
@@ -348,7 +356,9 @@ def _train(args, dataset, opt, dev) -> dict:
                    events=logs.events, iteration_ms=iteration_ms,
                    total_entries=total_entries,
                    live_budget=list(logs.live_budget.values()),
-                   exp_budget=list(logs.exp_budget.values()))
+                   exp_budget=list(logs.exp_budget.values()),
+                   redone_steps=tracing.counters().get(
+                       "feature_step.redone", 0) - redone)
     return summary
 
 

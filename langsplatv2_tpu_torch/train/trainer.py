@@ -97,6 +97,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..models import gaussians as gm
 from ..models.gaussians import GaussianModel
@@ -391,6 +392,19 @@ def pixel_loss(model, weight_map, gt_feature, feature_mask, layer_idx: int,
     return loss, l1
 
 
+def _accepted(accept: Callable | None, metrics: dict) -> bool:
+    """The guard's decision on a formed step, in the span "accept" (the
+    host waits there on the device's totals); a refusal counts as
+    "feature_step.redone"."""
+    if accept is None:
+        return True
+    with tracing.span("accept"):
+        ok = accept(metrics)
+    if not ok:
+        tracing.count("feature_step.redone")
+    return ok
+
+
 def _apply(model, optimizer, do_update: bool, accumulate: bool) -> None:
     """After a step's backward: zero the logits' gradient on dead rows,
     then step Adam when `do_update` (the gradients accumulated since the
@@ -416,9 +430,12 @@ def make_feature_train_step(settings, optimizer: torch.optim.Optimizer,
     accept=None, device=None, do_update=True, accumulate=False) ->
     (metrics, applied). The forward runs first; when `accept(metrics)`
     says no, the step returns without a backward or an update (the
-    trainer's redo). Otherwise the gradients of logits and codebooks are
-    formed (added to `.grad` when `accumulate`, else replacing it), the
-    logits' zeroed on dead rows, and Adam steps when `do_update`."""
+    trainer's redo; the counter "feature_step.redone" counts it).
+    Otherwise the gradients of logits and codebooks are formed (added to
+    `.grad` when `accumulate`, else replacing it), the logits' zeroed on
+    dead rows, and Adam steps when `do_update`. The step's spans
+    (tracing.py): "step" over "forward", "loss", "accept", "backward" and
+    "optimizer"."""
     gram = use_cos_loss and not use_l1_loss and not normalize
     # The kernel routes keep the map in tile layout for K6; the XLA route
     # assembles it, and the Gram loss is then the autograd formulation
@@ -429,27 +446,32 @@ def make_feature_train_step(settings, optimizer: torch.optim.Optimizer,
     def step(model, view, proj, campos, bg, gt_a, gt_b, layer_idx: int = 0,
              accept: Callable | None = None, device=None,
              do_update: bool = True, accumulate: bool = False):
-        out = render(render_settings, model, view, proj, campos, bg,
-                     include_feature=True, topk=topk, device=device)
-        if gram:
-            loss = (gram_loss_fused if tiles else gram_cos_loss)(
-                model.codebooks, out.language_feature_weight_map, gt_a,
-                gt_b, layer_idx)
-            l1 = torch.zeros((), device=loss.device)
-        else:
-            loss, l1 = pixel_loss(model, out.language_feature_weight_map,
-                                  gt_a, gt_b, layer_idx, use_cos_loss,
-                                  use_l1_loss, normalize)
-        metrics = {"loss": loss.detach(), "l1": l1.detach(),
-                   "live_total": out.live_total,
-                   "total_entries": out.total_entries}
-        if accept is not None and not accept(metrics):
-            return metrics, False
-        if not accumulate:
-            optimizer.zero_grad(set_to_none=False)
-        loss.backward()
-        _apply(model, optimizer, do_update, accumulate)
-        return metrics, True
+        with tracing.span("step"):
+            with tracing.span("forward"):
+                out = render(render_settings, model, view, proj, campos, bg,
+                             include_feature=True, topk=topk, device=device)
+            with tracing.span("loss"):
+                if gram:
+                    loss = (gram_loss_fused if tiles else gram_cos_loss)(
+                        model.codebooks, out.language_feature_weight_map,
+                        gt_a, gt_b, layer_idx)
+                    l1 = torch.zeros((), device=loss.device)
+                else:
+                    loss, l1 = pixel_loss(
+                        model, out.language_feature_weight_map, gt_a, gt_b,
+                        layer_idx, use_cos_loss, use_l1_loss, normalize)
+                metrics = {"loss": loss.detach(), "l1": l1.detach(),
+                           "live_total": out.live_total,
+                           "total_entries": out.total_entries}
+            if not _accepted(accept, metrics):
+                return metrics, False
+            with tracing.span("backward"):
+                if not accumulate:
+                    optimizer.zero_grad(set_to_none=False)
+                loss.backward()
+            with tracing.span("optimizer"):
+                _apply(model, optimizer, do_update, accumulate)
+            return metrics, True
 
     return step
 
@@ -469,7 +491,8 @@ def make_feature_group_step(settings, optimizer: torch.optim.Optimizer,
     group's losses (the blend backward a camera, their d(quick_weights)
     summed), one backward of the top-k projection, the logits' gradient
     zeroed on dead rows and one Adam step when `do_update`. metrics
-    "losses" holds each camera's loss."""
+    "losses" holds each camera's loss. Counter and spans as for
+    `make_feature_train_step` (a "forward" and a "loss" a camera)."""
     tiles = settings.impl != "xla"
     render_settings = settings._replace(assemble=False) if tiles else settings
     loss_fn = gram_loss_fused if tiles else gram_cos_loss
@@ -477,30 +500,38 @@ def make_feature_group_step(settings, optimizer: torch.optim.Optimizer,
     def step(model, views, bg, gts, layer_idx: int = 0,
              accept: Callable | None = None, device=None,
              do_update: bool = True):
-        qw, qi = model.get_weights_and_indices(topk)
-        qw_group = qw.detach().requires_grad_(True)
-        group_losses, lives, totals = [], [], []
-        for (view, proj, campos), (table, seg) in zip(views, gts):
-            out = render(render_settings, model, view, proj, campos, bg,
-                         include_feature=True, topk=topk,
-                         precomputed_quick=(qw_group, qi), device=device)
-            group_losses.append(loss_fn(
-                model.codebooks, out.language_feature_weight_map, table,
-                seg, layer_idx))
-            lives.append(out.live_total)
-            totals.append(out.total_entries)
-        per_camera = torch.stack([v.detach() for v in group_losses])
-        metrics = {"loss": per_camera.sum(), "losses": per_camera,
-                   "live_total": (None if lives[0] is None
-                                  else torch.stack(lives).max()),
-                   "total_entries": torch.stack(totals).max()}
-        if accept is not None and not accept(metrics):
-            return metrics, False
-        optimizer.zero_grad(set_to_none=False)
-        torch.autograd.backward(group_losses)
-        qw.backward(qw_group.grad)
-        _apply(model, optimizer, do_update, False)
-        return metrics, True
+        with tracing.span("step"):
+            with tracing.span("forward"):
+                qw, qi = model.get_weights_and_indices(topk)
+                qw_group = qw.detach().requires_grad_(True)
+            group_losses, lives, totals = [], [], []
+            for (view, proj, campos), (table, seg) in zip(views, gts):
+                with tracing.span("forward"):
+                    out = render(render_settings, model, view, proj, campos,
+                                 bg, include_feature=True, topk=topk,
+                                 precomputed_quick=(qw_group, qi),
+                                 device=device)
+                with tracing.span("loss"):
+                    group_losses.append(loss_fn(
+                        model.codebooks, out.language_feature_weight_map,
+                        table, seg, layer_idx))
+                lives.append(out.live_total)
+                totals.append(out.total_entries)
+            with tracing.span("loss"):
+                per_camera = torch.stack([v.detach() for v in group_losses])
+                metrics = {"loss": per_camera.sum(), "losses": per_camera,
+                           "live_total": (None if lives[0] is None
+                                          else torch.stack(lives).max()),
+                           "total_entries": torch.stack(totals).max()}
+            if not _accepted(accept, metrics):
+                return metrics, False
+            with tracing.span("backward"):
+                optimizer.zero_grad(set_to_none=False)
+                torch.autograd.backward(group_losses)
+                qw.backward(qw_group.grad)
+            with tracing.span("optimizer"):
+                _apply(model, optimizer, do_update, False)
+            return metrics, True
 
     return step
 

@@ -1,0 +1,9 @@
+"""Device idle milliseconds a frame put down to the binning: the idle gaps
+of the traced window that begin while the host is inside the program's
+"lsv2.binning" span (its innermost "lsv2.*" span), summed over the traced
+frames, over their count (portbench/spans.py)."""
+from portbench import spans
+
+
+def read(rec: dict):
+    return spans.per_call_ms(rec, "binning", "idle_s")

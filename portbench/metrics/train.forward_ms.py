@@ -1,0 +1,10 @@
+"""Device milliseconds a step launched in the forward (the render: top-k
+codes, preprocess, binning, blend): the device time of every operation
+launched while the program's "lsv2.forward" span was open, its
+children's included, summed over the traced steps, over their count
+(portbench/spans.py)."""
+from portbench import spans
+
+
+def read(rec: dict):
+    return spans.per_call_ms(rec, "forward", "device_s")

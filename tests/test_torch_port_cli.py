@@ -273,6 +273,10 @@ def test_cli_writes_scripts_train_artifacts(trained):
     assert any(r.get("split") == "train" for r in rows)
     assert "Optimizing" in trained["rgb"].stdout
     assert trained["feature"]["kmeans_s"] is not None
+    # The geometry phase has no budget guard; the feature phase's count of
+    # redone steps is the counter's growth over its run.
+    assert trained["resumed"]["redone_steps"] == 0
+    assert trained["feature"]["redone_steps"] >= 0
 
 
 def test_cli_resume_restores_adam_moments(trained):

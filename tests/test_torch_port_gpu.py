@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from langsplatv2_tpu_torch import tracing
 from langsplatv2_tpu_torch.ops import blend, budget, cascade, expand, probe, \
     query, train
 from langsplatv2_tpu_torch.ops import projection
@@ -523,10 +524,10 @@ def test_expand_with_alpha_kernel_matches_plain(cuda, subdiv):
     """K1 with_alpha: entries equal, lm within 2 f32 ulps (the kernel and
     torch round op by op in the same order), the lm words equal."""
     proj, ops, gx, gy = _case(cuda)
-    before = expand.expand_entries.alpha_launches
+    before = tracing.counters().get("k1.alpha_launches", 0)
     tile, depth, gauss, total, lm = expand.expand_entries(
         proj, ops, gx, gy, 2 ** 17, with_alpha=subdiv)
-    assert expand.expand_entries.alpha_launches == before + 1
+    assert tracing.counters()["k1.alpha_launches"] == before + 1
     offsets = torch.cumsum(proj.tiles_touched, 0, dtype=torch.int64) \
         - proj.tiles_touched
     ref = expand.expand_entries_plain(proj, ops, offsets, gx, gy, 2 ** 17,
@@ -1377,7 +1378,7 @@ def test_cli_trains_both_phases_on_the_card(cuda, tmp_path):
     from torch_port_fixtures import write_colmap_scene
 
     write_colmap_scene(tmp_path / "scene", np.random.default_rng(0))
-    wrappers = {"K1": expand.expand_entries, "K2": blend.blend_tiles,
+    wrappers = {"K2": blend.blend_tiles,
                 "K4": train.feature_grads, "K6a": gram.gram_tiles_fwd,
                 "K6b": gram.gram_tiles_bwd, "K7": rgb_train.rgb_grads}
     out = str(tmp_path / "out" / "m")
@@ -1396,10 +1397,12 @@ def test_cli_trains_both_phases_on_the_card(cuda, tmp_path):
                                           "--codebook_size", "16"])):
             for w in wrappers.values():
                 w.launches = 0
+            k1 = tracing.counters().get("k1.launches", 0)
             sys.stdout = io.StringIO()
             summary = cli.main(base + extra)
             torch.cuda.synchronize()
             counts[phase] = {k: w.launches for k, w in wrappers.items()}
+            counts[phase]["K1"] = tracing.counters()["k1.launches"] - k1
             assert np.isfinite(summary["losses"]).all(), phase
     finally:
         sys.stdout = stdout
@@ -1458,9 +1461,9 @@ def test_bin_gaussians_on_the_card(cuda, scene_name):
     cpu = projection.ProjectedGaussians(*[
         None if t is None else t.cpu() for t in proj])
     for cut in (total + 5, total - 1, total // 2 + 3):
-        before = expand.expand_entries.nocull_launches
+        before = tracing.counters().get("k1.nocull_launches", 0)
         got = binning.bin_gaussians(proj, gx, gy, cut, ops)
-        assert expand.expand_entries.nocull_launches == before + 1
+        assert tracing.counters()["k1.nocull_launches"] == before + 1
         ref = binning.bin_gaussians(cpu, gx, gy, cut, ops.cpu())
         assert int(got.total_entries) == int(ref.total_entries) == total
         for name in got._fields:
