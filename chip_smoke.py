@@ -285,7 +285,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    world of one rank over NCCL, bit-equal to the gloo ranks' strips.
    Times are host-staged where gloo carries the data. A part alone:
    import chip_smoke and call `distribution_path(torch.device("cuda"),
-   smi)` after `kernels.build()`.
+   smi)` after `kernels.build()`;
+26. the preprocess kernel (csrc/preprocess.cu; it replaces no Pallas
+   kernel): phase 4's scene with seeded SH degree 3 rows at 1080p, every
+   field bit for bit against its plain version, both timed with the
+   kernel's bound, registers, spills (a spill fails) and occupancy, the
+   torch.cat of the SH rows it no longer needs timed, each call's host
+   time; a served frame counts one launch and no plain call; the frame,
+   the kernel with the camera as numpy arrays and the parent's pageable
+   camera copy under torch.cuda.set_sync_debug_mode("error") (the kernel
+   path must not synchronise). A part alone: import chip_smoke and call
+   `preprocess_kernel_path(torch.device("cuda"))` after `kernels.build()`.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -394,6 +404,8 @@ KERNELS = {
     "K2comb": ("blend_tiles[cascade segments]",
                "langsplatv2_tpu_torch/csrc/blend.cu",
                "langsplatv2_tpu/ops/pallas_blend.py:695"),
+    "PRE": ("preprocess", "langsplatv2_tpu_torch/csrc/preprocess.cu",
+            "none: langsplatv2_tpu/ops/projection.py is XLA code"),
     "K1_with_alpha": ("expand_entries[with_alpha]",
                       "langsplatv2_tpu_torch/csrc/expand.cu",
                       "langsplatv2_tpu/ops/pallas_binning.py:498"),
@@ -6402,6 +6414,128 @@ def new_kernel_rows(lmc, probe_res) -> dict:
     return rows
 
 
+# The preprocess kernel's bytes a Gaussian at SH degree d: the mean,
+# scales, rotation and opacity read (44 B), (d + 1)^2 SH rows of 12 B, and
+# xy, depth, conic, radius, rgb, rect and tiles written (60 B); its f32
+# operations a Gaussian (projection, covariance, conic, extents, rect:
+# ~170) and ~9 an SH coefficient and channel.
+PRE_READ, PRE_WRITE, PRE_FLOPS, PRE_SH_FLOPS = 44, 60, 170, 9
+
+
+def preprocess_kernel_path(dev) -> dict:
+    """Phase 26: the preprocess kernel (csrc/preprocess.cu) on phase 4's
+    1M-Gaussian scene with seeded SH degree 3 rows, at 1080p with the
+    opacity-aware extents: every field bit for bit against the plain
+    version, both timed (and the torch.cat of the SH rows the kernel no
+    longer needs), its bound, registers, spills and occupancy; the host
+    time of a call; a served frame's launches (one kernel launch, no plain
+    call); the frame under torch.cuda.set_sync_debug_mode("error"), and
+    whether the plain path's camera copy (torch.as_tensor of the numpy
+    matrices, as the parent did) is a synchronising operation."""
+    f = bench_scene(1_000_000)
+    rng = np.random.default_rng(26)
+    f["features_rest"] = (0.1 * rng.normal(size=(1_000_000, 15, 3))
+                          ).astype(np.float32)
+    model = from_numpy_params(f, device=dev)
+    if model.active_sh_degree != 3:
+        fail(f"phase 26: SH degree {model.active_sh_degree}, expected 3")
+    h, w = 1080, 1920
+    view, pm, tfx, tfy = bench_camera(h, w)
+    campos = np.float32([0.05, -0.02, 0.01])
+    op = model.get_opacity()[:, 0].contiguous()
+    scales, rots = model.get_scaling(), model.get_rotation()
+    pair = (model.features_dc, model.features_rest)
+    args = (model.xyz, scales, rots, pair, None, view, pm, campos, tfx, tfy,
+            w, h, 3, 1.0)
+    kern = lambda: projection.preprocess(*args, opacities=op)  # noqa: E731
+    plain = lambda: projection.preprocess_plain(  # noqa: E731
+        *args, opacities=op)
+    # Events around back-to-back calls time the host here (a call's host
+    # work outlasts the kernel): the device times come from the profiler.
+    event_ms, out = cuda_ms(kern, 50)
+    event_plain_ms, ref = cuda_ms(plain, 5)
+    k_split = device_split(lambda: [kern() for _ in range(10)])
+    p_split = device_split(plain)
+    ms, plain_ms = k_split["device_total"] / 1e4, p_split["device_total"] / 1e3
+    mism = {}
+    for name in ref._fields:
+        a, b = getattr(out, name), getattr(ref, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        mism[name] = int((a != b).sum())
+    if any(mism.values()):
+        fail(f"phase 26: the preprocess kernel differs from its plain "
+             f"version: {mism}")
+    cat_ms, _ = cuda_ms(lambda: torch.cat(pair, dim=1), 20)
+    n = model.xyz.shape[0]
+    coeffs = 16
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=0.0,
+               mismatches=mism, cat_ms=cat_ms, event_ms=event_ms,
+               event_plain_ms=event_plain_ms,
+               device_ops_kernel=k_split["launches"] / 10,
+               device_ops_plain=p_split["launches"],
+               host_ms_kernel=host_ms(kern, 20), host_ms_plain=host_ms(plain,
+                                                                       5),
+               visible=int((out.radius > 0).sum()))
+    row["bound_ms"], row["bound_by"] = bound(
+        n * (PRE_READ + 12 * coeffs + PRE_WRITE),
+        n * (PRE_FLOPS + PRE_SH_FLOPS * 3 * coeffs))
+    occ = kernels.occupancy("lsv2_preprocess_occupancy", 3)
+    rep = [r for r in kernels.ptxas_report("preprocess.cu")]
+    if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in rep):
+        fail(f"phase 26: a preprocess instantiation spills: {rep}")
+    row.update(occupancy=occ, ptxas=rep)
+    log(f"preprocess kernel: {ms:.4f} ms (bound {row['bound_ms']:.4f}, "
+        f"{row['bound_by']}), plain {plain_ms:.3f} ms "
+        f"({row['device_ops_plain']} device operations), cat "
+        f"{cat_ms:.4f} ms; events {event_ms:.4f} / {event_plain_ms:.3f} ms; "
+        f"host {row['host_ms_kernel']:.3f} / {row['host_ms_plain']:.3f} ms "
+        f"a call; {occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} "
+        f"warps an SM, {occ['registers']} registers, {occ['smem_bytes']} "
+        "shared bytes")
+    del out, ref
+
+    # A served frame (the quick pairs of phase 4's scene): its launches.
+    s = RasterizeSettings(h, w, tfx, tfy, 3, max_entries=SCENE_MAX_ENTRIES,
+                          assemble=False)
+    frame_args = (s, model, view, pm, campos, torch.zeros(3, device=dev))
+    counted = {"launches": "preprocess.launches",
+               "plain_calls": "preprocess.plain_calls"}
+    with torch.no_grad():
+        render(*frame_args, quick_render=True, device=dev)
+        zero_counts(counted)
+        for _ in range(4):
+            render(*frame_args, quick_render=True, device=dev)
+        row["frame_counts_4"] = read_counts(counted)
+        if row["frame_counts_4"] != {"launches": 4, "plain_calls": 0}:
+            fail(f"phase 26: a served frame's preprocess counts "
+                 f"{row['frame_counts_4']} over 4 frames")
+        torch.cuda.synchronize()
+        sync = {}
+        for label, fn in (
+                ("served frame", lambda: render(*frame_args,
+                                                quick_render=True,
+                                                device=dev)),
+                ("kernel, numpy camera", kern),
+                ("pageable camera copy", lambda: torch.as_tensor(
+                    view, dtype=torch.float32, device=dev))):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+                sync[label] = "no synchronising operation"
+            except RuntimeError as e:
+                sync[label] = f"raised: {str(e).splitlines()[0]}"
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        row["sync_debug"] = sync
+        log(f"preprocess sync debug: {sync}")
+    if sync["kernel, numpy camera"] != "no synchronising operation":
+        fail(f"phase 26: the kernel path synchronised: {sync}")
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6486,7 +6620,10 @@ def main() -> None:
     pre_res = preprocess_path(dev, smi)
     torch.cuda.empty_cache()
     dist_res = distribution_path(dev, smi)
+    pre_row = preprocess_kernel_path(dev)
     new_rows = {**new_kernel_rows(lmc, probe_res), **dist_res["kernel_rows"],
+                "PRE": dict(pre_row,
+                            launches=pre_row["frame_counts_4"]["launches"]),
                 **phase20_kernel_rows(p20s, p20t),
                 "K1nocull": dict(
                     xla_res["k1_nocull"]["row"],
@@ -6598,7 +6735,8 @@ def main() -> None:
                        eval_path=eval_res, many_prompts_serving=p20s,
                        small_k_training=p20t, scene_dir_training=scene_res,
                        command_lines=cli_res, xla_route=xla_res,
-                       preprocess=pre_res, distribution=dist_res),
+                       preprocess=pre_res, distribution=dist_res,
+                       preprocess_kernel=pre_row),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

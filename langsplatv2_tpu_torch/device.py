@@ -21,6 +21,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def to_f32(x, dev):
+    """`x` (an array, a tensor or a Python sequence) as a float32 tensor on
+    `dev`; None stays None. Host data bound for a CUDA device goes through
+    pinned memory with a non-blocking copy: a copy from pageable memory
+    would synchronise the stream and drain the queued work."""
+    if x is None:
+        return None
+    dev = torch.device(dev)
+    if dev.type == "cuda" and not (isinstance(x, torch.Tensor)
+                                   and x.is_cuda):
+        host = torch.as_tensor(x, dtype=torch.float32)
+        return host.pin_memory().to(dev, non_blocking=True)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
 @contextmanager
 def no_tf32_matmul():
     """f32 matrix products without TF32 inside the block (exact where the

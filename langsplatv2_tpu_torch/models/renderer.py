@@ -90,7 +90,8 @@ def render(settings: RasterizeSettings, model: GaussianModel, viewmatrix,
             colors = sh_to_color(model.get_features(), model.xyz,
                                  to_f32(campos, dev), model.active_sh_degree)
         else:
-            shs = model.get_features()
+            # Read in place by the preprocess kernel (no concatenation).
+            shs = (model.features_dc, model.features_rest)
         quick_weights = quick_indices = None
         quick_channels = 0
         quick_train = False

@@ -26,10 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_tor
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # expand.cu, cascade.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu,
-# rgb_bwd.cu and probe.cu round every f32 op on its own (no fused
-# multiply-add), as their plain PyTorch versions do: the entry sets of K1
-# and K8, the alpha / termination tests of K2 and K9's compares then agree
-# bit for bit, and K4, K5 and K7 replay K2's blend weights exactly.
+# rgb_bwd.cu, probe.cu and preprocess.cu round every f32 op on its own (no
+# fused multiply-add), as their plain PyTorch versions do: the entry sets
+# of K1 and K8, the alpha / termination tests of K2 and K9's compares then
+# agree bit for bit, K4, K5 and K7 replay K2's blend weights exactly, and
+# the preprocess's fields are the plain path's.
 # Every source but errors.cu is built with ptxas's report
 # (registers, shared memory, spills of each instantiation), kept in
 # BUILD_DIR/<source stem>.log: `ptxas_report`.
@@ -44,6 +45,7 @@ SOURCES = {
     "gram.cu": ["-Xptxas=-v"],
     "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "probe.cu": ["-fmad=false", "-Xptxas=-v"],
+    "preprocess.cu": ["-fmad=false", "-Xptxas=-v"],
     "errors.cu": [],
 }
 
@@ -109,6 +111,12 @@ ENTRY_POINTS = {
     "lsv2_cell_chain": [_P] * 2 + [_L, _I, _P, _P],
     # mode cells channels topk out[5]
     "lsv2_blend_occupancy": [_I] * 4 + [_P],
+    # host_params view proj campos means scales rotations cov3d opacity
+    # sh_dc sh_rest dc_stride rest_stride sh_degree n xy depth conic radius
+    # rgb rect_min rect_max tiles stream
+    "lsv2_preprocess": [_P] * 11 + [_L] * 2 + [_I] * 2 + [_P] * 9,
+    # sh_degree out[5]
+    "lsv2_preprocess_occupancy": [_I, _P],
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument

@@ -92,7 +92,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tracing
-from ..device import resolve_device
+from ..device import resolve_device, to_f32
 from . import (binning, blend, budget, cascade, expand, projection,
                rasterize_tiles, rgb_train, train)
 from .projection import BLOCK
@@ -235,9 +235,12 @@ def capped_binning(settings: RasterizeSettings, proj, opacities,
     return g_win, starts, kept, sat_bound, total
 
 
-def to_f32(x, dev):
-    return None if x is None else torch.as_tensor(x, dtype=torch.float32,
-                                                  device=dev)
+def _per_gaussian(dev, means3d, scales, rotations, shs, colors_precomp):
+    """The preprocess's per-Gaussian inputs as float32 on `dev` (`shs` a
+    tensor or the (dc, rest) pair); the camera goes to it as given."""
+    return (to_f32(means3d, dev), to_f32(scales, dev),
+            to_f32(rotations, dev), projection.shs_f32(shs, dev),
+            to_f32(colors_precomp, dev))
 
 
 def _preprocess_frozen(settings, means3d, opacities, viewmatrix,
@@ -250,9 +253,8 @@ def _preprocess_frozen(settings, means3d, opacities, viewmatrix,
         op = opacities[:, 0].detach().contiguous()
         mark_stage(stage_events, "start")
         proj = projection.preprocess(
-            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                       colors_precomp, viewmatrix,
-                                       projmatrix, campos)),
+            *_per_gaussian(dev, means3d, scales, rotations, shs,
+                           colors_precomp), viewmatrix, projmatrix, campos,
             settings.tanfovx, settings.tanfovy, settings.image_width,
             settings.image_height, settings.sh_degree,
             settings.scale_modifier, opacities=op,
@@ -409,9 +411,8 @@ def rasterize(settings: RasterizeSettings, means3d, opacities, viewmatrix,
     mark_stage(stage_events, "start")
     with tracing.span("preprocess"):
         proj = projection.preprocess(
-            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                       colors_precomp, viewmatrix,
-                                       projmatrix, campos)),
+            *_per_gaussian(dev, means3d, scales, rotations, shs,
+                           colors_precomp), viewmatrix, projmatrix, campos,
             settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
             settings.scale_modifier, opacities=opacities[:, 0].detach(),
             cull_alpha=settings.cull_alpha,
@@ -521,9 +522,8 @@ def _rasterize_xla(settings, means3d, opacities, viewmatrix, projmatrix,
     mark_stage(stage_events, "start")
     with tracing.span("preprocess"):
         proj = projection.preprocess(
-            *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                       colors_precomp, viewmatrix,
-                                       projmatrix, campos)),
+            *_per_gaussian(dev, means3d, scales, rotations, shs,
+                           colors_precomp), viewmatrix, projmatrix, campos,
             settings.tanfovx, settings.tanfovy, W, H, settings.sh_degree,
             settings.scale_modifier,
             cov3d_precomp=to_f32(cov3d_precomp, dev))

@@ -166,9 +166,8 @@ def _preprocess(settings, means3d, opacities, viewmatrix, projmatrix, campos,
         else torch.zeros((n, 3), device=dev))
     proj = projection.preprocess(
         to_f32(means3d, dev), scales, to_f32(rotations, dev),
-        to_f32(shs, dev) if use_shs else None, cols,
-        to_f32(viewmatrix, dev), to_f32(projmatrix, dev),
-        to_f32(campos, dev), settings.tanfovx, settings.tanfovy,
+        projection.shs_f32(shs, dev) if use_shs else None, cols,
+        viewmatrix, projmatrix, campos, settings.tanfovx, settings.tanfovy,
         settings.image_width, settings.image_height, settings.sh_degree,
         settings.scale_modifier, opacities=op)
     return projection.detach(proj), op

@@ -199,9 +199,9 @@ def rasterize_sharded(
     num_tiles = grid_x * grid_y
     opacities = to_f32(opacities, dev)
     proj = projection.preprocess(
-        *(to_f32(x, dev) for x in (means3d, scales, rotations, shs,
-                                   colors_precomp, viewmatrix, projmatrix,
-                                   campos)), settings.tanfovx,
+        *(to_f32(x, dev) for x in (means3d, scales, rotations)),
+        projection.shs_f32(shs, dev), to_f32(colors_precomp, dev),
+        viewmatrix, projmatrix, campos, settings.tanfovx,
         settings.tanfovy, W, H, settings.sh_degree, settings.scale_modifier,
         cov3d_precomp=to_f32(cov3d_precomp, dev))
     if quick_weights is not None:

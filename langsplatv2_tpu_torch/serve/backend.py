@@ -277,7 +277,8 @@ class BackendRenderer:
         self._tc_cache = temporal.quick_bin_cache(
             settings, m.xyz, m.get_opacity(), view, full, campos,
             scales=m.get_scaling(), rotations=m.get_rotation(),
-            shs=m.get_features(), quick_weights=m.quick_weights,
+            shs=(m.features_dc, m.features_rest),
+            quick_weights=m.quick_weights,
             quick_indices=m.quick_indices, device=self.device)
         self._tc_c2w = np.array(c2w, np.float32)
         self._tc_key = geo_key

@@ -18,7 +18,9 @@ Spans: render (models/renderer.py), preprocess, binning, blend, assemble
 (eval/openclip.py), topk_codes (models/gaussians.py), step, forward, loss,
 accept, backward, optimizer (train/trainer.py). Counters: k1.launches,
 k1.alpha_launches, k1.nocull_launches (ops/expand.py),
-feature_step.redone (train/trainer.py).
+preprocess.launches (each launch of the preprocess kernel) and
+preprocess.plain_calls (each plain preprocess on CUDA tensors)
+(ops/projection.py), feature_step.redone (train/trainer.py).
 """
 from __future__ import annotations
 

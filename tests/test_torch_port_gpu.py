@@ -1613,3 +1613,231 @@ def test_strip_kernels_match_plain(cuda, t0, n):
     if lo:
         assert float(dfeat[:lo].abs().max()) == 0.0
     assert float(dfeat[hi:].abs().max()) == 0.0
+
+
+# ------------------------------------------------- the preprocess kernel
+# (csrc/preprocess.cu against projection.preprocess_plain on the card)
+
+PRE_FIELDS = ("xy", "depth", "conic", "radius", "rgb", "rect_min",
+              "rect_max", "tiles_touched")
+
+
+def _pre_scene(n: int, deg: int, seed: int, dead: bool = True):
+    """numpy inputs of the preprocess at degree `deg`, with its edge rows:
+    depth exactly 0.2 and one f32 ulp past it, Gaussians off every side of
+    the screen, behind the camera, and (with `dead`) opacities under the
+    cull threshold."""
+    rng = np.random.default_rng(seed)
+    sc = scene(n, seed=seed)
+    means = sc["means"]
+    means[:4, 2] = np.float32(0.2)
+    means[4:8, 2] = np.nextafter(np.float32(0.2), np.float32(1))
+    means[8:12, :2] = [[40.0, 0.0], [-40.0, 0.0], [0.0, 30.0], [0.0, -30.0]]
+    means[12:14, 2] = [-1.0, -3.0]
+    ops = sc["opacities"][:, 0].copy()
+    if dead:
+        ops[14:20] = [0.0, 1e-4, 1e-3, 0.0039, 1.0 / 255.0, 0.0040]
+    k = (deg + 1) ** 2 if deg >= 0 else 1
+    shs = (rng.normal(size=(n, max(k, 1), 3)) * 0.3).astype(np.float32)
+    return dict(means=means, scales=sc["scales"], rotations=sc["rotations"],
+                opacities=ops, shs=shs, colors=sc["colors"])
+
+
+def _pre_camera(h: int, w: int):
+    """The bench camera moved sideways off the origin (its centre at
+    (-0.15, 0.1, 0), the view-space depth still the world z): (view, proj,
+    campos, tanfovx, tanfovy) as float32 numpy."""
+    view, pm, tfx, tfy = camera(h, w)
+    shift = np.float32([0.15, -0.1, 0.0])
+    view = view.copy()
+    view[3, :3] += shift
+    # camera() has the identity view, so its full projection is P^T.
+    pm = (view.astype(np.float64) @ pm.astype(np.float64)).astype(np.float32)
+    return view, pm, -shift, tfx, tfy
+
+
+def _same_bits(got, want, label):
+    """Equal tensors, floats bit for bit (a -0 / +0 or NaN payload counts)."""
+    if want is None:
+        assert got is None, label
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, label
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    bad = int((got != want).sum())
+    assert bad == 0, f"{label}: {bad} of {got.numel()} values differ"
+
+
+def _pre_both(args: tuple, kw: dict):
+    """The kernel's and the plain path's outputs on the same inputs, with
+    the launch counters' growth."""
+    before = tracing.counters()
+    out = projection.preprocess(*args, **kw)
+    mid = tracing.counters()
+    ref = projection.preprocess_plain(*args, **kw)
+    grown = {k: mid.get(k, 0) - before.get(k, 0)
+             for k in ("preprocess.launches", "preprocess.plain_calls")}
+    assert grown == {"preprocess.launches": 1,
+                     "preprocess.plain_calls": 0}, grown
+    return out, ref
+
+
+def _pre_check(out, ref, ops, w: int, h: int, label: str):
+    """Every field bit for bit, and K1 on both sets of outputs: the same
+    entries, tiles and depths."""
+    for name in PRE_FIELDS:
+        _same_bits(getattr(out, name), getattr(ref, name),
+                   f"{label} {name}")
+    gx, gy = -(-w // 16), -(-h // 16)
+    e_out = expand.expand_entries(out, ops, gx, gy, 2 ** 20)
+    e_ref = expand.expand_entries(ref, ops, gx, gy, 2 ** 20)
+    assert 0 < int(e_out[3]) < 2 ** 20, label
+    for a, b in zip(e_out, e_ref):
+        assert torch.equal(a, b), label
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+def test_preprocess_kernel_matches_plain(cuda, deg):
+    """The kernel against the plain path at every SH degree eval_sh takes,
+    scales and rotations, tight extents with dead opacities, the camera as
+    host arrays: every field bit for bit (the two norms' sums included:
+    csrc/preprocess.cu replays torch's reduction order), K1 alike on
+    both."""
+    h, w = 256, 320
+    c = _pre_scene(5000, deg, seed=10 + deg)
+    view, pm, campos, tfx, tfy = _pre_camera(h, w)
+
+    def T(a):
+        return torch.as_tensor(a, device=cuda)
+
+    ops = T(c["opacities"])
+    shs = T(c["shs"])
+    args = (T(c["means"]), T(c["scales"]), T(c["rotations"]),
+            (shs[:, :1].contiguous(), shs[:, 1:].contiguous()), None, view,
+            pm, campos, tfx, tfy, w, h, deg, 1.0)
+    out, ref = _pre_both(args, dict(opacities=ops))
+    _pre_check(out, ref, ops, w, h, f"deg {deg}")
+    assert int((out.radius > 0).sum()) > 1000
+    # The same call with the SH as one [N, K, 3] tensor, and at a scale
+    # modifier and cull alpha of their own.
+    cat_args = args[:3] + (shs,) + args[4:13] + (0.9,)
+    out2, ref2 = _pre_both(cat_args, dict(opacities=ops, cull_alpha=0.01))
+    _pre_check(out2, ref2, ops, w, h, f"deg {deg} [N, K, 3]")
+
+
+@pytest.mark.parametrize("mode", ["cov3d_colors", "cov3d_none",
+                                  "no_opacity"])
+def test_preprocess_kernel_other_inputs(cuda, mode):
+    """cov3d_precomp (with rows whose det is exactly 0) with colors_precomp
+    passed through or no colour, and the 3-sigma extents without
+    opacities (SH 3): bit for bit against the plain path, K1 alike."""
+    from langsplatv2_tpu_torch.utils.transforms import \
+        covariance_from_scaling_rotation
+
+    h, w = 256, 320
+    c = _pre_scene(4000, 3, seed=30)
+    view, pm, campos, tfx, tfy = _pre_camera(h, w)
+
+    def T(a):
+        return torch.as_tensor(a, device=cuda)
+
+    ops = T(c["opacities"])
+    means = T(c["means"])
+    kw = dict(opacities=ops)
+    if mode == "no_opacity":
+        args = (means, T(c["scales"]), T(c["rotations"]), T(c["shs"]), None)
+        kw = {}
+    else:
+        cov = covariance_from_scaling_rotation(T(c["scales"]), 1.0,
+                                               T(c["rotations"]))
+        # det = 0: a Gaussian on the optical axis (m0 = (j0, 0, 0), m1 =
+        # (0, k1, 0)) with xx = -0.3 / j0^2 to the bit (a = 0) and xy = 0
+        # (b = 0).
+        cam_z = np.float32(4.0)
+        cx, cy, cz = campos
+        j0 = np.float32(np.float32(1) / cam_z) * np.float32(
+            w / (2.0 * tfx))
+        jj = np.float32(j0 * j0)
+        xx = np.float32(-0.3) / jj
+        for _ in range(64):
+            if np.float32(jj * xx) == np.float32(-0.3):
+                break
+            xx = np.nextafter(xx, np.float32(0) if np.float32(jj * xx)
+                              < np.float32(-0.3) else np.float32(-1))
+        assert np.float32(jj * xx) == np.float32(-0.3)
+        means[20:24] = T(np.float32([cx, cy, cz + cam_z]))
+        cov[20:24] = T(np.float32([xx, 0.0, 0.0, 1.0, 0.0, 1.0]))
+        cols = T(c["colors"]) if mode == "cov3d_colors" else None
+        args = (means, None, None, None, cols)
+        kw["cov3d_precomp"] = cov
+    args = args + (view, pm, campos, tfx, tfy, w, h, 3, 1.0)
+    out, ref = _pre_both(args, kw)
+    _pre_check(out, ref, ops, w, h, mode)
+    if mode != "no_opacity":
+        assert int(out.radius[20:24].abs().sum()) == 0
+        assert float(out.conic[20:24].abs().sum()) == 0.0
+    if mode == "cov3d_colors":
+        assert out.rgb is args[4]
+
+
+def test_preprocess_kernel_camera_on_the_card(cuda):
+    """The camera as CUDA tensors (read through device pointers) gives the
+    host arrays' outputs bit for bit."""
+    h, w = 256, 320
+    c = _pre_scene(3000, 3, seed=40)
+    view, pm, campos, tfx, tfy = _pre_camera(h, w)
+
+    def T(a):
+        return torch.as_tensor(a, device=cuda)
+
+    base = (T(c["means"]), T(c["scales"]), T(c["rotations"]), T(c["shs"]),
+            None)
+    tail = (tfx, tfy, w, h, 3, 1.0)
+    ops = T(c["opacities"])
+    host = projection.preprocess(*base, view, pm, campos, *tail,
+                                 opacities=ops)
+    for cam in ((T(view), T(pm), T(campos)), (view, T(pm), campos)):
+        dev = projection.preprocess(*base, *cam, *tail, opacities=ops)
+        for name in PRE_FIELDS:
+            _same_bits(getattr(dev, name), getattr(host, name), name)
+
+
+def test_preprocess_routes_and_sync(cuda):
+    """One launch a call and no stream synchronisation with the camera as
+    host arrays (torch.cuda.set_sync_debug_mode("error") raises on one);
+    under autograd the plain path runs, counted as a plain call, and
+    differentiates."""
+    h, w = 256, 320
+    c = _pre_scene(3000, 3, seed=50)
+    view, pm, campos, tfx, tfy = _pre_camera(h, w)
+
+    def T(a):
+        return torch.as_tensor(a, device=cuda)
+
+    means, scales, rots = T(c["means"]), T(c["scales"]), T(c["rotations"])
+    shs, ops = T(c["shs"]), T(c["opacities"])
+    torch.cuda.synchronize()
+    before = tracing.counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            projection.preprocess(
+                means, scales, rots, (shs[:, :1], shs[:, 1:]), None, view,
+                pm, campos, tfx, tfy, w, h, 3, opacities=ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mid = tracing.counters()
+    scales_g = scales.clone().requires_grad_(True)
+    proj = projection.preprocess(means, scales_g, rots, shs, None, view, pm,
+                                 campos, tfx, tfy, w, h, 3, opacities=ops)
+    proj.conic.sum().backward()
+    assert scales_g.grad is not None and bool(scales_g.grad.abs().sum() > 0)
+    after = tracing.counters()
+    n = lambda d, k: d.get(k, 0)  # noqa: E731
+    assert n(mid, "preprocess.launches") - n(before, "preprocess.launches") \
+        == 3
+    assert n(mid, "preprocess.plain_calls") \
+        == n(before, "preprocess.plain_calls")
+    assert n(after, "preprocess.launches") == n(mid, "preprocess.launches")
+    assert n(after, "preprocess.plain_calls") \
+        - n(mid, "preprocess.plain_calls") == 1
