@@ -16,11 +16,17 @@ layers under "lsv2.render", a training step's phases under "lsv2.step".
 Spans: render (models/renderer.py), preprocess, binning, blend, assemble
 (each route of ops/rasterize.py, parallel/gauss_sharded.py), query
 (eval/openclip.py), topk_codes (models/gaussians.py), step, forward, loss,
-accept, backward, optimizer (train/trainer.py). Counters: k1.launches,
+accept, backward, optimizer (train/trainer.py, both feature step makers),
+and of the geometry phase (train/trainer.py): step over forward, loss,
+backward, optimizer and densify_stats (`rgb_step`), and densify and
+opacity_reset beside it (`rgb_iteration`). Counters: k1.launches,
 k1.alpha_launches, k1.nocull_launches (ops/expand.py),
 preprocess.launches (each launch of the preprocess kernel) and
 preprocess.plain_calls (each plain preprocess on CUDA tensors)
-(ops/projection.py), feature_step.redone (train/trainer.py).
+(ops/projection.py), feature_step.redone, densify.rounds,
+densify.capacity_growths, densify.placed and densify.pruned
+(train/trainer.py `run_densify`: rounds, growths, new Gaussians and
+removed ones).
 """
 from __future__ import annotations
 

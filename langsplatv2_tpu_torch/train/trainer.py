@@ -15,7 +15,9 @@ fields trained against the camera images with (1 - l) L1 + l (1 - SSIM):
 
 The step updates the model in place (parameters by Adam, densification
 statistics by `add_densification_stats`); densification and the opacity
-reset return a new model and rebind the optimizer to its tensors. With
+reset return a new model and rebind the optimizer to its tensors.
+`rgb_iteration` is one iteration of the loop (the step and the schedule
+around it), which `train_rgb` and the benchmark both call. With
 `accum_iter` > 1 the gradients of the live rows and the means2D carrier's
 are summed in a carry (`init_rgb_accum`) that Adam applies every
 accum_iter-th iteration; the densification statistics read the running
@@ -211,42 +213,53 @@ def rgb_step(settings, optimizer: torch.optim.Optimizer, lambda_dssim: float,
 
     With an `accum` carry (init_rgb_accum) the step's gradients are added
     to it and Adam applies the carry's sums, then zeroes it, only when
-    `do_update`; the statistics read the carrier's running sum."""
-    dummy = torch.zeros((model.capacity, 2), device=model.xyz.device,
-                        requires_grad=True)
-    out = render(settings, model, view, proj, campos, bg,
-                 means2d_dummy=dummy, device=device)
-    l1 = losses.l1_loss(out.render, gt_image)
-    loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
-        1.0 - losses.ssim(out.render, gt_image))
-    optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    dead = ~model.live
-    for name in RGB_PARAM_NAMES:
-        g = getattr(model, name).grad
-        g.masked_fill_(dead.reshape((-1,) + (1,) * (g.dim() - 1)), 0.0)
-    means2d = dummy.grad
-    if accum is not None:
-        with torch.no_grad():
+    `do_update`; the statistics read the carrier's running sum.
+
+    Spans (tracing.py): "step" over "forward" (the render), "loss",
+    "backward", "optimizer" (the dead-row mask, the carry, the scheduled
+    rates and Adam) and "densify_stats" (max radii and the statistics)."""
+    with tracing.span("step"):
+        with tracing.span("forward"):
+            dummy = torch.zeros((model.capacity, 2), device=model.xyz.device,
+                                requires_grad=True)
+            out = render(settings, model, view, proj, campos, bg,
+                         means2d_dummy=dummy, device=device)
+        with tracing.span("loss"):
+            l1 = losses.l1_loss(out.render, gt_image)
+            loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (
+                1.0 - losses.ssim(out.render, gt_image))
+        with tracing.span("backward"):
+            optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+        with tracing.span("optimizer"):
+            dead = ~model.live
             for name in RGB_PARAM_NAMES:
-                acc = accum["grads"][name]
-                acc += getattr(model, name).grad
-                if do_update:
-                    getattr(model, name).grad.copy_(acc)
-            accum["means2d"] += dummy.grad
-            means2d = accum["means2d"].clone()
-    if accum is None or do_update:
-        set_scheduled_lrs(optimizer)
-        optimizer.step()
-        if accum is not None:
-            for t in (*accum["grads"].values(), accum["means2d"]):
-                t.zero_()
-    vis = out.visibility_filter
-    with torch.no_grad():
-        model.max_radii2d.copy_(torch.where(
-            vis, torch.maximum(model.max_radii2d, out.radii.float()),
-            model.max_radii2d))
-    gm.add_densification_stats(model, means2d, vis)
+                g = getattr(model, name).grad
+                g.masked_fill_(dead.reshape((-1,) + (1,) * (g.dim() - 1)),
+                               0.0)
+            means2d = dummy.grad
+            if accum is not None:
+                with torch.no_grad():
+                    for name in RGB_PARAM_NAMES:
+                        acc = accum["grads"][name]
+                        acc += getattr(model, name).grad
+                        if do_update:
+                            getattr(model, name).grad.copy_(acc)
+                    accum["means2d"] += dummy.grad
+                    means2d = accum["means2d"].clone()
+            if accum is None or do_update:
+                set_scheduled_lrs(optimizer)
+                optimizer.step()
+                if accum is not None:
+                    for t in (*accum["grads"].values(), accum["means2d"]):
+                        t.zero_()
+        with tracing.span("densify_stats"):
+            vis = out.visibility_filter
+            with torch.no_grad():
+                model.max_radii2d.copy_(torch.where(
+                    vis, torch.maximum(model.max_radii2d, out.radii.float()),
+                    model.max_radii2d))
+            gm.add_densification_stats(model, means2d, vis)
     return {"loss": loss.detach(), "l1": l1.detach(),
             "num_visible": vis.sum(), "max_tile_count": out.max_tile_count,
             "total_entries": out.total_entries, "means2d_grad": dummy.grad}
@@ -268,7 +281,14 @@ def run_densify(model: GaussianModel, optimizer: torch.optim.Optimizer,
     round is redone), the Adam moments of reused slots zeroed and the
     optimizer rebound to the new model's tensors. The split noise comes
     from `generator`, one draw per attempt. The tensors of `carry` (the
-    accumulation carry) get the moments' row surgery in place."""
+    accumulation carry) get the moments' row surgery in place.
+
+    Counters (tracing.py): "densify.rounds" once a call,
+    "densify.capacity_growths" once a growth, and "densify.placed" /
+    "densify.pruned" the round's new Gaussians and removed ones, read in
+    the one copy to the host that the overflow already takes."""
+    tracing.count("densify.rounds")
+    n_before = model.num_live
     while True:
         eps = torch.randn((2, model.capacity, 3), generator=generator,
                           device=generator.device).to(model.xyz.device)
@@ -277,13 +297,20 @@ def run_densify(model: GaussianModel, optimizer: torch.optim.Optimizer,
             min_opacity=0.005, extent=extent,
             max_screen_size=max_screen_size,
             percent_dense=opt.percent_dense)
-        overflow = int(overflow)
+        n_placed = placed.sum()
+        # Live after = live before - pruned + placed.
+        overflow, n_placed, n_pruned = torch.stack([
+            overflow, n_placed, n_before - new_model.num_live + n_placed
+        ]).tolist()
         if overflow == 0:
+            tracing.count("densify.placed", n_placed)
+            tracing.count("densify.pruned", n_pruned)
             zero_moment_rows(optimizer, placed)
             rebind(optimizer, rgb_params(new_model))
             _carry_rows(carry, lambda t: t.masked_fill(
                 placed.reshape((-1,) + (1,) * (t.dim() - 1)), 0.0))
             return new_model
+        tracing.count("densify.capacity_growths")
         old_cap = model.capacity
         new_cap = -(-max(old_cap + overflow, int(old_cap * 1.5)) // 256) * 256
         model = gm.grow_capacity(model, new_cap)
@@ -555,6 +582,58 @@ def camera_arrays(camera, bg):
             np.asarray(bg, np.float32))
 
 
+def rgb_iteration(iteration: int, model: GaussianModel,
+                  optimizer: torch.optim.Optimizer, cam, image, opt,
+                  extent: float, generator: torch.Generator, logs: TrainLogs,
+                  *, iterations: int, bg_color=(0, 0, 0),
+                  white_background: bool = False, tile_cap: int = 1024,
+                  max_entries: int = 2 ** 21, accum: dict | None = None,
+                  accum_iter: int = 1, impl: str = "auto", device=None):
+    """Iteration `iteration` of the geometry phase (reference
+    train.py:170-258) on camera `cam` and its image [3, H, W] on the
+    device: the SH step-up every 1000 iterations, the step (`rgb_step`,
+    Adam every accum_iter-th iteration and never on the last), the loss
+    logged, then the densification schedule: a round (`run_densify`, in
+    the span "densify") every `opt.densification_interval` iterations
+    after `opt.densify_from_iter` and before `opt.densify_until_iter`, its
+    size threshold on after the first opacity reset, and the opacity reset
+    (in the span "opacity_reset") every `opt.opacity_reset_interval`
+    iterations (and at densify_from_iter with a white background); both
+    are logged in `logs.events`. Returns (the model, new after a round or
+    a reset, and the step's metrics)."""
+    if iteration % 1000 == 0:
+        model.one_up_sh_degree()
+    settings = make_settings(cam, model.active_sh_degree, 1.0, max_entries,
+                             tile_cap, 16, impl=impl)
+    view, proj, campos, bg = camera_arrays(cam, bg_color)
+    metrics = rgb_step(
+        settings, optimizer, opt.lambda_dssim, model, view, proj, campos, bg,
+        image, device=device, accum=accum,
+        do_update=iteration < iterations and iteration % accum_iter == 0)
+    loss = float(metrics["loss"])
+    logs.ema_loss = 0.4 * loss + 0.6 * logs.ema_loss
+    logs.losses.append(loss)
+
+    # Densification schedule (reference train.py:246-258).
+    if iteration < opt.densify_until_iter:
+        if (iteration > opt.densify_from_iter
+                and iteration % opt.densification_interval == 0):
+            size_threshold = (20.0 if iteration
+                              > opt.opacity_reset_interval else 0.0)
+            with tracing.span("densify"):
+                model = run_densify(model, optimizer, generator, opt, extent,
+                                    size_threshold, carry=accum)
+            logs.events.append((iteration, "densify", int(model.num_live)))
+        if iteration % opt.opacity_reset_interval == 0 or (
+                white_background and iteration == opt.densify_from_iter):
+            with tracing.span("opacity_reset"):
+                model = apply_opacity_reset(model, optimizer)
+                if accum is not None:
+                    accum["grads"]["opacity"].zero_()
+            logs.events.append((iteration, "opacity_reset", None))
+    return model, metrics
+
+
 def train_rgb(
     model: GaussianModel,
     cameras: list,
@@ -588,7 +667,8 @@ def train_rgb(
     1 Adam steps every accum_iter-th iteration on the summed gradients,
     never on the last iteration (reference train.py:261).
     `on_iteration(iteration, model, optimizer, metrics)` runs after each
-    step and any densification."""
+    step and any densification. The camera order and the images are this
+    loop's; each iteration is `rgb_iteration`."""
     dev = resolve_device(device)
     if model.xyz.device.type != dev.type:
         raise ValueError(f"the model lies on {model.xyz.device}, not {dev}")
@@ -606,44 +686,18 @@ def train_rgb(
         if gui_source_path is not None:
             _gui_poll(model, bg_color, iteration, iterations,
                       gui_source_path, max_entries, tile_cap, dev)
-        if iteration % 1000 == 0:
-            model.one_up_sh_degree()
         if not viewpoint_stack:
             viewpoint_stack = list(cameras)
         cam = viewpoint_stack.pop(rng.randint(0, len(viewpoint_stack) - 1))
         if id(cam) not in images:
             images[id(cam)] = torch.as_tensor(
                 np.asarray(cam.image, np.float32), device=dev)
-        settings = make_settings(cam, model.active_sh_degree, 1.0,
-                                 max_entries, tile_cap, 16, impl=impl)
-        view, proj, campos, bg = camera_arrays(cam, bg_color)
-        metrics = rgb_step(
-            settings, optimizer, opt.lambda_dssim, model, view, proj, campos,
-            bg, images[id(cam)], device=dev, accum=accum,
-            do_update=(iteration < iterations
-                       and iteration % accum_iter == 0))
-        loss = float(metrics["loss"])
-        logs.ema_loss = 0.4 * loss + 0.6 * logs.ema_loss
-        logs.losses.append(loss)
-
-        # Densification schedule (reference train.py:246-258).
-        if iteration < opt.densify_until_iter:
-            if (iteration > opt.densify_from_iter
-                    and iteration % opt.densification_interval == 0):
-                size_threshold = (20.0 if iteration
-                                  > opt.opacity_reset_interval else 0.0)
-                model = run_densify(model, optimizer, generator, opt, extent,
-                                    size_threshold, carry=accum)
-                logs.events.append((iteration, "densify",
-                                    int(model.num_live)))
-            if iteration % opt.opacity_reset_interval == 0 or (
-                    white_background
-                    and iteration == opt.densify_from_iter):
-                model = apply_opacity_reset(model, optimizer)
-                if accum is not None:
-                    accum["grads"]["opacity"].zero_()
-                logs.events.append((iteration, "opacity_reset", None))
-
+        model, metrics = rgb_iteration(
+            iteration, model, optimizer, cam, images[id(cam)], opt, extent,
+            generator, logs, iterations=iterations, bg_color=bg_color,
+            white_background=white_background, tile_cap=tile_cap,
+            max_entries=max_entries, accum=accum, accum_iter=accum_iter,
+            impl=impl, device=dev)
         if on_iteration is not None:
             on_iteration(iteration, model, optimizer, metrics)
     return model, optimizer, logs

@@ -181,3 +181,67 @@ def test_counters(case):
         assert got["test.registry"] == before + 4
         got["test.registry"] = -1
         assert tracing.counters()["test.registry"] == before + 4
+
+
+def _geometry_iteration(iteration: int):
+    """One `rgb_iteration` on a small SH 0 model with 60 dead slots, its
+    schedule set so that `iteration` ends with a densification round
+    (every Gaussian hot) and no opacity reset. Returns (model before,
+    model after)."""
+    fields = {k: v for k, v in model_fields(40).items()
+              if k in trainer.RGB_PARAM_NAMES + ("live",)}
+    fields = {k: np.concatenate([v, np.zeros((60,) + v.shape[1:], v.dtype)])
+              for k, v in fields.items()}
+    fields["rotation"][40:, 0] = 1.0
+    model = from_numpy_params(fields, device="cpu")
+    opt = types.SimpleNamespace(
+        position_lr_init=1.6e-4, position_lr_final=1.6e-6,
+        position_lr_delay_mult=0.01, position_lr_max_steps=30_000,
+        feature_lr=0.0025, opacity_lr=0.05, scaling_lr=0.005,
+        rotation_lr=0.001, lambda_dssim=0.2, percent_dense=0.01,
+        densify_grad_threshold=0.0, densification_interval=2,
+        densify_from_iter=1, densify_until_iter=100,
+        opacity_reset_interval=1000)
+    optimizer = trainer.make_rgb_optimizer(opt, model)
+    view, pm, tfx, tfy = camera(48, 64)
+    cam = types.SimpleNamespace(
+        image_height=48, image_width=64, tanfovx=tfx, tanfovy=tfy,
+        world_view_transform=view, full_proj_transform=pm,
+        camera_center=np.zeros(3, np.float32))
+    image = torch.rand((3, 48, 64), generator=torch.Generator().manual_seed(0))
+    new, _metrics = trainer.rgb_iteration(
+        iteration, model, optimizer, cam, image, opt, 1.0,
+        torch.Generator().manual_seed(1), trainer.TrainLogs(),
+        iterations=100, max_entries=2 ** 14, device="cpu")
+    return model, new
+
+
+@pytest.mark.parametrize("iteration", [3, 4])
+def test_geometry_spans(iteration):
+    """rgb_iteration opens "step" over forward (the render's layers
+    under it), loss, backward, optimizer and densify_stats; a scheduled
+    iteration then opens "densify" beside "step", and no other does."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _geometry_iteration(iteration)
+    want = ([("step", None), ("forward", "step"), ("render", "forward")]
+            + [(n, "render") for n in LAYERS[:3]]
+            + [(n, "step") for n in ("loss", "backward", "optimizer",
+                                     "densify_stats")])
+    if iteration % 2 == 0:
+        want.append(("densify", None))
+    assert _spans(prof) == want
+
+
+def test_densify_counters_add_up():
+    """A round counts once in densify.rounds, grows no capacity here, and
+    its placed and pruned counts give the live count after it."""
+    keys = ("densify.rounds", "densify.capacity_growths", "densify.placed",
+            "densify.pruned")
+    before = {k: tracing.counters().get(k, 0) for k in keys}
+    model, new = _geometry_iteration(4)
+    got = {k: tracing.counters().get(k, 0) - before[k] for k in keys}
+    assert got["densify.rounds"] == 1 and got["densify.placed"] > 0
+    assert got["densify.capacity_growths"] == 0
+    assert int(new.num_live) == (int(model.num_live) + got["densify.placed"]
+                                 - got["densify.pruned"])
