@@ -43,7 +43,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    300k Gaussians, 544x960, L=1, K=64, top-4, a 512-row GT table, 4
    cameras): train_features for 20 steps with the launch counters zeroed
    just before and read just after; fails unless K1, K2, K4, K6a and K6b
-   all launched, the loss is finite and falls, and no budget saturates;
+   all launched, the top-k codes kernel launched once a forward (redone
+   ones included) and once a backward, the loss is finite and falls, and
+   no budget saturates;
    then K4/K6a/K6b on one step's own inputs against their plain versions
    (as in phase 6) and timed beside their bounds, K4 also at C = 192 (a
    seeded cotangent on the same blend), with the step's stages timed
@@ -295,7 +297,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    the kernel with the camera as numpy arrays and the parent's pageable
    camera copy under torch.cuda.set_sync_debug_mode("error") (the kernel
    path must not synchronise). A part alone: import chip_smoke and call
-   `preprocess_kernel_path(torch.device("cuda"))` after `kernels.build()`.
+   `preprocess_kernel_path(torch.device("cuda"))` after `kernels.build()`;
+27. the top-k codes kernel (csrc/topk_codes.cu; it replaces no Pallas
+   kernel) at [1M, 64] logits, top 4: indices bit for bit and weights
+   within 2 float32 steps against the plain path, its backward within 1e-6
+   of autograd's through the plain path and exactly 0 outside the
+   selection; the device ms of both directions beside the kernel's byte
+   bounds (and portbench/roofline.py's), the plain path's and torch.topk
+   + sort + gather + softmax's; registers, spills (a spill fails), occupancy; a step's
+   codes count one launch forward and one backward and synchronise
+   nothing. A part alone: import chip_smoke and call
+   `topk_codes_path(torch.device("cuda"))` after `kernels.build()`.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -304,8 +316,10 @@ K2 dense of phase 14, for the bf16-cell modes of phase 15, for K8 (entries
 that differ, 0) and K2 on its segments of phase 16, for K1 with_alpha of
 phase 17 at both loads, for K9 of phase 18, for K1 without the cull of
 phase 23 (a), its launches from (b); for K2 and K4 on a received strip
-of phase 25 (a), (b) and (c), their launches summed over the ranks) and,
-last,
+of phase 25 (a), (b) and (c), their launches summed over the ranks; for
+the preprocess of phase 26; for the top-k codes of phase 27, the weights'
+and d(logits)' largest differences, its launches from phase 7's training
+run) and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -346,7 +360,8 @@ from langsplatv2_tpu_torch.serve.backend import BackendRenderer
 from langsplatv2_tpu_torch.scene.cameras import Camera
 from langsplatv2_tpu_torch.train import trainer
 from langsplatv2_tpu_torch.train.config import OptimizationParams
-from langsplatv2_tpu_torch.utils import losses
+from langsplatv2_tpu_torch.ops import topk_codes
+from langsplatv2_tpu_torch.utils import losses, sparse_codes
 from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
                                                      get_world_to_view)
 
@@ -406,6 +421,8 @@ KERNELS = {
                "langsplatv2_tpu/ops/pallas_blend.py:695"),
     "PRE": ("preprocess", "langsplatv2_tpu_torch/csrc/preprocess.cu",
             "none: langsplatv2_tpu/ops/projection.py is XLA code"),
+    "TOPK": ("topk_codes", "langsplatv2_tpu_torch/csrc/topk_codes.cu",
+             "none: langsplatv2_tpu/utils/sparse_codes.py is XLA code"),
     "K1_with_alpha": ("expand_entries[with_alpha]",
                       "langsplatv2_tpu_torch/csrc/expand.cu",
                       "langsplatv2_tpu/ops/pallas_binning.py:498"),
@@ -439,7 +456,7 @@ WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
             "K3": query.query_map_tiles}
 TRAIN_WRAPPERS = {"K1": "k1.launches", "K2": blend.blend_tiles,
                   "K4": train.feature_grads, "K6a": gram.gram_tiles_fwd,
-                  "K6b": gram.gram_tiles_bwd}
+                  "K6b": gram.gram_tiles_bwd, "TOPK": "topk_codes.launches"}
 # The training slice (scripts/profile_train.py's scene): 300k Gaussians at
 # 544x960, one level of 64 codes, top-4, a 512-row GT table.
 TRAIN_N, TRAIN_H, TRAIN_W, TRAIN_K, TRAIN_TOPK, TRAIN_S = (
@@ -1375,12 +1392,14 @@ def train_path(dev) -> dict:
         metrics_log.append({k: float(v) for k, v in metrics.items()})
 
     zero_counts(TRAIN_WRAPPERS)
+    redone0 = tracing.counters().get("feature_step.redone", 0)
     clock[0] = time.perf_counter()
     model, optimizer, logs = trainer.train_features(
         model, cams, opt, GT_DIR, 1, iterations=TRAIN_ITERS, seed=0,
         max_entries=max_entries, feature_cache={}, on_iteration=on_iteration,
         device=dev)
     launches = read_counts(TRAIN_WRAPPERS)
+    redone = tracing.counters().get("feature_step.redone", 0) - redone0
     losses = logs.losses
     budget = list(logs.live_budget.values())
     live = [int(m["live_total"]) for m in metrics_log]
@@ -1395,6 +1414,11 @@ def train_path(dev) -> dict:
         f"per step {per_step}")
     if not all(v > 0 for v in launches.values()):
         fail(f"a kernel of the training path was not launched: {launches}")
+    # The top-k codes: one launch forward an attempt (a redone step runs its
+    # forward again), one backward a step.
+    if launches["TOPK"] != 2 * TRAIN_ITERS + redone:
+        fail(f"the training path's top-k codes launched {launches['TOPK']} "
+             f"times in {TRAIN_ITERS} steps and {redone} redone forwards")
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
     if not statistics.mean(losses[-4:]) < statistics.mean(losses[:4]):
@@ -1435,7 +1459,7 @@ def train_path(dev) -> dict:
                 losses=losses, live_budget=budget, live_total=live,
                 total_entries=tot, max_entries=max_entries,
                 launches=launches, launches_per_step=per_step,
-                kernels=rows, stage_ms=stages,
+                redone=redone, kernels=rows, stage_ms=stages,
                 step_entries=dict(total=x["total"], live=x["live_total"],
                                   pairs_evaluated=x["n_eval"],
                                   pairs_included=x["n_inc"],
@@ -6536,6 +6560,144 @@ def preprocess_kernel_path(dev) -> dict:
     return row
 
 
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 steps between two tensors of values
+    >= 0 (NaN pairs count 0)."""
+    d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return int(torch.where(torch.isnan(a) & torch.isnan(b), 0, d).max())
+
+
+def topk_codes_path(dev) -> dict:
+    """Phase 27: the top-k codes kernel (csrc/topk_codes.cu) at the feature
+    cell's shape, [1M, 64] logits, top 4: indices bit for bit and weights
+    in float32 steps against the plain path; the backward against autograd
+    through the plain path (1e-6 of the largest, exactly 0 outside the
+    selected columns); the device ms of each (the profiler's device time)
+    beside the kernel's byte bounds (and portbench/roofline.py's), the
+    plain path's and the library calls' (torch.topk, sort, gather,
+    softmax); registers, spills (a spill fails) and occupancy; one launch
+    forward and one backward a step, and no stream synchronisation on the
+    kernel path. The row's max_abs_err is the larger of the weights' and
+    d(logits)' largest differences."""
+    from portbench import roofline
+
+    n, k_all, topk = 1_000_000, 64, TRAIN_TOPK
+    gen = torch.Generator(dev).manual_seed(27)
+    x = torch.randn(n, k_all, device=dev, generator=gen)
+    g = torch.randn(n, topk, device=dev, generator=gen)
+    kern = lambda: topk_codes.topk_codes_kernel(x, topk)  # noqa: E731
+    plain = lambda: sparse_codes.get_weights_and_indices_plain(  # noqa: E731
+        x, topk)
+
+    def library():
+        _, i = torch.topk(x, topk, dim=1)
+        i, _ = torch.sort(i, dim=1)
+        return torch.softmax(torch.gather(x, 1, i), dim=1), i
+
+    w, idx = kern()
+    ref_w, ref_i = plain()
+    idx_mism = int((idx != ref_i).sum())
+    w_ulps = _ulps(w, ref_w)
+    if idx_mism or w_ulps > 2:
+        fail(f"phase 27: the top-k codes kernel differs from its plain "
+             f"version: {idx_mism} indices, weights {w_ulps} steps apart")
+
+    # The backward: the kernel's and autograd's through the plain path on
+    # one graph each, taken again with retain_graph.
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    wk, _ = sparse_codes.get_weights_and_indices(xk, topk)
+    wp, _ = sparse_codes.get_weights_and_indices_plain(xp, topk)
+    bwd_k = lambda: torch.autograd.grad(  # noqa: E731
+        wk, xk, g, retain_graph=True)[0]
+    bwd_p = lambda: torch.autograd.grad(  # noqa: E731
+        wp, xp, g, retain_graph=True)[0]
+    dk, dp = bwd_k(), bwd_p()
+    selected = torch.zeros_like(dk, dtype=torch.bool).scatter_(1, idx, True)
+    d_abs = float((dk - dp).abs().max())
+    d_err = d_abs / float(dp.abs().max())
+    d_bits = int((dk.view(torch.int32) != dp.view(torch.int32)).sum())
+    outside = float(dk[~selected].abs().max())
+    if d_err > 1e-6 or outside != 0.0:
+        fail(f"phase 27: the top-k backward differs from autograd's: "
+             f"{d_err:.3g} of the largest, {outside} outside the selection")
+
+    ms, ops = {}, {}
+    for name, f, reps in (("kernel", kern, 10), ("plain", plain, 2),
+                          ("library", library, 5), ("bwd_kernel", bwd_k, 10),
+                          ("bwd_plain", bwd_p, 2)):
+        split = device_split(lambda: [f() for _ in range(reps)])
+        ms[name] = split["device_total"] / 1e3 / reps
+        ops[name] = split["launches"] / reps
+    event_ms, _ = cuda_ms(kern, 50)
+    bwd_event_ms, _ = cuda_ms(bwd_k, 50)
+    rep = kernels.ptxas_report("topk_codes.cu")
+    if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in rep):
+        fail(f"phase 27: a top-k codes instantiation spills: {rep}")
+    occ = {d: kernels.occupancy("lsv2_topk_codes_occupancy", topk, b)
+           for d, b in (("forward", 0), ("backward", 1))}
+
+    # A training step's codes: one launch forward, one backward, and no
+    # synchronising operation on the way.
+    xs = x.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    c0 = tracing.counters().get("topk_codes.launches", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ws, _ = sparse_codes.get_weights_and_indices(xs, topk)
+        c1 = tracing.counters().get("topk_codes.launches", 0)
+        (ws * g).sum().backward()
+        sync = "no synchronising operation"
+    except RuntimeError as e:
+        sync = f"raised: {str(e).splitlines()[0]}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    c2 = tracing.counters().get("topk_codes.launches", 0)
+    launches = {"forward": c1 - c0, "backward": c2 - c1}
+    if sync != "no synchronising operation" or launches != {
+            "forward": 1, "backward": 1}:
+        fail(f"phase 27: a step's top-k codes: {launches}, {sync}")
+
+    # The kernel's own bytes, each once: the logits read and k f32 weights
+    # and int64 indices written; backward the k gradients, weights and
+    # indices read and d(logits) written. portbench/roofline.py counts 8 B
+    # a code forward, and d(logits) read and written backward.
+    fwd_bytes = n * k_all * 4 + n * topk * (4 + 8)
+    bwd_bytes = n * topk * (4 + 4 + 8) + n * k_all * 4
+    row = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+               library_ms=ms["library"],
+               max_abs_err=max(float((w - ref_w).abs().max()), d_abs),
+               index_mismatches=idx_mism, weight_ulps=w_ulps,
+               bwd_ms=ms["bwd_kernel"], bwd_plain_ms=ms["bwd_plain"],
+               bwd_rel_err=d_err, bwd_bits_differing=d_bits,
+               event_ms=event_ms, bwd_event_ms=bwd_event_ms,
+               device_ops=ops, step_launches=launches, sync_debug=sync,
+               occupancy=occ, ptxas=rep,
+               bound_ms=fwd_bytes / roofline.HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes",
+               bwd_bound_ms=bwd_bytes / roofline.HBM_BYTES_PER_S * 1e3,
+               roofline_bound_ms=roofline.topk_codes(n, k_all, topk) * 1e3,
+               roofline_bwd_bound_ms=roofline.pair_grads(n, k_all,
+                                                         topk) * 1e3)
+    log(f"top-k codes kernel at [{n}, {k_all}], top {topk}: "
+        f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}; roofline.py "
+        f"{row['roofline_bound_ms']:.4f}), plain "
+        f"{row['plain_ms']:.3f} ms in {ops['plain']:.0f} device operations, "
+        f"library {row['library_ms']:.4f} ms; backward {row['bwd_ms']:.4f} "
+        f"ms (bound {row['bwd_bound_ms']:.4f}; roofline.py "
+        f"{row['roofline_bwd_bound_ms']:.4f}), autograd's "
+        f"{row['bwd_plain_ms']:.3f} ms in {ops['bwd_plain']:.0f}; events "
+        f"{event_ms:.4f} / {bwd_event_ms:.4f} ms; weights {w_ulps} steps, "
+        f"d(logits) {d_err:.3g} of the largest ({d_bits} elements not bit-"
+        f"equal); {occ['forward']['registers']} / "
+        f"{occ['backward']['registers']} registers, "
+        f"{occ['forward']['warps_per_sm']} / "
+        f"{occ['backward']['warps_per_sm']} warps an SM; {sync}")
+    del x, xk, xp, xs, wk, wp
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6621,9 +6783,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     dist_res = distribution_path(dev, smi)
     pre_row = preprocess_kernel_path(dev)
+    topk_row = topk_codes_path(dev)
     new_rows = {**new_kernel_rows(lmc, probe_res), **dist_res["kernel_rows"],
                 "PRE": dict(pre_row,
                             launches=pre_row["frame_counts_4"]["launches"]),
+                "TOPK": dict(topk_row, launches=tpath["launches"]["TOPK"]),
                 **phase20_kernel_rows(p20s, p20t),
                 "K1nocull": dict(
                     xla_res["k1_nocull"]["row"],
@@ -6736,7 +6900,7 @@ def main() -> None:
                        small_k_training=p20t, scene_dir_training=scene_res,
                        command_lines=cli_res, xla_route=xla_res,
                        preprocess=pre_res, distribution=dist_res,
-                       preprocess_kernel=pre_row),
+                       preprocess_kernel=pre_row, topk_codes=topk_row),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

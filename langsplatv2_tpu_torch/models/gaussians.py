@@ -132,16 +132,11 @@ class GaussianModel(nn.Module):
 
     def get_weights_and_indices(self, k: int):
         """Per-layer top-k (weights, indices), each [C, L*k], indices
-        offset by layer*K; in the span "topk_codes"."""
-        L, K, _ = self.codebooks.shape
-        ws, idxs = [], []
+        offset by layer*K (csrc/topk_codes.cu on the card, one launch for
+        every layer); in the span "topk_codes"."""
         with tracing.span("topk_codes"):
-            for i in range(L):
-                w, idx = get_weights_and_indices(
-                    self.language_logits[:, i * K:(i + 1) * K], k)
-                ws.append(w)
-                idxs.append(idx + i * K)
-            return torch.cat(ws, dim=-1), torch.cat(idxs, dim=-1)
+            return get_weights_and_indices(self.language_logits, k,
+                                           levels=self.codebooks.shape[0])
 
     def compute_layer_feature_map(self, weight_map: torch.Tensor,
                                   layer_idx: int):

@@ -30,7 +30,9 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # fused multiply-add), as their plain PyTorch versions do: the entry sets
 # of K1 and K8, the alpha / termination tests of K2 and K9's compares then
 # agree bit for bit, K4, K5 and K7 replay K2's blend weights exactly, and
-# the preprocess's fields are the plain path's.
+# the preprocess's fields are the plain path's. topk_codes.cu keeps nvcc's
+# contraction, as PyTorch's softmax kernels are built, whose rounding it
+# replays.
 # Every source but errors.cu is built with ptxas's report
 # (registers, shared memory, spills of each instantiation), kept in
 # BUILD_DIR/<source stem>.log: `ptxas_report`.
@@ -46,6 +48,7 @@ SOURCES = {
     "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "probe.cu": ["-fmad=false", "-Xptxas=-v"],
     "preprocess.cu": ["-fmad=false", "-Xptxas=-v"],
+    "topk_codes.cu": ["-Xptxas=-v"],
     "errors.cu": [],
 }
 
@@ -117,6 +120,12 @@ ENTRY_POINTS = {
     "lsv2_preprocess": [_P] * 11 + [_L] * 2 + [_I] * 2 + [_P] * 9,
     # sh_degree out[5]
     "lsv2_preprocess_occupancy": [_I, _P],
+    # logits segs K levels k weights indices stream
+    "lsv2_topk_codes": [_P, _L] + [_I] * 3 + [_P] * 3,
+    # d_weights weights indices segs K levels k d_logits stream
+    "lsv2_topk_codes_bwd": [_P] * 3 + [_L] + [_I] * 3 + [_P] * 2,
+    # k backward out[5]
+    "lsv2_topk_codes_occupancy": [_I, _I, _P],
 }
 
 NULL = ctypes.c_void_p(None)   # an absent optional pointer argument

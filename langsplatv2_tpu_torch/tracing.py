@@ -23,7 +23,9 @@ opacity_reset beside it (`rgb_iteration`). Counters: k1.launches,
 k1.alpha_launches, k1.nocull_launches (ops/expand.py),
 preprocess.launches (each launch of the preprocess kernel) and
 preprocess.plain_calls (each plain preprocess on CUDA tensors)
-(ops/projection.py), feature_step.redone, densify.rounds,
+(ops/projection.py), topk_codes.launches (each launch of the top-k
+codes kernel, forward and backward; ops/topk_codes.py),
+feature_step.redone, densify.rounds,
 densify.capacity_growths, densify.placed and densify.pruned
 (train/trainer.py `run_densify`: rounds, growths, new Gaussians and
 removed ones).

@@ -3,9 +3,14 @@
 
 Top-k keeps `_topk_onehots`' order: value descending, lowest index first on
 ties. The selection carries no gradient; `get_weights_and_indices`'
-weights are a softmax over the gathered selected logits, so autograd gives
-logits that were not selected exactly zero gradient (the JAX docstring's
+weights are a softmax over the gathered selected logits, so logits that
+were not selected get exactly zero gradient (the JAX docstring's
 contract, :63-72).
+
+`get_weights_and_indices` takes one of two paths by the tensor's device:
+CUDA tensors take csrc/topk_codes.cu (ops/topk_codes.py's `TopkCodes`:
+one launch for all the levels forward, one backward), every other tensor
+`get_weights_and_indices_plain`, which the CPU tests hold to JAX.
 
 The residual k-means codebook init (:100-187, reference vq_utils.py:56-70)
 draws from a torch.Generator where JAX draws from jax.random, so its
@@ -17,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.topk_codes import TopkCodes
 
 
 def _topk_columns(y: torch.Tensor, k: int) -> list[torch.Tensor]:
@@ -44,16 +51,33 @@ def softmax_to_topk_soft_code(logits: torch.Tensor, k: int) -> torch.Tensor:
     return y_topk / (y_topk.sum(dim=1, keepdim=True) + 1e-10)
 
 
-def get_weights_and_indices(logits: torch.Tensor, k: int):
-    """Compact form: ([N, k] f32 weights, [N, k] int64 indices), ordered by
-    ascending codebook index; the weights are a softmax over the selected
-    logits (selection by raw logits, as the reference's softmax is monotone).
+def get_weights_and_indices(logits: torch.Tensor, k: int, levels: int = 1):
+    """Compact form of the top-k codes of [N, levels*K] logits: ([N,
+    levels*k] f32 weights, [N, levels*k] int64 indices), each level's k
+    ordered by ascending codebook index and offset by level*K; the weights
+    are a softmax over the selected logits (selection by raw logits, as the
+    reference's softmax is monotone). The kernel for CUDA tensors, else the
+    plain path (the module docstring).
 
     The JAX version returns float indices; the port keeps them integer."""
-    idx = torch.stack(_topk_columns(logits, k), dim=1)
-    idx, _ = torch.sort(idx, dim=1)
-    weights = torch.softmax(torch.gather(logits, 1, idx), dim=1)
-    return weights.float(), idx
+    if logits.is_cuda:
+        return TopkCodes.apply(logits, k, levels)
+    return get_weights_and_indices_plain(logits, k, levels)
+
+
+def get_weights_and_indices_plain(logits: torch.Tensor, k: int,
+                                  levels: int = 1):
+    """`get_weights_and_indices` in plain PyTorch, a level at a time
+    (differentiable through the gather and the softmax)."""
+    K = logits.shape[1] // levels
+    ws, idxs = [], []
+    for i in range(levels):
+        y = logits[:, i * K:(i + 1) * K]
+        idx = torch.stack(_topk_columns(y, k), dim=1)
+        idx, _ = torch.sort(idx, dim=1)
+        ws.append(torch.softmax(torch.gather(y, 1, idx), dim=1).float())
+        idxs.append(idx + i * K)
+    return torch.cat(ws, dim=-1), torch.cat(idxs, dim=-1)
 
 
 # ------------------------------------------------ residual k-means codebooks
