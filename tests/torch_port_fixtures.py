@@ -2,10 +2,28 @@
 
 Scenes are made with numpy from a seed and handed to both the JAX
 reference and the port, so the two sides see identical float32 inputs.
+
+In a pytest-xdist worker, importing this module also sets the process's
+CPU thread budget (`thread_budget`). xdist runs the suite in several worker
+processes on one host, and torch would give each of them an intra-op
+thread for every core: six workers then run six times as many threads as
+there are cores, and the suite takes many times as long as its work. The
+budget gives each worker its share of the cores, in torch and, through
+OMP_NUM_THREADS and MKL_NUM_THREADS, in the processes a test starts (the
+command-line runs, the gloo ranks of `torch_port_dist_workers.py`). Under
+`--dist loadfile` every worker collects every test file before it runs its
+first test, so this one import site sets the budget for the whole suite,
+the JAX package's own test files included. A single test process (no
+xdist) keeps torch's default, every core.
+
+Each worker also builds the JAX package's native loader there, under a
+lock, before its first test (`_build_jax_native_loader`).
 """
 from __future__ import annotations
 
+import fcntl
 import math
+import os
 from pathlib import Path
 
 import numpy as np
@@ -13,6 +31,39 @@ import torch
 
 from langsplatv2_tpu_torch.utils.camera_math import (get_projection_matrix,
                                                      get_world_to_view)
+
+
+def thread_budget(environ=os.environ, cores: int | None = None) -> int:
+    """Threads for one test process: OMP_NUM_THREADS where the environment
+    sets it, else the cores this process may use shared evenly among
+    xdist's workers (PYTEST_XDIST_WORKER_COUNT; 1 outside xdist), at least
+    one."""
+    if environ.get("OMP_NUM_THREADS", "").isdigit():
+        return max(1, int(environ["OMP_NUM_THREADS"]))
+    if cores is None:
+        cores = len(os.sched_getaffinity(0))
+    workers = int(environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, cores // workers)
+
+
+def _build_jax_native_loader():
+    """Build `langsplatv2_tpu.native`'s library before any test uses it.
+    Its first use runs `make` straight into the package tree, so workers
+    that reach it together can load a half-written library and keep the
+    numpy path for the rest of the process. One worker builds while the
+    others wait on a lock on the Makefile; xdist runs no test until every
+    worker has collected."""
+    from langsplatv2_tpu import native as jax_native
+    with open(Path(jax_native.__file__).with_name("Makefile")) as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        jax_native.available()
+
+
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    torch.set_num_threads(thread_budget())
+    for _name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ.setdefault(_name, str(torch.get_num_threads()))
+    _build_jax_native_loader()
 
 
 def camera(h: int, w: int):
