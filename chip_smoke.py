@@ -307,7 +307,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    + sort + gather + softmax's; registers, spills (a spill fails), occupancy; a step's
    codes count one launch forward and one backward and synchronise
    nothing. A part alone: import chip_smoke and call
-   `topk_codes_path(torch.device("cuda"))` after `kernels.build()`.
+   `topk_codes_path(torch.device("cuda"))` after `kernels.build()`;
+28. the preprocess under autograd (projection.PreprocessGrad: the forward
+   kernel and csrc/preprocess_bwd.cu; it replaces no Pallas kernel) on
+   the geometry cell's own inputs (portbench's lerf_rgb_1m scene, 1M live
+   Gaussians in 1,250,048 slots, SH 3, 960x544): the forward bit for bit
+   against preprocess_plain under autograd; a geometry step's own
+   cotangents through the backward kernel against the plain adjoint and
+   autograd through the plain path (1e-5 of each leaf's largest); the
+   device ms of the backward kernel beside its bounds (and
+   portbench/roofline_geometry.py's), of the forward kernel, the plain
+   adjoint and autograd's backward through the plain path (the parent's
+   route), with their device operations; registers, spills (a spill
+   fails), occupancy; a step counts one forward and one backward launch
+   and no plain call, and its device operations on both routes. A part
+   alone: import chip_smoke and call `preprocess_grad_path(
+   torch.device("cuda"))` after `kernels.build()`.
 It prints the kernels line (max_abs_err: for K1 and K2 the largest of
 phases 3, 5, 8 and 9; for K4 and K6 of phases 6, 7 and (K4) 14; for K7 of
 phases 8 and 9; for fast16 K2 of phases 3 (non-finite rows), 10 and 13, for
@@ -319,7 +334,9 @@ phase 23 (a), its launches from (b); for K2 and K4 on a received strip
 of phase 25 (a), (b) and (c), their launches summed over the ranks; for
 the preprocess of phase 26; for the top-k codes of phase 27, the weights'
 and d(logits)' largest differences, its launches from phase 7's training
-run) and, last,
+run; for the preprocess's backward of phase 28, the kernel's largest
+difference from the plain adjoint, its launches a geometry step) and,
+last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -423,6 +440,9 @@ KERNELS = {
             "none: langsplatv2_tpu/ops/projection.py is XLA code"),
     "TOPK": ("topk_codes", "langsplatv2_tpu_torch/csrc/topk_codes.cu",
              "none: langsplatv2_tpu/utils/sparse_codes.py is XLA code"),
+    "PREB": ("preprocess_grads",
+             "langsplatv2_tpu_torch/csrc/preprocess_bwd.cu",
+             "none: jax.vjp of langsplatv2_tpu/ops/projection.py (XLA code)"),
     "K1_with_alpha": ("expand_entries[with_alpha]",
                       "langsplatv2_tpu_torch/csrc/expand.cu",
                       "langsplatv2_tpu/ops/pallas_binning.py:498"),
@@ -6698,6 +6718,165 @@ def topk_codes_path(dev) -> dict:
     return row
 
 
+# Phase 28: the geometry cell's shapes (portbench/configs/lerf_rgb_1m.json,
+# portbench/traffic/geometry_544x960.json).
+GEOM_CAP, GEOM_H, GEOM_W = 1_250_048, 544, 960
+# The backward kernel's bytes a Gaussian at SH 3, each once: the 8
+# cotangents, mean, scales and rotation and 16 SH rows read (264 B), their
+# gradients written (232 B); twice the forward's operations.
+PRE_BWD_BYTES = 4 * (8 + 10 + 48) + 4 * (10 + 48)
+
+
+def preprocess_grad_path(dev) -> dict:
+    """Phase 28 (the module docstring). The cotangents are those the
+    backward of one rgb_step hands the preprocess (slices of K7's summed
+    rows), caught on their way to the kernel with the inputs it read."""
+    from langsplatv2_tpu_torch.models.gaussians import GaussianModel
+    from portbench import common, roofline_geometry
+    from portbench.entries.geometry_step import padded
+
+    cfg = common.load_json(common.HERE / "configs" / "lerf_rgb_1m.json")
+    model = GaussianModel(**padded(common.make_scene(cfg, 28, dev),
+                                   GEOM_CAP), active_sh_degree=3,
+                          max_sh_degree=3, spatial_lr_scale=1.0)
+    live = model.live.clone()
+    cam = common.Camera(common.camera(4.0, [0.1, -0.05, 0.02], GEOM_W,
+                                      GEOM_H, cfg))
+    view, projm, campos, bg = trainer.camera_arrays(cam, (0, 0, 0))
+    s = make_settings(cam, 3, max_entries=2 ** 23)
+    gen = torch.Generator(dev).manual_seed(28)
+    gt = torch.rand((3, GEOM_H, GEOM_W), generator=gen, device=dev)
+    opt = OptimizationParams(argparse.ArgumentParser())
+    optimizer = trainer.make_rgb_optimizer(opt, model)
+    counted = {"launches": "preprocess.launches",
+               "grad_launches": "preprocess.grad_launches",
+               "plain_calls": "preprocess.plain_calls"}
+
+    def step():
+        return trainer.rgb_step(s, optimizer, opt.lambda_dssim, model, view,
+                                projm, campos, bg, gt, device=dev)
+
+    # One step with the backward launch's arguments caught (copied: Adam
+    # updates the model in place after it).
+    caught = {}
+    launch = projection._grads_launch
+
+    def catch(x, g_xy, g_conic, g_rgb, whole, k):
+        caught.update(
+            x=x._replace(**{f: getattr(x, f).clone() for f in (
+                "means", "scl", "rot", "op", "dc", "rest")}),
+            g=tuple(g.clone() for g in (g_xy, g_conic, g_rgb)),
+            strides=tuple(g.stride() for g in (g_xy, g_conic, g_rgb)),
+            whole=whole, k=k)
+        return launch(x, g_xy, g_conic, g_rgb, whole, k)
+
+    projection._grads_launch = catch
+    try:
+        zero_counts(counted)
+        m = step()
+        counts = read_counts(counted)
+    finally:
+        projection._grads_launch = launch
+    if counts != {"launches": 1, "grad_launches": 1, "plain_calls": 0}:
+        fail(f"phase 28: a geometry step's preprocess counts {counts}")
+    if int(m["total_entries"]) >= s.max_entries:
+        fail("phase 28: the step saturated its entry budget")
+    x, g = caught["x"], caught["g"]
+    n = x.n
+    args = (x.means, x.scl, x.rot, (x.dc, x.rest), None, view, projm, campos,
+            s.tanfovx, s.tanfovy, s.image_width, s.image_height, 3, 1.0)
+
+    # The forward: PreprocessGrad's fields against the plain path's, both
+    # under autograd.
+    leaves = [t.clone().requires_grad_(True) for t in (x.means, x.scl,
+                                                       x.rot, x.dc, x.rest)]
+    largs = (*leaves[:3], (leaves[3], leaves[4])) + args[4:]
+    fwd = projection.preprocess(*largs, opacities=x.op)
+    ref = projection.preprocess_plain(*largs, opacities=x.op)
+    mism = {}
+    for name in ref._fields:
+        a, b = getattr(fwd, name).detach(), getattr(ref, name).detach()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        mism[name] = int((a != b).sum())
+    if any(mism.values()):
+        fail(f"phase 28: PreprocessGrad's forward differs from the plain "
+             f"path under autograd: {mism}")
+
+    # The backward: kernel, plain adjoint, autograd through the plain path.
+    kern = lambda: launch(x, *g, False, caught["k"])  # noqa: E731
+    plain = lambda: projection.preprocess_grads_plain(  # noqa: E731
+        *args, g_xy=g[0], g_conic=g[1], g_rgb=g[2])
+    auto = lambda: torch.autograd.grad(  # noqa: E731
+        [ref.xy, ref.conic, ref.rgb], leaves, g, retain_graph=True)
+    got, want = kern(), plain()
+    got = (*got[:3], *got[3])
+    want = (*want[:3], *want[3])
+    ag = auto()
+    errs, auto_errs, max_abs = {}, {}, 0.0
+    for name, a, b, c in zip(("means", "scales", "rotations", "dc", "rest"),
+                             got, want, ag):
+        scale = float(b[live].abs().max())
+        errs[name] = float((a - b).abs().max()) / scale
+        auto_errs[name] = float((a[live] - c[live]).abs().max()) / float(
+            c[live].abs().max())
+        max_abs = max(max_abs, float((a - b).abs().max()))
+    if max(errs.values()) > 1e-5 or max(auto_errs.values()) > 1e-5:
+        fail(f"phase 28: the backward kernel differs: from the plain "
+             f"adjoint {errs}, from autograd {auto_errs}")
+    busy = int((torch.cat(g, 1) != 0).any(1).sum())
+
+    ms, ops = {}, {}
+    fwd_launch = lambda: projection._forward_launch(x, None)  # noqa: E731
+    for name, f, reps in (("kernel", kern, 10), ("forward", fwd_launch, 10),
+                          ("plain", plain, 2), ("autograd", auto, 2)):
+        split = device_split(lambda: [f() for _ in range(reps)])
+        ms[name] = split["device_total"] / 1e3 / reps
+        ops[name] = split["launches"] / reps
+    event_ms, _ = cuda_ms(kern, 50)
+    rep = kernels.ptxas_report("preprocess_bwd.cu")
+    if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in rep):
+        fail(f"phase 28: a preprocess backward instantiation spills: {rep}")
+    occ = kernels.occupancy("lsv2_preprocess_bwd_occupancy", 3)
+
+    # A step's device operations on this route and on the parent's (the
+    # plain path under autograd).
+    step_ops = {"kernels": device_split(step)["launches"]}
+    own = projection.preprocess_grad
+    projection.preprocess_grad = projection.preprocess_plain
+    try:
+        step_ops["plain"] = device_split(step)["launches"]
+    finally:
+        projection.preprocess_grad = own
+    row = dict(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+               max_abs_err=max_abs, rel_err_plain=errs,
+               rel_err_autograd=auto_errs, forward_ms=ms["forward"],
+               autograd_ms=ms["autograd"], device_ops=ops,
+               event_ms=event_ms, forward_mismatches=mism,
+               cotangent_strides=caught["strides"], gaussians_with_work=busy,
+               step_counts=counts, step_device_ops=step_ops,
+               occupancy=occ, ptxas=rep,
+               roofline_bound_ms=roofline_geometry.preprocess_bwd(n, 3) * 1e3)
+    row["bound_ms"], row["bound_by"] = bound(
+        n * PRE_BWD_BYTES,
+        2 * n * (PRE_FLOPS + PRE_SH_FLOPS * 3 * 16))
+    log(f"preprocess backward kernel at {n} slots ({busy} with work), SH 3: "
+        f"{row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+        f"{row['bound_by']}; roofline_geometry "
+        f"{row['roofline_bound_ms']:.4f}), events {event_ms:.4f}; forward "
+        f"{ms['forward']:.4f} ms; plain adjoint {ms['plain']:.3f} ms in "
+        f"{ops['plain']:.0f} device operations; autograd through the plain "
+        f"path {ms['autograd']:.3f} ms in {ops['autograd']:.0f}; relative "
+        f"to the plain adjoint {max(errs.values()):.3g}, to autograd "
+        f"{max(auto_errs.values()):.3g}; {occ['registers']} registers, "
+        f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps an "
+        f"SM; a step {step_ops['kernels']} device operations "
+        f"({step_ops['plain']} on the plain route), counts {counts}")
+    del model, optimizer, leaves, fwd, ref
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6784,10 +6963,13 @@ def main() -> None:
     dist_res = distribution_path(dev, smi)
     pre_row = preprocess_kernel_path(dev)
     topk_row = topk_codes_path(dev)
+    pgrad_row = preprocess_grad_path(dev)
     new_rows = {**new_kernel_rows(lmc, probe_res), **dist_res["kernel_rows"],
                 "PRE": dict(pre_row,
                             launches=pre_row["frame_counts_4"]["launches"]),
                 "TOPK": dict(topk_row, launches=tpath["launches"]["TOPK"]),
+                "PREB": dict(pgrad_row, launches=pgrad_row["step_counts"][
+                    "grad_launches"]),
                 **phase20_kernel_rows(p20s, p20t),
                 "K1nocull": dict(
                     xla_res["k1_nocull"]["row"],
@@ -6900,7 +7082,8 @@ def main() -> None:
                        small_k_training=p20t, scene_dir_training=scene_res,
                        command_lines=cli_res, xla_route=xla_res,
                        preprocess=pre_res, distribution=dist_res,
-                       preprocess_kernel=pre_row, topk_codes=topk_row),
+                       preprocess_kernel=pre_row, topk_codes=topk_row,
+                       preprocess_grad=pgrad_row),
                   f, indent=1, default=str)
     log(f"chip_smoke: {elapsed:.1f} s in all")
     log(smi)

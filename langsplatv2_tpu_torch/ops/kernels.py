@@ -26,11 +26,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "langsplatv2_tpu_tor
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # expand.cu, cascade.cu, blend.cu, feature_bwd.cu, feature_bwd_topk.cu,
-# rgb_bwd.cu, probe.cu and preprocess.cu round every f32 op on its own (no
-# fused multiply-add), as their plain PyTorch versions do: the entry sets
-# of K1 and K8, the alpha / termination tests of K2 and K9's compares then
-# agree bit for bit, K4, K5 and K7 replay K2's blend weights exactly, and
-# the preprocess's fields are the plain path's. topk_codes.cu keeps nvcc's
+# rgb_bwd.cu, probe.cu, preprocess.cu and preprocess_bwd.cu round every f32
+# op on its own (no fused multiply-add), as their plain PyTorch versions
+# do: the entry sets of K1 and K8, the alpha / termination tests of K2 and
+# K9's compares then agree bit for bit, K4, K5 and K7 replay K2's blend
+# weights exactly, the preprocess's fields are the plain path's, and its
+# adjoint's masks the plain path's autograd's. topk_codes.cu keeps nvcc's
 # contraction, as PyTorch's softmax kernels are built, whose rounding it
 # replays.
 # Every source but errors.cu is built with ptxas's report
@@ -48,6 +49,7 @@ SOURCES = {
     "rgb_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "probe.cu": ["-fmad=false", "-Xptxas=-v"],
     "preprocess.cu": ["-fmad=false", "-Xptxas=-v"],
+    "preprocess_bwd.cu": ["-fmad=false", "-Xptxas=-v"],
     "topk_codes.cu": ["-Xptxas=-v"],
     "errors.cu": [],
 }
@@ -120,6 +122,14 @@ ENTRY_POINTS = {
     "lsv2_preprocess": [_P] * 11 + [_L] * 2 + [_I] * 2 + [_P] * 9,
     # sh_degree out[5]
     "lsv2_preprocess_occupancy": [_I, _P],
+    # host_params view proj campos means scales rotations cov3d sh_dc
+    # sh_rest dc_stride rest_stride sh_degree n g_xy g_conic g_rgb
+    # xy_stride conic_stride rgb_stride d_means d_scales d_rotations d_dc
+    # d_rest d_dc_stride d_rest_stride stream
+    "lsv2_preprocess_bwd": [_P] * 10 + [_L] * 2 + [_I] * 2 + [_P] * 3
+    + [_L] * 3 + [_P] * 5 + [_L] * 2 + [_P],
+    # sh_degree out[5]
+    "lsv2_preprocess_bwd_occupancy": [_I, _P],
     # logits segs K levels k weights indices stream
     "lsv2_topk_codes": [_P, _L] + [_I] * 3 + [_P] * 3,
     # d_weights weights indices segs K levels k d_logits stream

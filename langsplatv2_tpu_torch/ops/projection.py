@@ -1,7 +1,7 @@
 """Per-Gaussian preprocessing: cull, EWA projection, conic, radius, tile
 rect, SH -> RGB (port of langsplatv2_tpu/ops/projection.py).
 
-`preprocess` takes one of two paths by what the call can observe:
+`preprocess` takes one of three paths by what the call can observe:
 
 - CUDA tensors, and no input needs a gradient (grad mode off, or no input
   requires_grad): one launch of csrc/preprocess.cu (`preprocess_kernel`).
@@ -9,24 +9,35 @@ rect, SH -> RGB (port of langsplatv2_tpu/ops/projection.py).
   so no stream synchronisation), or through device pointers when it is
   given as CUDA tensors. Every serving route and the feature step, whose
   geometry is frozen, take it.
+- CUDA tensors that need a gradient, and neither colors_precomp,
+  cov3d_precomp nor the camera does: `PreprocessGrad` (`preprocess_grad`),
+  the same launch as the forward and one launch of csrc/preprocess_bwd.cu
+  as the backward, the camera passed to both by value. The geometry step
+  takes it.
 - Otherwise `preprocess_plain`: batched PyTorch, written op for op in the
   JAX order so that the float32 results round the same way (the exact
   cull of the expansion kernel (K1) and the tile rects downstream are
-  compared exactly). It is the CPU path and the autograd route (geometry
-  training differentiates through it).
+  compared exactly). It is the CPU path, and the autograd route of the
+  calls whose colours or covariances need a gradient
+  (`compute_cov3d_python`, `convert_shs_python`).
 
 The kernel's outputs are the plain path's on the card bit for bit
-(csrc/preprocess.cu says how). The counters (tracing.py)
-"preprocess.launches" count the kernel's launches, and
-"preprocess.plain_calls" the plain path's calls on CUDA tensors.
+(csrc/preprocess.cu says how); the backward kernel's gradients are
+autograd's through the plain path to summation order, and
+`preprocess_grads_plain` is its plain twin. The counters (tracing.py)
+"preprocess.launches" count the forward kernel's launches,
+"preprocess.grad_launches" the backward kernel's, and
+"preprocess.plain_calls" the plain path's calls on CUDA tensors; the
+backward launch runs in the span "preprocess_bwd".
 
 `shs` is [N, K, 3] or the pair (features_dc [N, 1, 3], features_rest
-[N, K - 1, 3]), which the kernel reads in place and the plain path
+[N, K - 1, 3]), which the kernels read in place and the plain path
 concatenates.
 """
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -58,44 +69,47 @@ def detach(proj: ProjectedGaussians) -> ProjectedGaussians:
                                 for t in proj))
 
 
-def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
-                      tanfovx: float, tanfovy: float, image_width: int,
-                      image_height: int, scale_modifier: float = 1.0,
-                      opacities=None, cull_alpha: float = 1.0 / 255.0, *,
-                      cov3d_precomp=None):
-    """Returns (xy, depth, conic, radius, ext_x, ext_y); ext_* are None
-    without opacities (no opacity-aware tight rect). With cov3d_precomp
-    [N, 6] (xx, xy, xz, yy, yz, zz) the world covariance comes from it and
-    scales / rotations are not read."""
+def _ewa_terms(means3d, scales, rotations, viewmatrix, projmatrix,
+               tanfovx: float, tanfovy: float, image_width: int,
+               image_height: int, scale_modifier: float = 1.0,
+               cov3d_precomp=None) -> SimpleNamespace:
+    """The EWA projection's intermediate values, op for op as
+    `project_gaussians` computes them (its outputs and its adjoint's masks
+    read them): the view-space point, the projection, the clamped
+    tx / ty, the J rows' products m0 / m1 and a, b, c of the 2D
+    covariance; with scales and rotations also the normalised quaternion
+    and its norm, R, s^2, u = R^T m0 and v = R^T m1."""
     mx, my, mz = means3d[:, 0], means3d[:, 1], means3d[:, 2]
 
     def hrow(m, j):
         return mx * m[0, j] + my * m[1, j] + mz * m[2, j] + m[3, j]
 
-    pv_x = hrow(viewmatrix, 0)
-    pv_y = hrow(viewmatrix, 1)
-    depth = hrow(viewmatrix, 2)
-    in_front = depth > 0.2
+    t = SimpleNamespace()
+    t.pv_x = hrow(viewmatrix, 0)
+    t.pv_y = hrow(viewmatrix, 1)
+    t.depth = hrow(viewmatrix, 2)
 
-    p_w = 1.0 / (hrow(projmatrix, 3) + 1e-7)
-    p_proj_x = hrow(projmatrix, 0) * p_w
-    p_proj_y = hrow(projmatrix, 1) * p_w
+    t.h_x, t.h_y = hrow(projmatrix, 0), hrow(projmatrix, 1)
+    t.p_w = 1.0 / (hrow(projmatrix, 3) + 1e-7)
+    t.p_proj_x = t.h_x * t.p_w
+    t.p_proj_y = t.h_y * t.p_w
 
-    focal_x = image_width / (2.0 * tanfovx)
-    focal_y = image_height / (2.0 * tanfovy)
-    limx = 1.3 * tanfovx
-    limy = 1.3 * tanfovy
-    tz = depth
-    tx = torch.clamp(pv_x / tz, -limx, limx) * tz
-    ty = torch.clamp(pv_y / tz, -limy, limy) * tz
+    t.focal_x = image_width / (2.0 * tanfovx)
+    t.focal_y = image_height / (2.0 * tanfovy)
+    t.limx = 1.3 * tanfovx
+    t.limy = 1.3 * tanfovy
+    tz = t.depth
+    t.wx, t.wy = t.pv_x / tz, t.pv_y / tz
+    t.tx = torch.clamp(t.wx, -t.limx, t.limx) * tz
+    t.ty = torch.clamp(t.wy, -t.limy, t.limy) * tz
 
     W = viewmatrix[:3, :3].T
-    j0 = (focal_x / tz)[:, None]
-    j2 = (-focal_x * tx / (tz * tz))[:, None]
-    k1 = (focal_y / tz)[:, None]
-    k2 = (-focal_y * ty / (tz * tz))[:, None]
-    m0 = j0 * W[0][None, :] + j2 * W[2][None, :]
-    m1 = k1 * W[1][None, :] + k2 * W[2][None, :]
+    j0 = (t.focal_x / tz)[:, None]
+    j2 = (-t.focal_x * t.tx / (tz * tz))[:, None]
+    k1 = (t.focal_y / tz)[:, None]
+    k2 = (-t.focal_y * t.ty / (tz * tz))[:, None]
+    m0 = t.m0 = j0 * W[0][None, :] + j2 * W[2][None, :]
+    m1 = t.m1 = k1 * W[1][None, :] + k2 * W[2][None, :]
     if cov3d_precomp is not None:
         # m . Sigma . m' from the 6 unique entries, in JAX's op order.
         xx, xy_, xz, yy, yz, zz = cov3d_precomp.unbind(-1)
@@ -107,11 +121,12 @@ def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
                     + (p[:, 0] * q[:, 2] + p[:, 2] * q[:, 0]) * xz
                     + (p[:, 1] * q[:, 2] + p[:, 2] * q[:, 1]) * yz)
 
-        a = quad(m0, m0) + 0.3
-        b = quad(m0, m1)
-        c = quad(m1, m1) + 0.3
+        t.a = quad(m0, m0) + 0.3
+        t.b = quad(m0, m1)
+        t.c = quad(m1, m1) + 0.3
     else:
-        qn = rotations / torch.linalg.norm(rotations, dim=-1, keepdim=True)
+        t.qnorm = torch.linalg.norm(rotations, dim=-1, keepdim=True)
+        qn = t.qn = rotations / t.qnorm
         r, x, y, z = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
         R00 = 1 - 2 * (y * y + z * z)
         R01 = 2 * (x * y - r * z)
@@ -122,19 +137,40 @@ def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
         R20 = 2 * (x * z - r * y)
         R21 = 2 * (y * z + r * x)
         R22 = 1 - 2 * (x * x + y * y)
-        s2 = torch.square(scale_modifier * scales)
+        t.R = ((R00, R01, R02), (R10, R11, R12), (R20, R21, R22))
+        s2 = t.s2 = torch.square(scale_modifier * scales)
         u0 = m0[:, 0] * R00 + m0[:, 1] * R10 + m0[:, 2] * R20
         u1 = m0[:, 0] * R01 + m0[:, 1] * R11 + m0[:, 2] * R21
         u2 = m0[:, 0] * R02 + m0[:, 1] * R12 + m0[:, 2] * R22
         v0 = m1[:, 0] * R00 + m1[:, 1] * R10 + m1[:, 2] * R20
         v1 = m1[:, 0] * R01 + m1[:, 1] * R11 + m1[:, 2] * R21
         v2 = m1[:, 0] * R02 + m1[:, 1] * R12 + m1[:, 2] * R22
-        a = s2[:, 0] * u0 * u0 + s2[:, 1] * u1 * u1 + s2[:, 2] * u2 * u2 + 0.3
-        b = s2[:, 0] * u0 * v0 + s2[:, 1] * u1 * v1 + s2[:, 2] * u2 * v2
-        c = s2[:, 0] * v0 * v0 + s2[:, 1] * v1 * v1 + s2[:, 2] * v2 * v2 + 0.3
+        t.u, t.v = (u0, u1, u2), (v0, v1, v2)
+        t.a = (s2[:, 0] * u0 * u0 + s2[:, 1] * u1 * u1 + s2[:, 2] * u2 * u2
+               + 0.3)
+        t.b = s2[:, 0] * u0 * v0 + s2[:, 1] * u1 * v1 + s2[:, 2] * u2 * v2
+        t.c = (s2[:, 0] * v0 * v0 + s2[:, 1] * v1 * v1 + s2[:, 2] * v2 * v2
+               + 0.3)
+    t.det = t.a * t.c - t.b * t.b
+    t.det_ok = t.det != 0.0
+    return t
 
-    det = a * c - b * b
-    det_ok = det != 0.0
+
+def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
+                      tanfovx: float, tanfovy: float, image_width: int,
+                      image_height: int, scale_modifier: float = 1.0,
+                      opacities=None, cull_alpha: float = 1.0 / 255.0, *,
+                      cov3d_precomp=None):
+    """Returns (xy, depth, conic, radius, ext_x, ext_y); ext_* are None
+    without opacities (no opacity-aware tight rect). With cov3d_precomp
+    [N, 6] (xx, xy, xz, yy, yz, zz) the world covariance comes from it and
+    scales / rotations are not read."""
+    t = _ewa_terms(means3d, scales, rotations, viewmatrix, projmatrix,
+                   tanfovx, tanfovy, image_width, image_height,
+                   scale_modifier, cov3d_precomp)
+    a, b, c, det, det_ok = t.a, t.b, t.c, t.det, t.det_ok
+    depth = t.depth
+    in_front = depth > 0.2
     inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
     conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
 
@@ -142,8 +178,8 @@ def project_gaussians(means3d, scales, rotations, viewmatrix, projmatrix,
     lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(lam))
 
-    xy = torch.stack([ndc_to_pixel(p_proj_x, image_width),
-                      ndc_to_pixel(p_proj_y, image_height)], dim=-1)
+    xy = torch.stack([ndc_to_pixel(t.p_proj_x, image_width),
+                      ndc_to_pixel(t.p_proj_y, image_height)], dim=-1)
     visible = in_front & det_ok
     radius = torch.where(visible, radius_f, 0.0).to(torch.int32)
     if opacities is None:
@@ -187,10 +223,17 @@ def tile_rect(xy, radius, image_width: int, image_height: int,
     return rect_min, rect_max, tiles
 
 
+def _sh_dirs(means3d, campos):
+    """(the unit directions from the camera centre [N, 3], their lengths
+    [N, 1])."""
+    dirs = means3d - campos[None, :]
+    norm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return dirs / norm, norm
+
+
 def sh_to_color(shs, means3d, campos, sh_degree: int):
     """View-dependent SH colour, clamped at 0. shs [N, K, 3]."""
-    dirs = means3d - campos[None, :]
-    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    dirs, _ = _sh_dirs(means3d, campos)
     result = sh_mod.eval_sh(sh_degree, shs.transpose(-1, -2), dirs)
     return torch.clamp(result + 0.5, min=0.0)
 
@@ -200,6 +243,10 @@ def shs_f32(shs, dev):
     if isinstance(shs, tuple):
         return tuple(to_f32(t, dev) for t in shs)
     return to_f32(shs, dev)
+
+
+def _on_card(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.is_cuda
 
 
 def _needs_grad(*xs) -> bool:
@@ -218,17 +265,21 @@ def preprocess(means3d, scales, rotations, shs, colors_precomp, viewmatrix,
                scale_modifier: float = 1.0, opacities=None,
                cull_alpha: float = 1.0 / 255.0, *,
                cov3d_precomp=None) -> ProjectedGaussians:
-    """The kernel for CUDA tensors when no input needs a gradient, else
-    the plain path (the module docstring). The camera (viewmatrix,
-    projmatrix, campos) may be host arrays or tensors."""
+    """The kernel for CUDA tensors when no input needs a gradient,
+    `PreprocessGrad` when only the geometry and SH inputs do, else the
+    plain path (the module docstring). The camera (viewmatrix, projmatrix,
+    campos) may be host arrays or tensors."""
     args = (means3d, scales, rotations, shs, colors_precomp, viewmatrix,
             projmatrix, campos, tanfovx, tanfovy, image_width, image_height,
             sh_degree, scale_modifier, opacities, cull_alpha)
-    cuda = isinstance(means3d, torch.Tensor) and means3d.is_cuda
+    cuda = _on_card(means3d)
     if cuda and not _needs_grad(means3d, scales, rotations, shs,
                                 colors_precomp, viewmatrix, projmatrix,
                                 campos, opacities, cov3d_precomp):
         return preprocess_kernel(*args, cov3d_precomp=cov3d_precomp)
+    if cuda and not _needs_grad(colors_precomp, cov3d_precomp, viewmatrix,
+                                projmatrix, campos):
+        return preprocess_grad(*args, cov3d_precomp=cov3d_precomp)
     if cuda:
         tracing.count("preprocess.plain_calls")
     return preprocess_plain(*args, cov3d_precomp=cov3d_precomp)
@@ -264,8 +315,164 @@ def preprocess_plain(means3d, scales, rotations, shs, colors_precomp,
                               rect_max, tiles)
 
 
+def preprocess_grads_plain(means3d, scales, rotations, shs, colors_precomp,
+                           viewmatrix, projmatrix, campos, tanfovx: float,
+                           tanfovy: float, image_width: int,
+                           image_height: int, sh_degree: int,
+                           scale_modifier: float = 1.0, *, g_xy=None,
+                           g_conic=None, g_rgb=None, cov3d_precomp=None):
+    """The adjoint of `preprocess_plain` in plain PyTorch, op for op as
+    csrc/preprocess_bwd.cu computes it: from the cotangents of xy [N, 2],
+    conic [N, 3] and rgb [N, 3] (None is zero), the gradients (d_means3d,
+    d_scales, d_rotations, d_shs). d_scales and d_rotations are None with
+    cov3d_precomp (which takes no gradient here); d_shs is None without an
+    SH colour, else shaped as `shs` (a tensor [N, K, 3] or the (dc, rest)
+    pair), 0 past the degree's coefficients. The forward's values are
+    recomputed by `_ewa_terms` and `_sh_dirs`, so the masks of autograd
+    through the plain path (the tx / ty clamp, det != 0, the colour's clamp
+    at 0, all inclusive as torch's are) are the same bits. A Gaussian whose
+    cotangents are all 0 gets zero gradients (the kernel skips it). The
+    camera may be host arrays or tensors."""
+    dev = means3d.device
+    view, projm, cam_c = (to_f32(x, dev) for x in (viewmatrix, projmatrix,
+                                                    campos))
+    n = means3d.shape[0]
+    deg = sh_degree if colors_precomp is None and shs is not None else -1
+    whole = None
+    if deg >= 0:
+        whole = (torch.cat(shs, dim=1) if isinstance(shs, tuple)
+                 else shs).detach()
+
+    def cot(g, width):
+        return torch.zeros((n, width), device=dev) if g is None else \
+            g.detach().to(torch.float32)
+
+    gx, gc, gr = cot(g_xy, 2), cot(g_conic, 3), cot(g_rgb, 3)
+    if deg < 0:
+        gr = torch.zeros_like(gr)
+    work = (torch.cat([gx, gc, gr], dim=1) != 0).any(dim=1)
+    with torch.no_grad():
+        t = _ewa_terms(means3d.detach(), None if scales is None
+                       else scales.detach(), None if rotations is None
+                       else rotations.detach(), view, projm, tanfovx,
+                       tanfovy, image_width, image_height, scale_modifier,
+                       None if cov3d_precomp is None
+                       else cov3d_precomp.detach())
+        tz, a, b, c = t.depth, t.a, t.b, t.c
+        # xy = ((p_proj + 1) size - 1) / 2, p_proj = h p_w.
+        dpx = (gx[:, 0] * 0.5) * float(image_width)
+        dpy = (gx[:, 1] * 0.5) * float(image_height)
+        dhx, dhy = dpx * t.p_w, dpy * t.p_w
+        dpw = dpx * t.h_x + dpy * t.h_y
+        dhw = -dpw * (t.p_w * t.p_w)
+        # conic = (c, -b, a) inv_det.
+        inv = torch.where(t.det_ok, 1.0 / torch.where(t.det_ok, t.det, 1.0),
+                          0.0)
+        dinv = (gc[:, 0] * c - gc[:, 1] * b) + gc[:, 2] * a
+        ddet = torch.where(t.det_ok, -dinv * (inv * inv), 0.0)
+        da = gc[:, 2] * inv + ddet * c
+        db = -gc[:, 1] * inv - 2.0 * (b * ddet)
+        dc = gc[:, 0] * inv + ddet * a
+        # a, b, c -> m0, m1 (and the covariance's factors).
+        m0, m1 = t.m0, t.m1
+        d_scales = d_rot = None
+        if cov3d_precomp is not None:
+            xx, xy_, xz, yy, yz, zz = cov3d_precomp.detach().unbind(-1)
+            sig = torch.stack([torch.stack([xx, xy_, xz], -1),
+                               torch.stack([xy_, yy, yz], -1),
+                               torch.stack([xz, yz, zz], -1)], 1)
+            sm0 = (sig @ m0[:, :, None])[:, :, 0]
+            sm1 = (sig @ m1[:, :, None])[:, :, 0]
+            dm0 = 2.0 * da[:, None] * sm0 + db[:, None] * sm1
+            dm1 = db[:, None] * sm0 + 2.0 * dc[:, None] * sm1
+        else:
+            u, v, s2 = torch.stack(t.u, 1), torch.stack(t.v, 1), t.s2
+            R = torch.stack([torch.stack(row, 1) for row in t.R], 1)
+            ds2 = (da[:, None] * (u * u) + db[:, None] * (u * v)) \
+                + dc[:, None] * (v * v)
+            du = s2 * (2.0 * da[:, None] * u + db[:, None] * v)
+            dv = s2 * (db[:, None] * u + 2.0 * dc[:, None] * v)
+            d_scales = ((ds2 * 2.0) * (scales.detach() * scale_modifier)) \
+                * scale_modifier
+            dm0 = (R @ du[:, :, None])[:, :, 0]
+            dm1 = (R @ dv[:, :, None])[:, :, 0]
+            dR = (m0[:, :, None] * du[:, None, :]
+                  + m1[:, :, None] * dv[:, None, :])
+            qn = t.qn
+            r, x, y, z = qn.unbind(-1)
+            # dR's symmetric and antisymmetric parts.
+            sym, asym = dR + dR.transpose(1, 2), dR.transpose(1, 2) - dR
+            s01, s02, s12 = sym[:, 0, 1], sym[:, 0, 2], sym[:, 1, 2]
+            a10, a02, a21 = asym[:, 0, 1], asym[:, 2, 0], asym[:, 1, 2]
+            dqn = torch.stack([
+                2.0 * ((z * a10 + y * a02) + x * a21),
+                2.0 * (((y * s01 + z * s02) + r * a21)
+                       - 2.0 * x * (dR[:, 1, 1] + dR[:, 2, 2])),
+                2.0 * (((x * s01 + z * s12) + r * a02)
+                       - 2.0 * y * (dR[:, 0, 0] + dR[:, 2, 2])),
+                2.0 * (((x * s02 + y * s12) + r * a10)
+                       - 2.0 * z * (dR[:, 0, 0] + dR[:, 1, 1]))], -1)
+            dot = (qn * dqn).sum(-1, keepdim=True)
+            d_rot = (dqn - qn * dot) * (1.0 / t.qnorm)
+        # m0 = j0 W0 + j2 W2, m1 = k1 W1 + k2 W2 -> the J entries.
+        V = view[:3, :3]
+        dj0 = (dm0 * V[:, 0]).sum(-1)
+        dj2 = (dm0 * V[:, 2]).sum(-1)
+        dk1 = (dm1 * V[:, 1]).sum(-1)
+        dk2 = (dm1 * V[:, 2]).sum(-1)
+        rz, tz2 = 1.0 / tz, tz * tz
+        j0, k1 = rz * t.focal_x, rz * t.focal_y
+        j2 = (t.tx * -t.focal_x) / tz2
+        k2 = (t.ty * -t.focal_y) / tz2
+        rz2 = rz * rz
+        dtx = dj2 * (-t.focal_x * rz2)
+        dty = dk2 * (-t.focal_y * rz2)
+        dtz = -(dj0 * j0 + dk1 * k1) * rz - 2.0 * (dj2 * j2 + dk2 * k2) * rz
+        cx = torch.clamp(t.wx, -t.limx, t.limx)
+        cy = torch.clamp(t.wy, -t.limy, t.limy)
+        dtz = dtz + (dtx * cx + dty * cy)
+        dwx = torch.where((t.wx >= -t.limx) & (t.wx <= t.limx), dtx * tz, 0.0)
+        dwy = torch.where((t.wy >= -t.limy) & (t.wy <= t.limy), dty * tz, 0.0)
+        dpvx, dpvy = dwx * rz, dwy * rz
+        dtz = dtz - (dwx * t.wx + dwy * t.wy) * rz
+        P = projm[:3]
+        d_means = ((dpvx[:, None] * V[:, 0] + dpvy[:, None] * V[:, 1])
+                   + dtz[:, None] * V[:, 2]) \
+            + ((dhx[:, None] * P[:, 0] + dhy[:, None] * P[:, 1])
+               + dhw[:, None] * P[:, 3])
+        d_shs = None
+        if deg >= 0:
+            dirs, dn = _sh_dirs(means3d.detach(), cam_c)
+            raw = sh_mod.eval_sh(deg, whole.transpose(-1, -2), dirs) + 0.5
+            d_res = torch.where(raw >= 0.0, gr, 0.0)
+            d_whole = torch.zeros_like(whole)
+            d_dir = torch.zeros_like(dirs)
+            for k, (bk, grad_k) in enumerate(sh_mod.eval_sh_basis(deg,
+                                                                  dirs)):
+                ck = whole[:, k]
+                w = (d_res[:, 0] * ck[:, 0] + d_res[:, 1] * ck[:, 1]) \
+                    + d_res[:, 2] * ck[:, 2]
+                d_whole[:, k] = d_res * bk[:, None]
+                d_dir = d_dir + w[:, None] * grad_k
+            if deg > 0:
+                dot = (dirs * d_dir).sum(-1, keepdim=True)
+                d_means = d_means + (d_dir - dirs * dot) * (1.0 / dn)
+            d_shs = d_whole
+        keep = work[:, None]
+        d_means = torch.where(keep, d_means, 0.0)
+        if d_scales is not None:
+            d_scales = torch.where(keep, d_scales, 0.0)
+            d_rot = torch.where(keep, d_rot, 0.0)
+        if d_shs is not None:
+            d_shs = torch.where(keep[:, :, None], d_shs, 0.0)
+            if isinstance(shs, tuple):
+                d_shs = (d_shs[:, :1], d_shs[:, 1:])
+    return d_means, d_scales, d_rot, d_shs
+
+
 # csrc/preprocess.cu's `Params`: the camera (view [16], proj [16],
-# campos [3]), then these scalars, as float32.
+# campos [3]), then these scalars, as float32. csrc/preprocess_bwd.cu
+# takes the same host array.
 _CAM_FLOATS = 35
 _SCALARS = ("focal_x", "focal_y", "lim_x", "lim_y", "width", "height",
             "grid_x", "grid_y", "scale_modifier", "inv_cull_alpha")
@@ -301,15 +508,30 @@ def _sh_rows(t, name: str, n: int):
     return t
 
 
-def preprocess_kernel(means3d, scales, rotations, shs, colors_precomp,
-                      viewmatrix, projmatrix, campos, tanfovx: float,
-                      tanfovy: float, image_width: int, image_height: int,
-                      sh_degree: int, scale_modifier: float = 1.0,
-                      opacities=None, cull_alpha: float = 1.0 / 255.0, *,
-                      cov3d_precomp=None) -> ProjectedGaussians:
-    """One launch of csrc/preprocess.cu on CUDA tensors (no autograd):
-    `preprocess_plain`'s outputs. colors_precomp comes back as the rgb
-    field itself, as on the plain path."""
+class _KernelCall(NamedTuple):
+    """What both kernels read of one call: the host `Params` array and the
+    camera's device tensors (None for a part given on the host), the
+    per-Gaussian inputs as contiguous float32 (scl / rot None with cov;
+    dc / rest None without an SH colour), the SH degree (-1: none)."""
+
+    host: np.ndarray
+    cam_dev: list
+    n: int
+    means: torch.Tensor
+    scl: torch.Tensor | None
+    rot: torch.Tensor | None
+    cov: torch.Tensor | None
+    op: torch.Tensor | None
+    dc: torch.Tensor | None
+    rest: torch.Tensor | None
+    deg: int
+
+
+def _kernel_call(means3d, scales, rotations, shs, colors_precomp,
+                 viewmatrix, projmatrix, campos, tanfovx, tanfovy,
+                 image_width, image_height, sh_degree, scale_modifier,
+                 opacities, cull_alpha, cov3d_precomp) -> _KernelCall:
+    """The kernels' arguments, after raising on what they do not take."""
     dev = means3d.device
     n = means3d.shape[0]
 
@@ -363,6 +585,17 @@ def preprocess_kernel(means3d, scales, rotations, shs, colors_precomp,
                  (image_width + BLOCK - 1) // BLOCK,
                  (image_height + BLOCK - 1) // BLOCK, scale_modifier,
                  1.0 / cull_alpha)
+    return _KernelCall(host, cam_dev, n, means, scl, rot, cov, op, dc, rest,
+                       deg)
+
+
+def _opt(t):
+    return kernels.NULL if t is None else kernels.ptr(t)
+
+
+def _forward_launch(x: _KernelCall, colors_precomp) -> ProjectedGaussians:
+    """One launch of csrc/preprocess.cu."""
+    dev, n = x.means.device, x.n
 
     def out(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -371,19 +604,175 @@ def preprocess_kernel(means3d, scales, rotations, shs, colors_precomp,
     radius, tiles = out(n, dtype=torch.int32), out(n, dtype=torch.int32)
     rect_min = out(n, 2, dtype=torch.int32)
     rect_max = out(n, 2, dtype=torch.int32)
-    rgb = out(n, 3) if deg >= 0 else colors_precomp
+    rgb = out(n, 3) if x.deg >= 0 else colors_precomp
     P = kernels.ptr
-
-    def opt(t):
-        return kernels.NULL if t is None else P(t)
-
     kernels.launch(
-        "lsv2_preprocess", ctypes.c_void_p(host.ctypes.data),
-        *(opt(t) for t in cam_dev), P(means), opt(scl), opt(rot), opt(cov),
-        opt(op), opt(dc), opt(rest), dc.stride(0) if dc is not None else 0,
-        rest.stride(0) if rest is not None else 0, deg, n, P(xy), P(depth),
-        P(conic), P(radius), P(rgb) if deg >= 0 else kernels.NULL,
-        P(rect_min), P(rect_max), P(tiles), kernels.stream(xy))
+        "lsv2_preprocess", ctypes.c_void_p(x.host.ctypes.data),
+        *(_opt(t) for t in x.cam_dev), P(x.means), _opt(x.scl), _opt(x.rot),
+        _opt(x.cov), _opt(x.op), _opt(x.dc), _opt(x.rest),
+        x.dc.stride(0) if x.dc is not None else 0,
+        x.rest.stride(0) if x.rest is not None else 0, x.deg, n, P(xy),
+        P(depth), P(conic), P(radius),
+        P(rgb) if x.deg >= 0 else kernels.NULL, P(rect_min), P(rect_max),
+        P(tiles), kernels.stream(xy))
     tracing.count("preprocess.launches")
+    return ProjectedGaussians(xy, depth, conic, radius, rgb, rect_min,
+                              rect_max, tiles)
+
+
+def preprocess_kernel(means3d, scales, rotations, shs, colors_precomp,
+                      viewmatrix, projmatrix, campos, tanfovx: float,
+                      tanfovy: float, image_width: int, image_height: int,
+                      sh_degree: int, scale_modifier: float = 1.0,
+                      opacities=None, cull_alpha: float = 1.0 / 255.0, *,
+                      cov3d_precomp=None) -> ProjectedGaussians:
+    """One launch of csrc/preprocess.cu on CUDA tensors (no autograd):
+    `preprocess_plain`'s outputs. colors_precomp comes back as the rgb
+    field itself, as on the plain path."""
+    x = _kernel_call(means3d, scales, rotations, shs, colors_precomp,
+                     viewmatrix, projmatrix, campos, tanfovx, tanfovy,
+                     image_width, image_height, sh_degree, scale_modifier,
+                     opacities, cull_alpha, cov3d_precomp)
+    return _forward_launch(x, colors_precomp)
+
+
+def _grads_launch(x: _KernelCall, g_xy, g_conic, g_rgb, whole_shs: bool,
+                  k_shs: int):
+    """One launch of csrc/preprocess_bwd.cu: (d_means, d_scales, d_rot,
+    d_shs) as `preprocess_grads_plain` returns them, d_shs one [N, K, 3]
+    tensor with `whole_shs`, else the pair; K = k_shs, the coefficients of
+    the SH input."""
+    dev, n = x.means.device, x.n
+
+    def cot(g, width, name):
+        if g is None:
+            return None, 0
+        g = g.detach().to(torch.float32)
+        if g.dim() != 2 or tuple(g.shape) != (n, width):
+            raise ValueError(f"{name}: shape {tuple(g.shape)}, expected "
+                             f"({n}, {width})")
+        if g.device != dev:
+            raise ValueError(f"{name}: on {g.device}, expected {dev}")
+        if g.stride(1) != 1:
+            g = g.contiguous()
+        return g, g.stride(0)
+
+    gx, sx = cot(g_xy, 2, "d_xy")
+    gc, sc = cot(g_conic, 3, "d_conic")
+    gr, sr = cot(g_rgb, 3, "d_rgb") if x.deg >= 0 else (None, 0)
+    d_means = torch.empty((n, 3), device=dev)
+    d_scales = d_rot = None
+    if x.cov is None:
+        d_scales = torch.empty((n, 3), device=dev)
+        d_rot = torch.empty((n, 4), device=dev)
+    d_shs = d_dc = d_rest = None
+    if x.deg >= 0:
+        # The kernel writes the degree's coefficients; any further ones
+        # (an SH input wider than the active degree) stay 0.
+        new = torch.zeros if k_shs > (x.deg + 1) ** 2 else torch.empty
+        if whole_shs:
+            d_shs = new((n, k_shs, 3), device=dev)
+            d_dc, d_rest = d_shs[:, :1], d_shs[:, 1:]
+        else:
+            d_dc = torch.empty((n, 1, 3), device=dev)
+            d_rest = new((n, k_shs - 1, 3), device=dev)
+            d_shs = (d_dc, d_rest)
+    P = kernels.ptr
+    kernels.launch(
+        "lsv2_preprocess_bwd", ctypes.c_void_p(x.host.ctypes.data),
+        *(_opt(t) for t in x.cam_dev), P(x.means), _opt(x.scl), _opt(x.rot),
+        _opt(x.cov), _opt(x.dc), _opt(x.rest),
+        x.dc.stride(0) if x.dc is not None else 0,
+        x.rest.stride(0) if x.rest is not None else 0, x.deg, n, _opt(gx),
+        _opt(gc), _opt(gr), sx, sc, sr, P(d_means), _opt(d_scales),
+        _opt(d_rot), _opt(d_dc), _opt(d_rest),
+        d_dc.stride(0) if d_dc is not None else 0,
+        d_rest.stride(0) if d_rest is not None else 0,
+        kernels.stream(d_means))
+    tracing.count("preprocess.grad_launches")
+    return d_means, d_scales, d_rot, d_shs
+
+
+def _k_shs(shs) -> int:
+    if isinstance(shs, tuple):
+        return shs[0].shape[1] + shs[1].shape[1]
+    return shs.shape[1]
+
+
+def preprocess_grads_kernel(means3d, scales, rotations, shs, colors_precomp,
+                            viewmatrix, projmatrix, campos, tanfovx: float,
+                            tanfovy: float, image_width: int,
+                            image_height: int, sh_degree: int,
+                            scale_modifier: float = 1.0, *, g_xy=None,
+                            g_conic=None, g_rgb=None, cov3d_precomp=None):
+    """One launch of csrc/preprocess_bwd.cu on CUDA tensors:
+    `preprocess_grads_plain`'s gradients."""
+    x = _kernel_call(means3d, scales, rotations, shs, colors_precomp,
+                     viewmatrix, projmatrix, campos, tanfovx, tanfovy,
+                     image_width, image_height, sh_degree, scale_modifier,
+                     None, 1.0 / 255.0, cov3d_precomp)
+    return _grads_launch(x, g_xy, g_conic, g_rgb,
+                         not isinstance(shs, tuple),
+                         _k_shs(shs) if x.deg >= 0 else 0)
+
+
+class PreprocessGrad(torch.autograd.Function):
+    """csrc/preprocess.cu's forward and csrc/preprocess_bwd.cu's backward
+    as one autograd node: the inputs (means3d, scales, rotations, dc,
+    rest) differentiable, dc the whole [N, K, 3] SH tensor when rest is
+    None; `call` holds `_kernel_call`'s arguments from colors_precomp to
+    cull_alpha. Returns (xy, depth, conic, radius, rect_min,
+    rect_max, tiles_touched[, rgb]); depth, radius, the rects and
+    tiles_touched carry no gradient, and neither does cov3d_precomp."""
+
+    @staticmethod
+    def forward(ctx, call: tuple, means3d, scales, rotations, dc, rest,
+                cov3d_precomp):
+        shs = None if dc is None else (dc if rest is None else (dc, rest))
+        x = _kernel_call(means3d, scales, rotations, shs, *call,
+                         cov3d_precomp)
+        proj = _forward_launch(x, None)
+        ctx.call, ctx.whole = x, rest is None
+        ctx.k_shs = _k_shs(shs) if x.deg >= 0 else 0
+        ctx.set_materialize_grads(False)
+        outs = (proj.xy, proj.depth, proj.conic, proj.radius, proj.rect_min,
+                proj.rect_max, proj.tiles_touched)
+        ctx.mark_non_differentiable(*(outs[i] for i in (1, 3, 4, 5, 6)))
+        return outs + ((proj.rgb,) if x.deg >= 0 else ())
+
+    @staticmethod
+    def backward(ctx, g_xy, _g_depth, g_conic, *rest_grads):
+        g_rgb = rest_grads[4] if ctx.call.deg >= 0 else None
+        with tracing.span("preprocess_bwd"):
+            d_means, d_scales, d_rot, d_shs = _grads_launch(
+                ctx.call, g_xy, g_conic, g_rgb, ctx.whole, ctx.k_shs)
+        d_dc = d_rest = None
+        if d_shs is not None:
+            d_dc, d_rest = (d_shs, None) if ctx.whole else d_shs
+        return None, d_means, d_scales, d_rot, d_dc, d_rest, None
+
+
+def preprocess_grad(means3d, scales, rotations, shs, colors_precomp,
+                    viewmatrix, projmatrix, campos, tanfovx: float,
+                    tanfovy: float, image_width: int, image_height: int,
+                    sh_degree: int, scale_modifier: float = 1.0,
+                    opacities=None, cull_alpha: float = 1.0 / 255.0, *,
+                    cov3d_precomp=None) -> ProjectedGaussians:
+    """`preprocess_kernel`'s outputs under autograd through
+    `PreprocessGrad`: gradients reach means3d, scales, rotations and the
+    SH input (a tensor or the (dc, rest) pair). colors_precomp and
+    cov3d_precomp take none (`preprocess` routes a call where they need
+    one to the plain path); colors_precomp comes back as the rgb field."""
+    dc = rest = None
+    if colors_precomp is None and shs is not None:
+        dc, rest = shs if isinstance(shs, tuple) else (shs, None)
+    op = None if opacities is None else opacities.detach()
+    call = (colors_precomp, viewmatrix, projmatrix, campos, tanfovx, tanfovy,
+            image_width, image_height, sh_degree, scale_modifier, op,
+            cull_alpha)
+    outs = PreprocessGrad.apply(call, means3d, scales, rotations, dc, rest,
+                                cov3d_precomp)
+    xy, depth, conic, radius, rect_min, rect_max, tiles = outs[:7]
+    rgb = outs[7] if len(outs) > 7 else colors_precomp
     return ProjectedGaussians(xy, depth, conic, radius, rgb, rect_min,
                               rect_max, tiles)

@@ -14,14 +14,17 @@ layers under "lsv2.render", a training step's phases under "lsv2.step".
 `counters()` returns a copy of it.
 
 Spans: render (models/renderer.py), preprocess, binning, blend, assemble
-(each route of ops/rasterize.py, parallel/gauss_sharded.py), query
+(each route of ops/rasterize.py, parallel/gauss_sharded.py),
+preprocess_bwd (the preprocess's backward launch, ops/projection.py;
+inside the step's backward), query
 (eval/openclip.py), topk_codes (models/gaussians.py), step, forward, loss,
 accept, backward, optimizer (train/trainer.py, both feature step makers),
 and of the geometry phase (train/trainer.py): step over forward, loss,
 backward, optimizer and densify_stats (`rgb_step`), and densify and
 opacity_reset beside it (`rgb_iteration`). Counters: k1.launches,
 k1.alpha_launches, k1.nocull_launches (ops/expand.py),
-preprocess.launches (each launch of the preprocess kernel) and
+preprocess.launches (each launch of the preprocess kernel),
+preprocess.grad_launches (each launch of its backward kernel) and
 preprocess.plain_calls (each plain preprocess on CUDA tensors)
 (ops/projection.py), topk_codes.launches (each launch of the top-k
 codes kernel, forward and backward; ops/topk_codes.py),

@@ -60,6 +60,77 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return result
 
 
+def eval_sh_basis(deg: int, dirs: torch.Tensor) -> list:
+    """[(B_k [...], dB_k / d(x, y, z) [..., 3])] for every coefficient k of
+    degree `deg`: eval_sh is sum_k B_k sh_k. The gradient is that of the
+    polynomial as eval_sh writes it (the direction's unit length unused),
+    so it is autograd's (csrc/preprocess_bwd.cu's `basis`)."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree {deg} is outside 0..4")
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    rows = [(C0 * one, (zero, zero, zero))]
+    if deg > 0:
+        rows += [(-C1 * y, (zero, -C1 * one, zero)),
+                 (C1 * z, (zero, zero, C1 * one)),
+                 (-C1 * x, (-C1 * one, zero, zero))]
+    if deg > 1:
+        a = C2
+        rows += [(a[0] * (x * y), (a[0] * y, a[0] * x, zero)),
+                 (a[1] * (y * z), (zero, a[1] * z, a[1] * y)),
+                 (a[2] * (2.0 * zz - xx - yy),
+                  (a[2] * (-2.0 * x), a[2] * (-2.0 * y), a[2] * (4.0 * z))),
+                 (a[3] * (x * z), (a[3] * z, zero, a[3] * x)),
+                 (a[4] * (xx - yy), (a[4] * (2.0 * x), a[4] * (-2.0 * y),
+                                     zero))]
+    if deg > 2:
+        a = C3
+        rows += [(a[0] * y * (3 * xx - yy), (a[0] * 6 * x * y,
+                                            a[0] * (3 * xx - 3 * yy), zero)),
+                 (a[1] * x * y * z, (a[1] * y * z, a[1] * x * z,
+                                     a[1] * x * y)),
+                 (a[2] * y * (4 * zz - xx - yy),
+                  (a[2] * -2 * x * y, a[2] * (4 * zz - xx - 3 * yy),
+                   a[2] * 8 * y * z)),
+                 (a[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                  (a[3] * -6 * x * z, a[3] * -6 * y * z,
+                   a[3] * (6 * zz - 3 * xx - 3 * yy))),
+                 (a[4] * x * (4 * zz - xx - yy),
+                  (a[4] * (4 * zz - 3 * xx - yy), a[4] * -2 * x * y,
+                   a[4] * 8 * x * z)),
+                 (a[5] * z * (xx - yy), (a[5] * 2 * x * z, a[5] * -2 * y * z,
+                                         a[5] * (xx - yy))),
+                 (a[6] * x * (xx - 3 * yy), (a[6] * (3 * xx - 3 * yy),
+                                             a[6] * -6 * x * y, zero))]
+    if deg > 3:
+        a = C4
+        rows += [(a[0] * x * y * (xx - yy), (a[0] * y * (3 * xx - yy),
+                                             a[0] * x * (xx - 3 * yy), zero)),
+                 (a[1] * y * z * (3 * xx - yy),
+                  (a[1] * 6 * x * y * z, a[1] * z * (3 * xx - 3 * yy),
+                   a[1] * y * (3 * xx - yy))),
+                 (a[2] * x * y * (7 * zz - 1),
+                  (a[2] * y * (7 * zz - 1), a[2] * x * (7 * zz - 1),
+                   a[2] * 14 * x * y * z)),
+                 (a[3] * y * z * (7 * zz - 3),
+                  (zero, a[3] * z * (7 * zz - 3), a[3] * y * (21 * zz - 3))),
+                 (a[4] * (zz * (35 * zz - 30) + 3),
+                  (zero, zero, a[4] * z * (140 * zz - 60))),
+                 (a[5] * x * z * (7 * zz - 3),
+                  (a[5] * z * (7 * zz - 3), zero, a[5] * x * (21 * zz - 3))),
+                 (a[6] * (xx - yy) * (7 * zz - 1),
+                  (a[6] * 2 * x * (7 * zz - 1), a[6] * -2 * y * (7 * zz - 1),
+                   a[6] * 14 * z * (xx - yy))),
+                 (a[7] * x * z * (xx - 3 * yy),
+                  (a[7] * z * (3 * xx - 3 * yy), a[7] * -6 * x * y * z,
+                   a[7] * x * (xx - 3 * yy))),
+                 (a[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
+                  (a[8] * 4 * x * (xx - 3 * yy), a[8] * 4 * y * (yy - 3 * xx),
+                   zero))]
+    return [(b, torch.stack(g, -1)) for b, g in rows]
+
+
 def rgb_to_sh(rgb):
     """RGB in [0, 1] -> degree-0 coefficient."""
     return (rgb - 0.5) / C0

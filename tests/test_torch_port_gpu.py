@@ -1805,8 +1805,12 @@ def test_preprocess_kernel_camera_on_the_card(cuda):
 def test_preprocess_routes_and_sync(cuda):
     """One launch a call and no stream synchronisation with the camera as
     host arrays (torch.cuda.set_sync_debug_mode("error") raises on one);
-    under autograd the plain path runs, counted as a plain call, and
-    differentiates."""
+    under autograd PreprocessGrad runs (one forward launch, one backward
+    launch, no plain call) and differentiates; with a cov3d_precomp that
+    needs a gradient the plain path runs, counted as a plain call."""
+    from langsplatv2_tpu_torch.utils.transforms import \
+        covariance_from_scaling_rotation
+
     h, w = 256, 320
     c = _pre_scene(3000, 3, seed=50)
     view, pm, campos, tfx, tfy = _pre_camera(h, w)
@@ -1833,11 +1837,23 @@ def test_preprocess_routes_and_sync(cuda):
     proj.conic.sum().backward()
     assert scales_g.grad is not None and bool(scales_g.grad.abs().sum() > 0)
     after = tracing.counters()
+    cov = covariance_from_scaling_rotation(scales_g, 1.0, rots)
+    proj = projection.preprocess(means, None, None, shs, None, view, pm,
+                                 campos, tfx, tfy, w, h, 3, opacities=ops,
+                                 cov3d_precomp=cov)
+    proj.conic.sum().backward()
+    last = tracing.counters()
     n = lambda d, k: d.get(k, 0)  # noqa: E731
     assert n(mid, "preprocess.launches") - n(before, "preprocess.launches") \
         == 3
     assert n(mid, "preprocess.plain_calls") \
         == n(before, "preprocess.plain_calls")
-    assert n(after, "preprocess.launches") == n(mid, "preprocess.launches")
+    assert n(after, "preprocess.launches") - n(mid, "preprocess.launches") \
+        == 1
+    assert n(after, "preprocess.grad_launches") \
+        - n(mid, "preprocess.grad_launches") == 1
     assert n(after, "preprocess.plain_calls") \
-        - n(mid, "preprocess.plain_calls") == 1
+        == n(mid, "preprocess.plain_calls")
+    assert n(last, "preprocess.plain_calls") \
+        - n(after, "preprocess.plain_calls") == 1
+    assert n(last, "preprocess.launches") == n(after, "preprocess.launches")
